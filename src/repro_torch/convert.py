@@ -1,0 +1,64 @@
+"""Carry a schedule built by the JAX package across to the port.
+
+The system runs no model, so its "weights" are the built index.  These
+functions take the fields of the JAX package's ``LevelSchedule`` /
+``QuantizedSchedule`` as numpy arrays (``dataclasses.asdict`` on the JAX
+side gives them) and return the port's dataclasses on ``device``, so a
+schedule the JAX package built through any path — an mqr tree schedule
+included — can be swept by the port.  This module imports nothing of the
+JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.flat import LevelSchedule, QuantizedSchedule
+from repro_torch.kernels.ops import resolve_device
+
+
+def _tensor(value, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(value, dtype))).to(device)
+
+
+def schedule_from_numpy(fields: dict, device=None) -> LevelSchedule:
+    """The port's :class:`LevelSchedule` from a JAX ``LevelSchedule``'s
+    fields (numpy arrays, ints and bools)."""
+    dev = resolve_device(device)
+    return LevelSchedule(
+        mbr_cm=_tensor(fields["mbr_cm"], np.float32, dev),
+        parent=_tensor(fields["parent"], np.int32, dev),
+        n_real=_tensor(fields["n_real"], np.int32, dev),
+        obj_mbr=_tensor(np.reshape(fields["obj_mbr"], (-1, 4)), np.float32, dev),
+        obj_level=_tensor(fields["obj_level"], np.int32, dev),
+        obj_slot=_tensor(fields["obj_slot"], np.int32, dev),
+        obj_id=_tensor(fields["obj_id"], np.int32, dev),
+        n_objects=int(fields["n_objects"]),
+        root_unconditional=bool(fields["root_unconditional"]),
+        test_object_mbr=bool(fields["test_object_mbr"]),
+    )
+
+
+def quantized_from_numpy(fields: dict, device=None) -> QuantizedSchedule:
+    """The port's :class:`QuantizedSchedule` from a JAX
+    ``QuantizedSchedule``'s fields; ``fields["base"]`` holds the base
+    schedule's fields.  The hierarchical uint8 form is not ported yet."""
+    if fields.get("mbr_q8") is not None or fields.get("split", 0):
+        raise NotImplementedError(
+            "uint8 upper-level tiles (precision='compact8') are not ported "
+            "to repro_torch yet; see ROADMAP.md"
+        )
+    dev = resolve_device(device)
+    parent_q = np.asarray(fields["parent_q"])
+    if parent_q.dtype not in (np.uint16, np.int32):
+        raise TypeError(f"parent_q must be uint16 or int32, got {parent_q.dtype}")
+    return QuantizedSchedule(
+        base=schedule_from_numpy(fields["base"], dev),
+        mbr_q=_tensor(fields["mbr_q"], np.uint16, dev),
+        parent_q=_tensor(parent_q, parent_q.dtype, dev),
+        origin=_tensor(fields["origin"], np.float32, dev),
+        inv_cell=_tensor(fields["inv_cell"], np.float32, dev),
+        confirm_mbr=_tensor(np.reshape(fields["confirm_mbr"], (-1, 4)), np.float32, dev),
+        cells=int(fields["cells"]),
+    )

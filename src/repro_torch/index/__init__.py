@@ -1,0 +1,12 @@
+"""The :class:`SpatialIndex` façade and its backend registry."""
+
+from .api import (
+    AccessStats,
+    BuildArtifacts,
+    InvalidQueryError,
+    RegionResult,
+    SpatialIndex,
+    validate_mbrs,
+    validate_queries,
+)
+from .registry import advertised_pairs, backend_names, get_backend, register_backend

@@ -1,0 +1,55 @@
+"""Public kernel wrappers and the device policy of the port.
+
+Counterpart of ``repro.kernels.ops``.  Where the JAX package chose between
+compiled and interpreted Pallas (``interpret_default``), the port chooses a
+device: entry points run on the CUDA card unless the caller passes
+``device="cpu"``, and without a card they raise instead of quietly running
+on the CPU.  A tensor on the CPU takes each kernel's plain PyTorch version;
+a CUDA tensor always launches the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._lib import counters as counters  # noqa: F401 (re-export)
+from .build import build_levels as build_levels  # noqa: F401
+from .build import build_levels_torch as build_levels_torch  # noqa: F401
+from .build import device_schedule as device_schedule  # noqa: F401
+from .pyramid_scan import level_sweep as level_sweep  # noqa: F401
+from .pyramid_scan import level_sweep_torch as level_sweep_torch  # noqa: F401
+from .pyramid_scan import pyramid_scan as pyramid_scan  # noqa: F401
+from .pyramid_scan import pyramid_scan_compact as pyramid_scan_compact  # noqa: F401
+from .quantize import grid_params as grid_params  # noqa: F401
+from .quantize import quantize_cm as quantize_cm  # noqa: F401
+from .quantize import quantize_cm_torch as quantize_cm_torch  # noqa: F401
+from .quantize import quantize_schedule as quantize_schedule  # noqa: F401
+
+
+def default_device() -> torch.device:
+    """The device an entry point uses when the caller names none: the CUDA
+    card.  Raises when there is no card — running on the CPU has to be
+    asked for with ``device="cpu"``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch versions "
+            "of the kernels on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> :func:`default_device`; otherwise the named device,
+    which must be ``cpu`` or an available ``cuda`` device."""
+    if device is None:
+        return default_device()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")
+    return dev

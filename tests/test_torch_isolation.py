@@ -1,0 +1,95 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither ``jax`` nor the JAX package ``repro``, and the port never falls
+back to the CPU unless asked to."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import SpatialIndex, convert
+from repro_torch.kernels import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_repro(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_runs_with_jax_and_repro_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch import SpatialIndex\n"
+        "from repro_torch.core import datasets\n"
+        "d = datasets.uniform_squares(300, seed=4)\n"
+        "q = datasets.region_queries(d, 4, seed=4)\n"
+        "for p in ('float32', 'compact'):\n"
+        "    r = SpatialIndex.build(d, build='device', precision=p, device='cpu').region(q)\n"
+        "    assert r.hits.shape == (4, 300) and int(r.counts.sum()) > 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """With no card and no explicit CPU request, nothing runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = np.array([[0.0, 0.0, 1.0, 1.0], [2.0, 2.0, 3.0, 3.0]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpatialIndex.build(data)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.device_schedule(data)
+    with pytest.raises(RuntimeError):
+        ops.resolve_device("cuda")
+    sched = ops.device_schedule(data, device="cpu")
+    fields = {f: getattr(sched, f).numpy() if isinstance(getattr(sched, f), torch.Tensor)
+              else getattr(sched, f) for f in sched.__dataclass_fields__}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.schedule_from_numpy(fields)
+    # asked for explicitly, the CPU works
+    assert SpatialIndex.build(data, device="cpu").device == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Without a card chip_smoke.py exits nonzero and prints no result; in
+    a directory holding nothing else of the repository it fails too."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0
+        assert '"ok": true' not in res.stdout
