@@ -1,27 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main serving path on one CUDA card and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one CUDA card and check them.
 
-    python3 chip_smoke.py [--n 1000000] [--queries 256] [--seed 0]
+    python3 chip_smoke.py [--n 1000000] [--queries 256] [--seed 0] [--tree-n 50000]
 
-Phases:
+Phases (each path is driven with every launch counter set to 0 just before
+it and read just after):
   1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc;
-  2. main path, with every launch counter set to 0 just before it:
-     ``SpatialIndex.build(uniform_squares(n), structure="pyramid",
-     build="device")`` on the card, then ``.region / .point / .count`` at
-     ``precision="float32"`` and ``"compact"``; fails unless every kernel
+     start a second, independent build of both trees in worker processes;
+  2. pyramid path: ``SpatialIndex.build(uniform_squares(n),
+     structure="pyramid", build="device")`` on the card, then ``.region /
+     .point / .count`` at ``precision="float32"`` and ``"compact"`` (tiling
+     pinned to ``block_w=128, autotune="off"``); fails unless every kernel
      of the path launched;
-  3. results: hits and visits equal the plain-PyTorch path on the same
-     card (plain build, plain quantizer, plain sweep), compact hits equal
-     float32 hits, hits cover a brute-force object-overlap mask (extra hits
-     are printed), counts agree, and a small index on the card agrees with
-     the numpy oracle on the CPU;
-  4. each kernel against its plain version at the main path's shapes
-     (exact equality: masks, integers and float32 min/max/compare do not
-     round), timed with CUDA events (median of 7 after warm-up), beside the
-     least time the card needs for the same bytes and operations;
-  5. end-to-end times of build, region and point batches, peak device
-     memory, and a torch.profiler trace of one region batch per precision
-     (device time by kernel, and the device's idle share of the window).
+  3. pyramid results: hits and visits equal the plain-PyTorch path on the
+     same card (plain build, plain quantizer, plain sweep), compact hits
+     equal float32 hits, hits cover a brute-force object-overlap mask (extra
+     hits are printed), counts agree, and a small index on the card agrees
+     with the numpy oracle on the CPU;
+  4. pyramid extras: ``precision="compact8"`` (uint8 upper tiles, int32
+     parents), ``per_level_region_search`` (one ``mbr_scan`` launch per
+     level) and a default-configured backend (``autotune="auto"``, whose
+     tuned tiling is printed); hits and visits equal the fused float32 path,
+     compact8 visits equal the plain hierarchical sweep;
+  5. tree path: ``SpatialIndex.build(uniform_squares(tree_n))`` with the
+     port's defaults (the paper's mqr-tree) and ``structure="rtree"`` over
+     the same data, each answering region, point and count batches at
+     float32, compact and compact8 (tree schedules: root visited
+     unconditionally, object-MBR gate, uint16 parents); fails unless the
+     sweeps, the hierarchical sweep, the quantizer and a uint16-parent
+     sweep launched;
+  6. tree results: hits and visits equal the plain path at each precision,
+     hits equal the host pointer-search oracle (visits too at float32),
+     compact hits equal float32 hits, and each tree schedule equals the
+     second build's;
+  7. flat levels: a tree schedule swept with ``uncond_from = L - 1`` by
+     each sweep kernel equals its plain version;
+  8. each kernel against its plain version at its path's shapes (exact
+     equality: masks, integers and float32 min/max/compare do not round),
+     timed with CUDA events (median of 7 after warm-up), beside the least
+     time the card needs for the same bytes and operations;
+  9. end-to-end times of builds, region and point batches (first call,
+     which includes autotuning, apart from the steady state), peak device
+     memory, and a torch.profiler trace of one region batch per path and
+     precision (device time by kernel, and the device's idle share).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -32,12 +53,16 @@ phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import json
+import multiprocessing
 import statistics
 import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +75,11 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 REPEATS = 7
+PRECISIONS = ("float32", "compact", "compact8")
+TREES = ("mqr", "rtree")
+# The pyramid path of the first slice keeps its fixed tiling, so its times
+# stay comparable from run to run.
+FIXED = {"block_w": 128, "autotune": "off"}
 
 
 def nvidia_smi_line() -> str:
@@ -58,6 +88,22 @@ def nvidia_smi_line() -> str:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
+
+
+def second_tree_build(structure: str, n: int, seed: int):
+    """Build a tree's level schedule again, in a worker process, through
+    the port's host modules; returns (host build seconds, numpy fields)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import datasets, flat, mqrtree, rtree
+
+    data = datasets.uniform_squares(n, seed=seed)
+    t = time.perf_counter()
+    tree = mqrtree.build(data) if structure == "mqr" else rtree.build(data)
+    build_s = time.perf_counter() - t
+    sched = flat.level_schedule(flat.flatten(tree))
+    return build_s, {f.name: (v.numpy() if isinstance(v, torch.Tensor) else v)
+                     for f in dataclasses.fields(sched)
+                     for v in [getattr(sched, f.name)]}
 
 
 def card_device() -> torch.device:
@@ -152,9 +198,11 @@ class Checks:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=1_000_000, help="objects")
+    ap.add_argument("--n", type=int, default=1_000_000, help="pyramid objects")
     ap.add_argument("--queries", type=int, default=256, help="queries per batch")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tree-n", type=int, default=50_000,
+                    help="objects of the mqr-tree and R-tree (host-built)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -162,14 +210,31 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     try:
-        from repro_torch import SpatialIndex
-        from repro_torch.core import datasets
-        from repro_torch.core.flat import overlaps
-        from repro_torch.kernels import _lib, ops
-        from repro_torch.kernels.pyramid_scan import _quantize_queries
+        import repro_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})", file=sys.stderr)
         return 1
+
+    # The second tree builds run beside the card's work, in processes that
+    # never touch the card (spawned, so they inherit no CUDA state).
+    pool = ProcessPoolExecutor(max_workers=len(TREES),
+                               mp_context=multiprocessing.get_context("spawn"))
+    try:
+        second = {s: pool.submit(second_tree_build, s, args.tree_n, args.seed)
+                  for s in TREES}
+        return run(args, second)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run(args, second) -> int:
+    """Every phase after the checks of :func:`main`; ``second`` maps each
+    tree structure to the future of its second build."""
+    from repro_torch import SpatialIndex
+    from repro_torch.core import datasets
+    from repro_torch.core.flat import overlaps
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.kernels.pyramid_scan import _quantize_queries
 
     dev = card_device()
     card = nvidia_smi_line()
@@ -186,43 +251,55 @@ def main(argv=None) -> int:
         print(f"FAILED: {checks.failures}", flush=True)
         return 1
 
+    def point_queries(d, seed):
+        rng = np.random.default_rng(seed + 1)
+        pick = d[rng.integers(0, d.shape[0], size=args.queries)]
+        return np.stack([(pick[:, 0] + pick[:, 2]) * 0.5,
+                         (pick[:, 1] + pick[:, 3]) * 0.5], axis=1).astype(np.float32)
+
     data = datasets.uniform_squares(args.n, seed=args.seed)
     queries = datasets.region_queries(data, args.queries, seed=args.seed).astype(np.float32)
-    rng = np.random.default_rng(args.seed + 1)
-    pick = data[rng.integers(0, args.n, size=args.queries)]
-    points = np.stack([(pick[:, 0] + pick[:, 2]) * 0.5,
-                       (pick[:, 1] + pick[:, 3]) * 0.5], axis=1).astype(np.float32)
+    points = point_queries(data, args.seed)
     q_dev = torch.from_numpy(queries).to(dev)
     out = {}
+    paths = {}  # path name -> launch counts of its run
 
-    # -- 2. main path --------------------------------------------------
+    def drive(ix, qs, ps):
+        """region + point + count on one index; the first call's host time."""
+        t = time.perf_counter()
+        region = ix.region(qs)
+        point = ix.point(ps)
+        count = ix.count(qs)
+        sync()
+        return dict(index=ix, region=region, point=point, count=count,
+                    first_ms=(time.perf_counter() - t) * 1e3)
+
+    def expect_launched(path, names):
+        for name in names:
+            n = paths[path].get(name, 0)
+            checks.expect(n > 0, f"{name} launched on the {path} path ({n})")
+
+    # -- 2. pyramid path -----------------------------------------------
     def main_path():
         sync()
         _lib.counters.reset()
         t = time.perf_counter()
-        idx = SpatialIndex.build(data, structure="pyramid", build="device")
+        idx = SpatialIndex.build(data, structure="pyramid", build="device", **FIXED)
         sync()
         out["build_ms"] = (time.perf_counter() - t) * 1e3
         for precision in ("float32", "compact"):
-            t = time.perf_counter()
             ix = idx if precision == "float32" else idx.with_backend(
-                "cuda", precision="compact")
-            region = ix.region(queries)
-            point = ix.point(points)
-            count = ix.count(queries)
-            sync()
-            out[precision] = dict(index=ix, region=region, point=point, count=count,
-                                  first_ms=(time.perf_counter() - t) * 1e3)
+                "cuda", precision="compact", **FIXED)
+            out[precision] = drive(ix, queries, points)
         sync()
-        out["launches"] = _lib.counters.snapshot()
+        paths["pyramid"] = out["launches"] = _lib.counters.snapshot()
         out["index"] = idx
         print(f"  levels {idx.schedule.levels}  width {idx.schedule.width}  "
               f"build {out['build_ms']:.1f} ms  launches {out['launches']}", flush=True)
-        for name in ("build_levels", "quantize_cm", "level_sweep_f32", "level_sweep_u16"):
-            checks.expect(out["launches"].get(name, 0) > 0,
-                          f"{name} launched on the main path ({out['launches'].get(name, 0)})")
+        expect_launched("pyramid", ("build_levels", "quantize_cm", "level_sweep_f32",
+                                    "level_sweep_u16"))
 
-    checks.phase("main path", main_path)
+    checks.phase("pyramid path", main_path)
     if "index" not in out:
         print(f"FAILED: {checks.failures}", flush=True)
         return 1
@@ -230,13 +307,14 @@ def main(argv=None) -> int:
     sched = idx.schedule
     qsched = idx.artifacts.quantized
 
-    # -- 3. results ----------------------------------------------------
+    # -- 3. pyramid results --------------------------------------------
     def results():
         plain = ops.device_schedule(data, levels=sched.levels, engine="torch", device=dev)
         for f in ("mbr_cm", "parent", "n_real", "obj_mbr", "obj_level", "obj_slot", "obj_id"):
             checks.expect(same(getattr(sched, f), getattr(plain, f)),
                           f"device build == plain build: {f}")
         qplain = ops.quantize_schedule(plain, engine="torch")
+        out["qplain"] = qplain
         for f in ("mbr_q", "parent_q", "origin", "inv_cell", "confirm_mbr"):
             checks.expect(same(getattr(qsched, f), getattr(qplain, f)),
                           f"quantized schedule == plain: {f}")
@@ -269,21 +347,204 @@ def main(argv=None) -> int:
         # a small index on the card against the numpy oracle on the CPU
         small = data[:2000]
         sq = datasets.region_queries(small, 8, seed=args.seed)
+        oracle = SpatialIndex.build(small, structure="pyramid", backend="host",
+                                    device="cpu").region(sq)
         for precision in ("float32", "compact"):
             for build in ("device", "host"):
-                on_card = SpatialIndex.build(small, build=build, precision=precision).region(sq)
-                oracle = SpatialIndex.build(small, backend="host", device="cpu").region(sq)
+                on_card = SpatialIndex.build(small, structure="pyramid", build=build,
+                                             precision=precision).region(sq)
                 checks.expect(
                     same(on_card.hits.cpu(), oracle.hits)
                     and same(on_card.visits_per_level.cpu(), oracle.visits_per_level),
                     f"n=2000 {precision} build={build} on the card == numpy oracle")
 
-    checks.phase("results", results)
+    checks.phase("pyramid results", results)
 
-    # -- 4. kernels against their plain versions -----------------------
+    # -- 4. pyramid extras: compact8, the per-level plan, autotuning ---
+    def pyramid_extras():
+        sync()
+        _lib.counters.reset()
+        t = time.perf_counter()
+        ix8 = idx.with_backend("cuda", precision="compact8", **FIXED)
+        sync()
+        out["quantize8_ms"] = (time.perf_counter() - t) * 1e3
+        out["compact8"] = drive(ix8, queries, points)
+        t = time.perf_counter()
+        hits, visits, n_launches = ops.per_level_region_search(sched, q_dev)
+        sync()
+        out["per_level"] = dict(hits=hits, visits=visits, launches=n_launches,
+                                first_ms=(time.perf_counter() - t) * 1e3)
+        auto = idx.with_backend("cuda")  # the reference's defaults: autotune="auto"
+        t = time.perf_counter()
+        region = auto.region(queries)
+        sync()
+        out["auto"] = dict(index=auto, region=region,
+                           first_ms=(time.perf_counter() - t) * 1e3)
+        sync()
+        paths["pyramid extras"] = _lib.counters.snapshot()
+        print(f"  launches {paths['pyramid extras']}", flush=True)
+        print(f"  autotune winners {idx.artifacts.tuned}", flush=True)
+        expect_launched("pyramid extras", ("level_sweep_hier", "mbr_scan"))
+        q8 = out["compact8"]["index"].artifacts.quantized8
+        print(f"  compact8 split {q8.split} of {sched.levels} levels, parents "
+              f"{q8.parent_q.dtype}, streamed tile+parent bytes {q8.streamed_bytes} "
+              f"(compact {qsched.streamed_bytes})", flush=True)
+        f32 = out["float32"]["region"]
+        checks.expect(same(hits, f32.hits) and same(visits, f32.visits_per_level),
+                      "per-level plan hits and visits == fused float32 path")
+        checks.expect(n_launches == sched.levels, f"per-level plan made {n_launches} launches")
+        checks.expect(same(region.hits, f32.hits)
+                      and same(region.visits_per_level, f32.visits_per_level),
+                      "autotuned backend hits and visits == fused float32 path")
+        qplain8 = ops.quantize_schedule(sched, engine="torch", upper8=True)
+        for f in ("mbr_q8", "mbr_q", "parent_q", "inv_cell8"):
+            checks.expect(same(getattr(q8, f), getattr(qplain8, f)),
+                          f"compact8 schedule == plain: {f}")
+        r8 = out["compact8"]
+        h8, v8 = ops.pyramid_scan_compact8(qplain8, q_dev, engine="torch")
+        checks.expect(same(r8["region"].hits, f32.hits), "compact8 hits == float32 hits")
+        checks.expect(same(r8["region"].hits, h8) and same(r8["region"].visits_per_level, v8),
+                      "compact8 hits and visits == plain hierarchical sweep")
+        checks.expect(same(r8["count"], r8["region"].hits.sum(dim=1)),
+                      "compact8 count == region hits per query")
+        print(f"  visits/query compact8 {float(v8.sum()) / args.queries:.2f}", flush=True)
+
+    checks.phase("pyramid extras", pyramid_extras)
+
+    # -- 5. tree path: the paper's mqr-tree and the R-tree -------------
+    tree_data = datasets.uniform_squares(args.tree_n, seed=args.seed)
+    tree_queries = datasets.region_queries(tree_data, args.queries,
+                                           seed=args.seed).astype(np.float32)
+    tree_points = point_queries(tree_data, args.seed)
+    trees = {}
+
+    def tree_path():
+        sync()
+        _lib.counters.reset()
+        for structure in TREES:
+            t = time.perf_counter()
+            if structure == "mqr":
+                tix = SpatialIndex.build(tree_data)  # the port's defaults
+            else:
+                tix = SpatialIndex.build(tree_data, structure="rtree")
+            host_s = time.perf_counter() - t
+            t = time.perf_counter()
+            s = tix.schedule
+            sync()
+            tr = dict(index=tix, host_build_s=host_s,
+                      lower_ms=(time.perf_counter() - t) * 1e3)
+            for precision in PRECISIONS:
+                ix = tix if precision == "float32" else tix.with_backend(
+                    "cuda", precision=precision)
+                tr[precision] = drive(ix, tree_queries, tree_points)
+            trees[structure] = tr
+            print(f"  {structure}: host build {host_s:.1f} s, schedule L {s.levels} "
+                  f"W {s.width} (lowering {tr['lower_ms']:.0f} ms), first "
+                  + ", ".join(f"{p} {tr[p]['first_ms']:.1f} ms" for p in PRECISIONS),
+                  flush=True)
+            print(f"  {structure} autotune winners {tix.artifacts.tuned}", flush=True)
+        sync()
+        paths["tree"] = _lib.counters.snapshot()
+        print(f"  launches {paths['tree']}", flush=True)
+        expect_launched("tree", ("level_sweep_f32", "level_sweep_u16", "level_sweep_hier",
+                                 "quantize_cm", "level_sweep_u16p"))
+
+    checks.phase("tree path", tree_path)
+
+    # -- 6. tree results -----------------------------------------------
+    def tree_results():
+        tq = torch.from_numpy(tree_queries).to(dev)
+        tp = torch.from_numpy(tree_points).to(dev)
+        tpq = torch.cat([tp, tp], dim=1)
+        for structure, tr in trees.items():
+            tix = tr["index"]
+            s = tix.schedule
+            checks.expect(s.root_unconditional and s.test_object_mbr,
+                          f"{structure} schedule visits the root unconditionally and "
+                          f"gates on object MBRs")
+            build_s, fields = second[structure].result()
+            tr["second_build_s"] = build_s
+            for f, want in fields.items():
+                got = getattr(s, f)
+                ok = (same(got.cpu(), torch.from_numpy(want))
+                      if isinstance(got, torch.Tensor) else got == want)
+                checks.expect(ok, f"{structure} schedule == second build: {f}")
+            q16 = tix.artifacts.quantized
+            q8 = tix.artifacts.quantized8
+            checks.expect(q16.parent_q.dtype == torch.uint16
+                          and same(q16.parent_q.to(torch.int32), s.parent),
+                          f"{structure} uint16 parents == int32 parents")
+            qp16 = ops.quantize_schedule(s, engine="torch")
+            qp8 = ops.quantize_schedule(s, engine="torch", upper8=True)
+            for f in ("mbr_q", "parent_q", "origin", "inv_cell", "confirm_mbr"):
+                checks.expect(same(getattr(q16, f), getattr(qp16, f)),
+                              f"{structure} quantized schedule == plain: {f}")
+            for f in ("mbr_q8", "mbr_q", "inv_cell8"):
+                checks.expect(same(getattr(q8, f), getattr(qp8, f)),
+                              f"{structure} compact8 schedule == plain: {f}")
+            oracle = tix.with_backend("host")
+            want = {"region": oracle.region(tree_queries), "point": oracle.point(tree_points)}
+            plain = {"float32": lambda q: ops.pyramid_scan(s, q, engine="torch"),
+                     "compact": lambda q: ops.pyramid_scan_compact(qp16, q, engine="torch"),
+                     "compact8": lambda q: ops.pyramid_scan_compact8(qp8, q, engine="torch")}
+            for precision in PRECISIONS:
+                r = tr[precision]
+                for what, q in (("region", tq), ("point", tpq)):
+                    res = r[what]
+                    hits, visits = plain[precision](q)
+                    checks.expect(same(res.hits, hits) and same(res.visits_per_level, visits),
+                                  f"{structure} {precision} {what} hits and visits == "
+                                  f"plain path")
+                    checks.expect(same(res.hits.cpu(), want[what].hits),
+                                  f"{structure} {precision} {what} hits == host pointer search")
+                    if precision == "float32":
+                        checks.expect(
+                            same(res.visits_per_level.cpu(), want[what].visits_per_level),
+                            f"{structure} float32 {what} visits == host pointer search")
+                if precision != "float32":
+                    checks.expect(same(r["region"].hits, tr["float32"]["region"].hits),
+                                  f"{structure} {precision} hits == float32 hits")
+                checks.expect(same(r["count"], r["region"].hits.sum(dim=1)),
+                              f"{structure} {precision} count == region hits per query")
+            per_q = {p: float(tr[p]["region"].visits_per_level.sum()) / args.queries
+                     for p in PRECISIONS}
+            print(f"  {structure}: hits {int(tr['float32']['region'].hits.sum())}, visits/query "
+                  + ", ".join(f"{p} {v:.2f}" for p, v in per_q.items())
+                  + f"; second host build {build_s:.1f} s", flush=True)
+
+    checks.phase("tree results", tree_results)
+
+    # -- 7. flat levels ------------------------------------------------
+    def flat_levels():
+        s = trees["mqr"]["index"].schedule
+        q16 = trees["mqr"]["index"].artifacts.quantized
+        q8 = trees["mqr"]["index"].artifacts.quantized8
+        tq = torch.from_numpy(tree_queries).to(dev)
+        qq16 = _quantize_queries(tq, q16.origin, q16.inv_cell, q16.cells)
+        qq8 = _quantize_queries(tq, q8.origin, q8.inv_cell8, q8.cells8)
+        hier = (qq8, qq16, q8.mbr_q8, q8.mbr_q[q8.split:], q8.parent_q)
+        for uncond in (s.levels - 1, 1):
+            for name, kernel, plain, sweep_args in (
+                ("level_sweep f32", ops.level_sweep, ops.level_sweep_torch,
+                 (tq, s.mbr_cm, s.parent)),
+                ("level_sweep u16 tiles, u16 parents", ops.level_sweep,
+                 ops.level_sweep_torch, (qq16, q16.mbr_q, q16.parent_q)),
+                ("level_sweep_hier", functools.partial(ops.level_sweep_hier, split=q8.split),
+                 functools.partial(ops.level_sweep_hier_torch, split=q8.split), hier),
+            ):
+                got = kernel(*sweep_args, uncond_from=uncond)
+                want = plain(*sweep_args, uncond_from=uncond)
+                checks.expect(same(got, want),
+                              f"{name} with uncond_from = {uncond} of L = {s.levels} == "
+                              f"plain ({int(got[uncond:].sum())} flat-level survivors)")
+
+    checks.phase("flat levels (uncond_from = L - 1, and 1)", flat_levels)
+
+    # -- 8. kernels against their plain versions -----------------------
     kernels = []
 
-    def kernel_row(name, source, replaces, kernel_fn, plain_fn, nbytes, ops_count):
+    def kernel_row(name, source, replaces, kernel_fn, plain_fn, nbytes, ops_count,
+                   launches):
         got, want = kernel_fn(), plain_fn()
         sync()
         got = got if isinstance(got, tuple) else (got,)
@@ -297,16 +558,27 @@ def main(argv=None) -> int:
         b_ms, b_by = bound_ms(nbytes, ops_count)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=out["launches"].get(name, 0), max_abs_err=err, ms=ms,
+            launches=launches, max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         ))
         print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
-              f"by {b_by})", flush=True)
+              f"by {b_by}; {launches} launches on its path)", flush=True)
+
+    sweep_src = "src/repro_torch/kernels/csrc/level_sweep.cu"
+
+    def sweep_bytes(nq, levels, width, tile_bytes, pbytes, root_only):
+        """Queries read, tiles and parents of every tested level read once,
+        the (L, Q, W) mask written once."""
+        tested = levels - int(root_only)
+        return nq * 16 + tested * width * (tile_bytes + pbytes) + levels * nq * width
 
     def kernel_phase():
         L, _, W = sched.mbr_cm.shape
         nq = q_dev.shape[0]
         obj = sched.obj_mbr
+        pyr = paths.get("pyramid", {})
+        extras = paths.get("pyramid extras", {})
+        tree = paths.get("tree", {})
         kernel_row(
             "build_levels", "src/repro_torch/kernels/csrc/build_levels.cu",
             "src/repro/kernels/build.py:215",
@@ -315,7 +587,7 @@ def main(argv=None) -> int:
             # read the MBRs; write group_of, mbr_cm, parent (24 B/slot) and n_real
             nbytes=obj.numel() * 4 + L * W * (4 + 16 + 4) + L * 4,
             # per level and object: centroids, quadrant, key, 4 min/max, count
-            ops_count=L * W * 16,
+            ops_count=L * W * 16, launches=pyr.get("build_levels", 0),
         )
         kernel_row(
             "quantize_cm", "src/repro_torch/kernels/csrc/quantize.cu",
@@ -323,54 +595,128 @@ def main(argv=None) -> int:
             lambda: ops.quantize_cm(sched.mbr_cm, qsched.origin, qsched.inv_cell),
             lambda: ops.quantize_cm_torch(sched.mbr_cm, qsched.origin, qsched.inv_cell),
             nbytes=sched.mbr_cm.numel() * (4 + 2) + 32,
-            ops_count=sched.mbr_cm.numel() * 6,
+            ops_count=sched.mbr_cm.numel() * 6, launches=pyr.get("quantize_cm", 0),
         )
         kernel_row(
-            "level_sweep_f32", "src/repro_torch/kernels/csrc/level_sweep.cu",
-            "src/repro/kernels/pyramid_scan.py:498",
+            "level_sweep_f32", sweep_src, "src/repro/kernels/pyramid_scan.py:498",
             lambda: ops.level_sweep(q_dev, sched.mbr_cm, sched.parent,
                                     root_unconditional=False),
             lambda: ops.level_sweep_torch(q_dev, sched.mbr_cm, sched.parent,
                                           root_unconditional=False),
-            # read queries, float32 tiles and int32 parents; write the mask
-            nbytes=nq * 16 + L * W * (16 + 4) + L * nq * W,
-            ops_count=L * nq * W * 8,
+            nbytes=sweep_bytes(nq, L, W, 16, 4, False),
+            ops_count=L * nq * W * 8, launches=pyr.get("level_sweep_f32", 0),
         )
         qq = _quantize_queries(q_dev, qsched.origin, qsched.inv_cell, qsched.cells)
         pbytes = qsched.parent_q.element_size()
         kernel_row(
-            "level_sweep_u16", "src/repro_torch/kernels/csrc/level_sweep.cu",
-            "src/repro/kernels/pyramid_scan.py:498",
+            "level_sweep_u16", sweep_src, "src/repro/kernels/pyramid_scan.py:498",
             lambda: ops.level_sweep(qq, qsched.mbr_q, qsched.parent_q,
                                     root_unconditional=False),
             lambda: ops.level_sweep_torch(qq, qsched.mbr_q, qsched.parent_q,
                                           root_unconditional=False),
-            nbytes=nq * 16 + L * W * (8 + pbytes) + L * nq * W,
-            ops_count=L * nq * W * 8,
+            nbytes=sweep_bytes(nq, L, W, 8, pbytes, False),
+            ops_count=L * nq * W * 8, launches=pyr.get("level_sweep_u16", 0),
+        )
+        # #3 at the pyramid's full width: uint8 tiles for L - 1 levels, int32 parents
+        q8 = idx.artifacts.quantized8
+        qq8 = _quantize_queries(q_dev, q8.origin, q8.inv_cell8, q8.cells8)
+        sp = q8.split
+        kernel_row(
+            "level_sweep_hier", sweep_src, "src/repro/kernels/pyramid_scan.py:617",
+            lambda: ops.level_sweep_hier(qq8, qq, q8.mbr_q8, q8.mbr_q[sp:], q8.parent_q,
+                                         split=sp, root_unconditional=False),
+            lambda: ops.level_sweep_hier_torch(qq8, qq, q8.mbr_q8, q8.mbr_q[sp:],
+                                               q8.parent_q, split=sp,
+                                               root_unconditional=False),
+            nbytes=nq * 16 + sweep_bytes(nq, L, W, 0, q8.parent_q.element_size(), False)
+            + sp * W * 4 + (L - sp) * W * 8,
+            ops_count=L * nq * W * 8, launches=extras.get("level_sweep_hier", 0),
+        )
+        # #7 on one level of the pyramid (the widest), read in place
+        lvl = L - 1
+        kernel_row(
+            "mbr_scan", "src/repro_torch/kernels/csrc/mbr_scan.cu",
+            "src/repro/kernels/mbr_scan.py:60",
+            lambda: ops.mbr_scan_cm(sched.mbr_cm[lvl], q_dev),
+            lambda: ops.mbr_scan_torch(sched.mbr_cm[lvl].T, q_dev),
+            nbytes=nq * 16 + W * 16 + nq * W,
+            ops_count=nq * W * 8, launches=extras.get("mbr_scan", 0),
+        )
+        if "mqr" not in trees:
+            return
+        # the mqr tree schedule: uint16 parents, root-only level 0, object gate
+        ts = trees["mqr"]["index"].schedule
+        t16 = trees["mqr"]["index"].artifacts.quantized
+        t8 = trees["mqr"]["index"].artifacts.quantized8
+        tl, _, tw = ts.mbr_cm.shape
+        tq = torch.from_numpy(tree_queries).to(dev)
+        tqq = _quantize_queries(tq, t16.origin, t16.inv_cell, t16.cells)
+        tqq8 = _quantize_queries(tq, t8.origin, t8.inv_cell8, t8.cells8)
+        kernel_row(
+            "level_sweep_u16p", sweep_src, "src/repro/kernels/pyramid_scan.py:498",
+            lambda: ops.level_sweep(tqq, t16.mbr_q, t16.parent_q),
+            lambda: ops.level_sweep_torch(tqq, t16.mbr_q, t16.parent_q),
+            nbytes=sweep_bytes(nq, tl, tw, 8, 2, True),
+            ops_count=tl * nq * tw * 8, launches=tree.get("level_sweep_u16p", 0),
+        )
+        ts8 = t8.split
+        kernel_row(
+            "level_sweep_hier_u16p", sweep_src, "src/repro/kernels/pyramid_scan.py:617",
+            lambda: ops.level_sweep_hier(tqq8, tqq, t8.mbr_q8, t8.mbr_q[ts8:], t8.parent_q,
+                                         split=ts8),
+            lambda: ops.level_sweep_hier_torch(tqq8, tqq, t8.mbr_q8, t8.mbr_q[ts8:],
+                                               t8.parent_q, split=ts8),
+            nbytes=nq * 16 + sweep_bytes(nq, tl, tw, 0, 2, True)
+            + (ts8 - 1) * tw * 4 + (tl - ts8) * tw * 8,
+            ops_count=tl * nq * tw * 8, launches=tree.get("level_sweep_hier_u16p", 0),
         )
 
     checks.phase("kernels vs plain versions", kernel_phase)
 
+    # -- 9. end-to-end timings and profile -----------------------------
     def timings():
         out["build_steady_ms"] = wall_ms(
-            lambda: SpatialIndex.build(data, structure="pyramid", build="device"), 5)
-        for precision in ("float32", "compact"):
+            lambda: SpatialIndex.build(data, structure="pyramid", build="device", **FIXED), 5)
+        for precision in ("float32", "compact", "compact8"):
             ix = out[precision]["index"]
             out[precision]["region_ms"] = wall_ms(lambda: ix.region(queries))
             out[precision]["point_ms"] = wall_ms(lambda: ix.point(points))
+        out["per_level"]["region_ms"] = wall_ms(
+            lambda: ops.per_level_region_search(sched, q_dev))
+        out["auto"]["region_ms"] = wall_ms(lambda: out["auto"]["index"].region(queries))
+        for tr in trees.values():
+            for precision in PRECISIONS:
+                ix = tr[precision]["index"]
+                tr[precision]["region_ms"] = wall_ms(lambda: ix.region(tree_queries))
+                tr[precision]["point_ms"] = wall_ms(lambda: ix.point(tree_points))
+        sync()
+        live = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         out["compact"]["index"].region(queries)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["batch_peak_gib"] = out["peak_gib"] - live / 2 ** 30
         print(f"  build (first) {out['build_ms']:.1f} ms, build (steady, median of 5) "
               f"{out['build_steady_ms']:.1f} ms", flush=True)
-        for precision in ("float32", "compact"):
+        for precision in ("float32", "compact", "compact8"):
             r = out[precision]
-            print(f"  {precision}: region {r['region_ms']:.2f} ms, point "
+            print(f"  pyramid {precision}: region {r['region_ms']:.2f} ms, point "
                   f"{r['point_ms']:.2f} ms per {args.queries}-query batch "
                   f"(median of {REPEATS}); first region+point+count {r['first_ms']:.1f} ms",
                   flush=True)
-        print(f"  peak device memory of one compact region batch: {out['peak_gib']:.2f} GiB",
-              flush=True)
+        print(f"  pyramid per-level plan: region {out['per_level']['region_ms']:.2f} ms "
+              f"(first {out['per_level']['first_ms']:.1f} ms)", flush=True)
+        print(f"  pyramid autotune='auto': region {out['auto']['region_ms']:.2f} ms steady, "
+              f"first call (tuning included) {out['auto']['first_ms']:.1f} ms", flush=True)
+        for structure, tr in trees.items():
+            for precision in PRECISIONS:
+                r = tr[precision]
+                print(f"  {structure} {precision}: region {r['region_ms']:.2f} ms, point "
+                      f"{r['point_ms']:.2f} ms (median of {REPEATS}); first "
+                      f"region+point+count (tuning included) {r['first_ms']:.1f} ms",
+                      flush=True)
+        print(f"  peak device memory during one compact pyramid region batch: "
+              f"{out['peak_gib']:.2f} GiB, of which the batch itself "
+              f"{out['batch_peak_gib']:.2f} GiB", flush=True)
 
     checks.phase("end-to-end timings", timings)
 
@@ -379,13 +725,16 @@ def main(argv=None) -> int:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as trace
 
-        for precision in ("float32", "compact"):
-            ix = out[precision]["index"]
-            ix.region(queries)
+        batches = [(f"pyramid {p}", out[p]["index"], queries)
+                   for p in ("float32", "compact", "compact8")]
+        batches += [(f"{s} {p}", trees[s][p]["index"], tree_queries)
+                    for s in trees for p in ("float32", "compact8")]
+        for label, ix, qs in batches:
+            ix.region(qs)
             sync()
             with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
-                ix.region(queries)
+                ix.region(qs)
                 sync()
                 window_us = (time.perf_counter() - t) * 1e6
             rows = []
@@ -399,21 +748,34 @@ def main(argv=None) -> int:
                     rows.append((dev_us, evt.count, evt.key))
             rows.sort(reverse=True)
             busy = sum(r[0] for r in rows)
-            print(f"  {precision} region batch: host window {window_us / 1e3:.3f} ms, "
+            print(f"  {label} region batch: host window {window_us / 1e3:.3f} ms, "
                   f"device busy {busy / 1e3:.3f} ms, idle share "
                   f"{max(0.0, 1 - busy / window_us):.3f}", flush=True)
-            for dev_us, count, key in rows[:12]:
+            for dev_us, count, key in rows[:10]:
                 print(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
 
     checks.phase("profile: device time by kernel, one region batch", profile)
 
     summary = dict(
-        n=args.n, queries=args.queries, seed=args.seed, card=card,
+        n=args.n, queries=args.queries, seed=args.seed, tree_n=args.tree_n, card=card,
         levels=sched.levels, width=sched.width, nvcc_build_s=build_s,
         build_ms=out.get("build_ms"), build_steady_ms=out.get("build_steady_ms"),
-        region_ms={p: out[p].get("region_ms") for p in ("float32", "compact")},
-        point_ms={p: out[p].get("point_ms") for p in ("float32", "compact")},
-        peak_gib=out.get("peak_gib"),
+        region_ms={p: out[p].get("region_ms") for p in PRECISIONS if p in out},
+        point_ms={p: out[p].get("point_ms") for p in PRECISIONS if p in out},
+        per_level_region_ms=out.get("per_level", {}).get("region_ms"),
+        auto_region_ms=out.get("auto", {}).get("region_ms"),
+        auto_first_ms=out.get("auto", {}).get("first_ms"),
+        tuned={str(k): str(v) for k, v in idx.artifacts.tuned.items()},
+        peak_gib=out.get("peak_gib"), batch_peak_gib=out.get("batch_peak_gib"),
+        trees={s: dict(
+            levels=tr["index"].schedule.levels, width=tr["index"].schedule.width,
+            host_build_s=tr["host_build_s"], second_build_s=tr.get("second_build_s"),
+            region_ms={p: tr[p].get("region_ms") for p in PRECISIONS},
+            point_ms={p: tr[p].get("point_ms") for p in PRECISIONS},
+            first_ms={p: tr[p]["first_ms"] for p in PRECISIONS},
+            tuned={str(k): str(v) for k, v in tr["index"].artifacts.tuned.items()},
+        ) for s, tr in trees.items()},
+        launches=paths,
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.flat import LevelSchedule, QuantizedSchedule
+from repro_torch.core.flat import CELLS8, LevelSchedule, QuantizedSchedule
 from repro_torch.kernels.ops import resolve_device
 
 
@@ -43,12 +43,8 @@ def schedule_from_numpy(fields: dict, device=None) -> LevelSchedule:
 def quantized_from_numpy(fields: dict, device=None) -> QuantizedSchedule:
     """The port's :class:`QuantizedSchedule` from a JAX
     ``QuantizedSchedule``'s fields; ``fields["base"]`` holds the base
-    schedule's fields.  The hierarchical uint8 form is not ported yet."""
-    if fields.get("mbr_q8") is not None or fields.get("split", 0):
-        raise NotImplementedError(
-            "uint8 upper-level tiles (precision='compact8') are not ported "
-            "to repro_torch yet; see ROADMAP.md"
-        )
+    schedule's fields.  The hierarchical (``compact8``) fields ``mbr_q8``,
+    ``split``, ``cells8`` and ``inv_cell8`` come across when present."""
     dev = resolve_device(device)
     parent_q = np.asarray(fields["parent_q"])
     if parent_q.dtype not in (np.uint16, np.int32):
@@ -61,4 +57,10 @@ def quantized_from_numpy(fields: dict, device=None) -> QuantizedSchedule:
         inv_cell=_tensor(fields["inv_cell"], np.float32, dev),
         confirm_mbr=_tensor(np.reshape(fields["confirm_mbr"], (-1, 4)), np.float32, dev),
         cells=int(fields["cells"]),
+        mbr_q8=(None if fields.get("mbr_q8") is None
+                else _tensor(fields["mbr_q8"], np.uint8, dev)),
+        split=int(fields.get("split", 0)),
+        cells8=int(fields.get("cells8", CELLS8)),
+        inv_cell8=(None if fields.get("inv_cell8") is None
+                   else _tensor(fields["inv_cell8"], np.float32, dev)),
     )

@@ -1,8 +1,10 @@
-"""Level schedule: the dense per-level form the fused region sweep consumes.
+"""Flattened trees and the level schedule the fused region sweep consumes.
 
-PyTorch counterpart of ``repro.core.flat``'s schedule half (the pointer
-trees and ``FlatTree`` are not ported yet; see ROADMAP.md).  A schedule is
-a dataclass of torch tensors living on one device; :meth:`to` moves it.
+PyTorch counterpart of ``repro.core.flat``.  A pointer tree (mqr or R,
+built on the host) is flattened into a numpy :class:`FlatTree` and lowered
+by :func:`level_schedule`, exactly as the JAX package does it; the group
+pyramid lowers by :func:`pyramid_schedule`.  A schedule is a dataclass of
+torch tensors living on one device; :meth:`LevelSchedule.to` moves it.
 
 The fused sweep computes, level by level,
 
@@ -19,6 +21,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from .mqrtree import MQRTree
+from .rtree import RTree
+
+EMPTY = -1  # children_idx sentinel: no entry
+# children_idx >= 0   -> index of a child node
+# children_idx <= -2  -> object id encoded as -(obj + 2)
+
 # MBR sentinel for padded slots: lo=+inf, hi=-inf never overlaps anything.
 NEVER_MBR = np.array([np.inf, np.inf, -np.inf, -np.inf], np.float32)
 
@@ -27,8 +36,8 @@ NEVER_MBR = np.array([np.inf, np.inf, -np.inf, -np.inf], np.float32)
 CELLS = 65534
 Q_NEVER_MBR = np.array([CELLS + 1, CELLS + 1, 0, 0], np.uint16)
 
-# Coarse uint8 grid of the hierarchical (compact8) form; that form is not
-# ported yet, the constants are kept so the grids stay defined in one place.
+# Coarse uint8 grid of the upper levels of the hierarchical (compact8)
+# form: same outward rounding on a 255-cell grid, same sentinel scheme.
 CELLS8 = 254
 Q8_NEVER_MBR = np.array([CELLS8 + 1, CELLS8 + 1, 0, 0], np.uint8)
 
@@ -41,6 +50,73 @@ def overlaps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         & (a[..., 1] <= b[..., 3])
         & (b[..., 1] <= a[..., 3])
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatTree:
+    """Dense array form of a spatial tree (host numpy, as in the reference).
+
+    node_mbr:      (N, 4)   float32
+    children_mbr:  (N, F, 4) float32 (F = max fan-out)
+    children_idx:  (N, F)   int32 (see sentinels above)
+    n_objects:     int
+    root:          int (node index of the root, always 0)
+    """
+
+    node_mbr: np.ndarray
+    children_mbr: np.ndarray
+    children_idx: np.ndarray
+    n_objects: int
+    root: int = 0
+
+
+def flatten(tree) -> FlatTree:
+    """Flatten an ``MQRTree`` or ``RTree`` into a :class:`FlatTree`."""
+    if isinstance(tree, MQRTree):
+        fan = 5
+
+        def node_entries(node):
+            for _, e in node.entries():
+                yield e.mbr, (e.node if e.is_node else None), e.obj
+
+    elif isinstance(tree, RTree):
+        fan = tree.M
+
+        def node_entries(node):
+            for e in node.entries:
+                yield e.mbr, e.child, e.obj
+
+    else:
+        raise TypeError(type(tree))
+
+    nodes = []
+    index = {}
+    # Explicit-stack preorder walk: CENTER chains make the depth unbounded,
+    # so recursion could trip Python's recursion limit.
+    stack = [tree.root]
+    while stack:
+        node = stack.pop()
+        index[id(node)] = len(nodes)
+        nodes.append(node)
+        children = [c for _, c, _ in node_entries(node) if c is not None]
+        stack.extend(reversed(children))
+
+    n = len(nodes)
+    node_mbr = np.zeros((n, 4), np.float32)
+    children_mbr = np.zeros((n, fan, 4), np.float32)
+    children_idx = np.full((n, fan), EMPTY, np.int32)
+    n_objects = 0
+    for ni, node in enumerate(nodes):
+        mbr = node.mbr if isinstance(tree, MQRTree) else node.mbr()
+        node_mbr[ni] = np.asarray(mbr, np.float32)
+        for fi, (embr, child, obj) in enumerate(node_entries(node)):
+            children_mbr[ni, fi] = np.asarray(embr, np.float32)
+            if child is not None:
+                children_idx[ni, fi] = index[id(child)]
+            else:
+                children_idx[ni, fi] = -(obj + 2)
+                n_objects = max(n_objects, obj + 1)
+    return FlatTree(node_mbr, children_mbr, children_idx, n_objects)
 
 
 def _move(obj, device):
@@ -119,6 +195,17 @@ class QuantizedSchedule:
     inv_cell:    (4,) float32 cells per unit, coordinate-major.
     confirm_mbr: (E, 4) float32 exact box the confirming pass tests.
     cells:       highest real grid cell (the sentinel is cells+1).
+
+    Hierarchical (``compact8``) extension: when ``mbr_q8`` is present,
+    levels ``[0, split)`` also carry a coarse uint8 form on a ``cells8``-cell
+    grid sharing ``origin``; the hier sweep tests those levels on the coarse
+    grid and levels ``[split, L)`` on the fine one.  Both round outward, so
+    hit sets stay identical; only ``visits`` may grow.
+
+    mbr_q8:    (split, 4, W) uint8 coarse tiles, or ``None``.
+    split:     first level swept on the fine grid (0 = no coarse levels).
+    cells8:    highest real coarse cell (the sentinel is cells8+1).
+    inv_cell8: (4,) float32 coarse cells per unit, or ``None``.
     """
 
     base: LevelSchedule
@@ -128,13 +215,91 @@ class QuantizedSchedule:
     inv_cell: torch.Tensor
     confirm_mbr: torch.Tensor
     cells: int = CELLS
+    mbr_q8: torch.Tensor | None = None
+    split: int = 0
+    cells8: int = CELLS8
+    inv_cell8: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
         return self.mbr_q.device
 
+    @property
+    def levels(self) -> int:
+        return self.base.levels
+
+    @property
+    def hierarchical(self) -> bool:
+        """Whether the uint8 upper-level tiles are materialized."""
+        return self.mbr_q8 is not None and self.split > 0
+
+    @property
+    def streamed_bytes(self) -> int:
+        """Tile and parent bytes one sweep reads (uint8 tiles for the
+        upper levels of the hierarchical form)."""
+        def nbytes(t):
+            return t.numel() * t.element_size()
+
+        if self.hierarchical:
+            return (nbytes(self.mbr_q8) + nbytes(self.mbr_q[self.split:])
+                    + nbytes(self.parent_q))
+        return nbytes(self.mbr_q) + nbytes(self.parent_q)
+
     def to(self, device) -> "QuantizedSchedule":
         return _move(self, device)
+
+
+def level_schedule(flat: FlatTree) -> LevelSchedule:
+    """Lower a :class:`FlatTree` (mqr or R) to the level schedule, on the
+    CPU (the same numpy breadth-first slotting as the JAX package)."""
+    n, fan = flat.children_idx.shape
+    depth = np.full((n,), -1, np.int64)
+    depth[flat.root] = 0
+    order = [flat.root]
+    head = 0
+    parent_of = np.full((n,), -1, np.int64)
+    while head < len(order):
+        ni = order[head]
+        head += 1
+        for ci in flat.children_idx[ni]:
+            if ci >= 0:
+                depth[int(ci)] = depth[ni] + 1
+                parent_of[int(ci)] = ni
+                order.append(int(ci))
+    levels = int(depth.max()) + 1
+    width = int(np.bincount(depth, minlength=levels).max())
+
+    slot_of = np.zeros((n,), np.int64)
+    fill = np.zeros((levels,), np.int64)
+    mbr = np.broadcast_to(NEVER_MBR, (levels, width, 4)).copy()
+    parent = np.zeros((levels, width), np.int32)
+    for ni in order:  # BFS order => parents are slotted before children
+        l = int(depth[ni])
+        j = int(fill[l])
+        fill[l] += 1
+        slot_of[ni] = j
+        mbr[l, j] = flat.node_mbr[ni]
+        if l > 0:
+            parent[l, j] = slot_of[parent_of[ni]]
+
+    is_obj = flat.children_idx <= -2
+    node_ids, _ = np.nonzero(is_obj)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype))
+
+    return LevelSchedule(
+        mbr_cm=t(mbr.transpose(0, 2, 1), np.float32),
+        parent=t(parent, np.int32),
+        n_real=t(fill, np.int32),
+        obj_mbr=t(flat.children_mbr[is_obj], np.float32),
+        obj_level=t(depth[node_ids], np.int32),
+        obj_slot=t(slot_of[node_ids], np.int32),
+        obj_id=t(-(flat.children_idx[is_obj] + 2), np.int32),
+        n_objects=flat.n_objects,
+        root_unconditional=True,
+        test_object_mbr=True,
+    )
 
 
 def pyramid_schedule(pyr, obj_mbrs: torch.Tensor) -> LevelSchedule:

@@ -1,18 +1,19 @@
 """`SpatialIndex` — the façade over the port's build and query paths.
 
-Counterpart of ``repro.index.api`` for the slice ported so far:
+Counterpart of ``repro.index.api`` for the slices ported so far:
 
-    idx = SpatialIndex.build(mbrs, structure="pyramid", build="device")
+    idx = SpatialIndex.build(mbrs)   # the paper's mqr-tree, autotuned sweep
     res = idx.region(queries)        # RegionResult(hits, visits_per_level)
     res = idx.point(points)          # degenerate-rectangle queries
     cnt = idx.count(queries)         # hits per query
 
-Everything runs on the CUDA card unless ``device="cpu"`` is passed (then
-each kernel's plain PyTorch version runs); without a card and without that
-request, building raises.  Results are torch tensors on the backend's
-device.  ``structure`` defaults to ``"pyramid"``, the one structure ported
-(the JAX default ``"mqr"`` is a per-object host pointer tree).  Options the
-port does not have yet raise ``NotImplementedError`` naming ROADMAP.md.
+Structures: ``mqr`` (the default, the paper's pointer tree, built on the
+host), ``rtree`` (Guttman baseline) and ``pyramid`` (bulk fixed point,
+``build="device"`` on the card).  Everything runs on the CUDA card unless
+``device="cpu"`` is passed (then each kernel's plain PyTorch version
+runs); without a card and without that request, building raises.  Results
+are torch tensors on the backend's device.  Options the port does not
+have yet raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,8 +24,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core import bulk
-from repro_torch.core.flat import LevelSchedule, QuantizedSchedule, pyramid_schedule
+from repro_torch.core import bulk, mqrtree, rtree
+from repro_torch.core.flat import (
+    FlatTree,
+    LevelSchedule,
+    QuantizedSchedule,
+    flatten,
+    level_schedule,
+    pyramid_schedule,
+)
 from repro_torch.kernels import ops
 
 from .registry import BackendSpec, get_backend
@@ -123,42 +131,85 @@ class AccessStats:
         self.launches += int(launches)
 
 
+def _reject_opts(structure: str, **opts) -> None:
+    """A build option the chosen structure does not use fails loudly."""
+    bad = [k for k, v in opts.items() if v is not None]
+    if bad:
+        raise TypeError(f"structure {structure!r} does not accept option(s) {bad}")
+
+
 class BuildArtifacts:
-    """One built structure plus its lazily lowered forms (the level
-    schedule, and its quantized tile form for ``precision="compact"``),
-    all on one device."""
+    """One built structure plus its lazily lowered forms (the flat tree,
+    the level schedule, and its quantized tile forms for
+    ``precision="compact"`` and ``"compact8"``), computed once and shared
+    by every backend over this build.  The schedules live on ``device``;
+    the pointer trees and the flat tree live on the host."""
 
     def __init__(self, structure: str, mbrs, *, device=None, levels=None,
                  max_entries=None, build=None, order=None):
-        if structure in ("mqr", "rtree"):
-            raise _roadmap(f"structure={structure!r}")
-        if structure != "pyramid":
+        if structure not in STRUCTURES:
             raise ValueError(f"unknown structure {structure!r}; expected one of {STRUCTURES}")
-        if max_entries is not None:
-            raise TypeError("structure 'pyramid' does not accept option(s) ['max_entries']")
-        if order == "hilbert":
-            raise _roadmap("order='hilbert'")
-        if order not in (None, "none"):
+        if order not in (None, "none", "hilbert"):
             raise ValueError(f"unknown order {order!r}; expected 'hilbert' (or None)")
-        if build not in (None, "host", "device"):
-            raise ValueError(f"unknown build {build!r}; expected 'host' or 'device'")
         self.structure = structure
         self.device = ops.resolve_device(device)
         self.mbrs = validate_mbrs(mbrs)
         self.n_objects = self.mbrs.shape[0]
         if self.n_objects == 0:
             raise ValueError("a spatial index needs at least one MBR")
-        if levels is None:
-            levels = bulk.default_levels(self.n_objects)
-        obj = torch.from_numpy(self.mbrs.astype(np.float32)).to(self.device)
-        self.schedule: LevelSchedule
-        if build == "device":
-            # The bulk fixed point in one kernel call, straight to the
-            # schedule arrays: no host pointer tree.
-            self.schedule = ops.device_schedule(obj, levels=levels, device=self.device)
-        else:
-            self.schedule = pyramid_schedule(bulk.build_pyramid(obj, levels), obj)
+        self.order = order
+        self.pointer_tree = None
+        self._flat: Optional[FlatTree] = None
+        self._schedule: Optional[LevelSchedule] = None
         self._quantized: Optional[QuantizedSchedule] = None
+        self._quantized8: Optional[QuantizedSchedule] = None
+        # Autotuned TileConfig winners keyed by kernels.autotune.shape_key,
+        # shared by every backend over these artifacts.
+        self.tuned: dict = {}
+        if structure == "mqr":
+            _reject_opts(structure, levels=levels, max_entries=max_entries, build=build)
+            self.pointer_tree = mqrtree.build(self.mbrs)
+        elif structure == "rtree":
+            _reject_opts(structure, levels=levels, build=build)
+            self.pointer_tree = rtree.build(
+                self.mbrs,
+                max_entries=rtree.DEFAULT_M if max_entries is None else max_entries,
+            )
+        else:
+            _reject_opts(structure, max_entries=max_entries)
+            if build not in (None, "host", "device"):
+                raise ValueError(f"unknown build {build!r}; expected 'host' or 'device'")
+            if levels is None:
+                levels = bulk.default_levels(self.n_objects)
+            obj = torch.from_numpy(self.mbrs.astype(np.float32)).to(self.device)
+            if build == "device":
+                # The bulk fixed point in one kernel call, straight to the
+                # schedule arrays: no host pointer tree.
+                self._schedule = ops.device_schedule(obj, levels=levels, device=self.device)
+            else:
+                self._schedule = pyramid_schedule(bulk.build_pyramid(obj, levels), obj)
+            if order == "hilbert":
+                self._schedule = ops.hilbert_permute(self._schedule)
+
+    @property
+    def flat(self) -> FlatTree:
+        """The :class:`FlatTree` of the pointer tree (mqr and rtree only)."""
+        if self._flat is None:
+            if self.pointer_tree is None:
+                raise ValueError("structure 'pyramid' has no pointer tree / FlatTree form")
+            self._flat = flatten(self.pointer_tree)
+        return self._flat
+
+    @property
+    def schedule(self) -> LevelSchedule:
+        """The level schedule on :attr:`device` (tree schedules are lowered
+        on the host first), in Hilbert slot order when ``order="hilbert"``."""
+        if self._schedule is None:
+            schedule = level_schedule(self.flat)
+            if self.order == "hilbert":
+                schedule = ops.hilbert_permute(schedule)
+            self._schedule = schedule.to(self.device)
+        return self._schedule
 
     @property
     def quantized(self) -> QuantizedSchedule:
@@ -167,6 +218,14 @@ class BuildArtifacts:
         if self._quantized is None:
             self._quantized = ops.quantize_schedule(self.schedule)
         return self._quantized
+
+    @property
+    def quantized8(self) -> QuantizedSchedule:
+        """Hierarchical uint8-upper / uint16-lower tile form of
+        :attr:`schedule`, for ``precision="compact8"`` backends."""
+        if self._quantized8 is None:
+            self._quantized8 = ops.quantize_schedule(self.schedule, upper8=True)
+        return self._quantized8
 
 
 class SpatialIndex:
@@ -184,20 +243,23 @@ class SpatialIndex:
         self._backend = spec.factory(artifacts, **backend_opts)
 
     @classmethod
-    def build(cls, mbrs, *, structure: str = "pyramid", backend: str = "cuda",
+    def build(cls, mbrs, *, structure: str = "mqr", backend: str = "cuda",
               device=None, backend_opts: Optional[dict] = None,
               **opts) -> "SpatialIndex":
         """Build a spatial index over ``mbrs`` (n, 4) on ``device`` (the CUDA
         card when None).
 
-        structure: ``pyramid`` (bulk bottom-up fixed point).
+        structure: ``mqr`` (the paper's pointer tree) | ``rtree`` (Guttman
+            baseline) | ``pyramid`` (bulk bottom-up fixed point).
         backend:   ``cuda`` (fused sweep; plain versions on the CPU) |
-            ``host`` (numpy oracle).
-        opts: build options (``levels``; ``build="host"|"device"`` —
-            ``"device"`` runs the build kernel and emits the schedule
-            directly) plus backend options (``block_w``, ``query_block``,
-            ``precision="float32"|"compact"``), routed by key; an option
-            the backend does not take raises ``TypeError``.
+            ``host`` (pointer search / numpy oracle).
+        opts: build options (``levels`` and ``build="host"|"device"`` for
+            the pyramid — ``"device"`` runs the build kernel and emits the
+            schedule directly; ``max_entries`` for the rtree;
+            ``order="hilbert"``) plus backend options (``block_w``,
+            ``query_block``, ``autotune="auto"|"on"|"off"``,
+            ``precision="float32"|"compact"|"compact8"``), routed by key; an
+            option the backend does not take raises ``TypeError``.
         backend_opts: an explicit dict of backend-only options; a key also
             given in ``opts`` raises ``TypeError``.
         """

@@ -2,11 +2,13 @@
 
 Two engines over the same search semantics:
 
-* ``host`` — the oracle: the level sweep of the schedule in numpy on the
-  CPU, the counterpart of the JAX package's ``schedule_region_numpy``;
+* ``host`` — the oracle: per-level pointer search over the built mqr or
+  R-tree, and the numpy level sweep of the schedule for the pyramid (which
+  has no pointers), as the JAX package's ``host`` backend;
 * ``cuda`` — the fused sweep of :mod:`repro_torch.kernels.pyramid_scan`
   (the counterpart of the JAX ``pallas`` backend), at
-  ``precision="float32"`` or ``"compact"``, with ``query_block`` chunking.
+  ``precision="float32"``, ``"compact"`` or ``"compact8"``, with tiling
+  autotuned (:mod:`repro_torch.kernels.autotune`) or fixed.
 
 Every adapter returns ``(hits (Q, n_obj) bool, visits (Q, L) int32,
 launches int)`` with identical hits and per-level access counts.
@@ -17,13 +19,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import mbr as M
 from repro_torch.core.flat import LevelSchedule
 from repro_torch.kernels import ops
+from repro_torch.kernels.autotune import (
+    AUTO_MIN_WIDTH,
+    PROBE_QUERIES,
+    TileConfig,
+    candidates,
+    shape_key,
+    tune,
+)
 
 from .registry import register_backend
+from .trees import node_children, node_mbr, tree_height
 
-ALL_STRUCTURES = ("pyramid",)
-PRECISIONS = ("float32", "compact")
+ALL_STRUCTURES = ("mqr", "rtree", "pyramid")
+PRECISIONS = ("float32", "compact", "compact8")
+AUTOTUNE = ("auto", "on", "off")
 
 
 def _roadmap(what: str) -> NotImplementedError:
@@ -80,15 +93,46 @@ def schedule_region_numpy(schedule: LevelSchedule, queries: np.ndarray):
 @register_backend(
     "host",
     structures=ALL_STRUCTURES,
-    doc="numpy level sweep of the schedule on the CPU; the oracle",
+    doc="per-level pointer search on the CPU (numpy sweep for the pyramid); "
+        "the oracle",
 )
 class HostBackend:
     def __init__(self, artifacts):
-        self.schedule = artifacts.schedule.to("cpu")
+        self.n_objects = artifacts.n_objects
+        self.tree = artifacts.pointer_tree
+        if self.tree is not None:
+            self.levels = tree_height(self.tree)
+        else:
+            self.schedule = artifacts.schedule.to("cpu")
 
     def region(self, queries: torch.Tensor):
-        hits, visits = schedule_region_numpy(self.schedule, queries.cpu().numpy())
+        queries = queries.cpu().numpy()
+        if self.tree is None:
+            hits, visits = schedule_region_numpy(self.schedule, queries)
+        else:
+            hits, visits = self._pointer_search(queries)
         return torch.from_numpy(hits), torch.from_numpy(visits), 0
+
+    def _pointer_search(self, queries: np.ndarray):
+        nq = queries.shape[0]
+        hits = np.zeros((nq, max(self.n_objects, 1)), bool)
+        visits = np.zeros((nq, self.levels), np.int32)
+        for i, q in enumerate(queries):
+            qq = np.asarray(q, np.float64)
+            stack = [(self.tree.root, 0)]
+            while stack:
+                node, d = stack.pop()
+                if node_mbr(node) is None:
+                    continue
+                visits[i, d] += 1
+                for embr, child, obj in node_children(node):
+                    if not M.overlaps(embr, qq):
+                        continue
+                    if child is not None:
+                        stack.append((child, d + 1))
+                    else:
+                        hits[i, obj] = True
+        return hits, visits
 
 
 @register_backend(
@@ -96,50 +140,99 @@ class HostBackend:
     structures=ALL_STRUCTURES,
     doc="fused level sweep (csrc/level_sweep.cu on the card, its plain "
         "version on the CPU); precision='compact' sweeps conservative "
-        "uint16 tiles with an exact float32 confirming pass",
+        "uint16 tiles, 'compact8' adds coarse uint8 upper-level tiles, both "
+        "with an exact float32 confirming pass; block_w=None autotunes",
 )
 class CudaBackend:
-    """Fused-sweep adapter with the fixed tiling of the JAX ``pallas``
-    backend's ``autotune="off"``: ``block_w`` is the kernel's thread-block
-    width over slots, ``query_block`` splits a batch into chunks of at most
-    that many queries.  ``launches`` counts one sweep launch per level per
-    chunk (the TPU kernel made one per chunk)."""
+    """Fused-sweep adapter with autotuned tiling, as the JAX ``pallas``
+    backend.
 
-    def __init__(self, artifacts, *, block_w: int = 128, precision: str = "float32",
-                 stream: bool = False, autotune: str = "off",
-                 query_block: int | None = None):
-        if precision == "compact8":
-            raise _roadmap("precision='compact8'")
+    ``block_w=None`` (the default) leaves the tiling to the autotuner:
+    ``autotune="auto"`` times the candidate grid of
+    :mod:`repro_torch.kernels.autotune` on the first query batch once the
+    slot grid is at least ``AUTO_MIN_WIDTH`` wide, ``"on"`` always does,
+    ``"off"`` (or an explicit ``block_w`` or ``query_block``) pins the
+    fixed configuration.  Winners are cached in ``BuildArtifacts.tuned``.
+    A config with ``levels_in_grid=False`` runs the per-level ``mbr_scan``
+    plan.  ``launches`` counts the kernel launches of the sweep: one per
+    level per chunk (the TPU kernel made one per chunk).
+    """
+
+    def __init__(self, artifacts, *, block_w: int | None = None,
+                 precision: str = "float32", stream: bool = False,
+                 autotune: str = "auto", query_block: int | None = None):
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
+        if autotune not in AUTOTUNE:
+            raise ValueError(f"unknown autotune {autotune!r}; expected one of {AUTOTUNE}")
+        if stream and precision == "compact8":
+            raise ValueError("stream=True is not supported with precision='compact8'")
         if stream:
             raise _roadmap("stream=True (the HBM-streaming sweep)")
-        if autotune in ("auto", "on"):
-            raise _roadmap(f"autotune={autotune!r}")
-        if autotune != "off":
-            raise ValueError(f"unknown autotune {autotune!r}")
         if query_block is not None and query_block < 1:
             raise ValueError(f"query_block must be >= 1, got {query_block}")
         self.precision = precision
         self.schedule = artifacts.schedule
-        self.qschedule = artifacts.quantized if precision == "compact" else None
+        if precision == "compact":
+            self.qschedule = artifacts.quantized
+        elif precision == "compact8":
+            self.qschedule = artifacts.quantized8
+        else:
+            self.qschedule = None
         self.block_w = block_w
         self.query_block = query_block
+        self.stream = stream
+        self.autotune = autotune
+        self._tuned = artifacts.tuned
+        self.config: TileConfig | None = None  # the tiling of the last batch
 
-    def _run_one(self, queries: torch.Tensor):
+    def _config(self, queries: torch.Tensor) -> TileConfig:
+        fixed = TileConfig(128 if self.block_w is None else self.block_w,
+                           self.query_block, True)
+        if (self.autotune == "off" or self.block_w is not None
+                or self.query_block is not None):
+            return fixed
+        width = self.schedule.width
+        if self.autotune == "auto" and width < AUTO_MIN_WIDTH:
+            return fixed
+        nq = queries.shape[0]
+        key = shape_key(width, self.schedule.levels, nq, self.precision, self.stream)
+        cfg = self._tuned.get(key)
+        if cfg is None:
+            probe = queries[:PROBE_QUERIES]
+            cands = candidates(width, nq, precision=self.precision, stream=self.stream)
+            dev = self.schedule.device
+            sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None
+            cfg, _ = tune(lambda c: lambda: self._run(probe, c), cands, sync=sync)
+            self._tuned[key] = cfg
+        return cfg
+
+    def _run_one(self, queries: torch.Tensor, cfg: TileConfig):
+        if not cfg.levels_in_grid:
+            # Per-level launch plan (float32 only; the candidate grid never
+            # proposes it elsewhere): hits and visits equal the fused sweep.
+            return ops.per_level_region_search(self.schedule, queries,
+                                               block_w=cfg.block_w)
         if self.precision == "compact":
             hits, visits = ops.pyramid_scan_compact(
-                self.qschedule, queries, block_w=self.block_w)
+                self.qschedule, queries, block_w=cfg.block_w)
+        elif self.precision == "compact8":
+            hits, visits = ops.pyramid_scan_compact8(
+                self.qschedule, queries, block_w=cfg.block_w)
         else:
-            hits, visits = ops.pyramid_scan(self.schedule, queries, block_w=self.block_w)
+            hits, visits = ops.pyramid_scan(self.schedule, queries, block_w=cfg.block_w)
         return hits, visits, self.schedule.levels
 
-    def region(self, queries: torch.Tensor):
-        qb = self.query_block
+    def _run(self, queries: torch.Tensor, cfg: TileConfig):
+        qb = cfg.query_block
         if qb and queries.shape[0] > qb:
-            parts = [self._run_one(queries[i:i + qb])
+            parts = [self._run_one(queries[i:i + qb], cfg)
                      for i in range(0, queries.shape[0], qb)]
             return (torch.cat([p[0] for p in parts]),
                     torch.cat([p[1] for p in parts]),
                     sum(p[2] for p in parts))
-        return self._run_one(queries)
+        return self._run_one(queries, cfg)
+
+    def region(self, queries: torch.Tensor):
+        self.config = self._config(queries)
+        return self._run(queries, self.config)

@@ -11,7 +11,9 @@ The flags never include ``--use_fast_math`` or ``-ftz=true``: the sweep's
 float32 compares must stay exact on subnormal inputs.
 
 ``counters`` holds one launch count per kernel; each wrapper adds to it
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else.  A sweep with uint16
+parent slots is also counted under its own ``..._u16p`` name, so a run
+can show that the uint16-parent instantiation ran.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ _SIGNATURES = {
     "repro_error_string": (ctypes.c_char_p, [_I]),
     "repro_level_sweep": (_I, [_P, _P, _P, _P, _I, _I, _LL, _I, _LL, _I, _I,
                                _I, _P]),
+    "repro_level_sweep_hier": (_I, [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL,
+                                    _I, _I, _I, _P]),
+    "repro_mbr_scan": (_I, [_P, _LL, _LL, _P, _P, _LL, _LL, _I, _P]),
     "repro_build_levels_workspace": (_LL, [_LL]),
     "repro_build_levels": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P]),
     "repro_quantize_cm": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _P]),
@@ -169,6 +174,12 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_block(width: int, name: str) -> None:
+    """A thread-block width must be a multiple of 32 in [32, 1024]."""
+    if width % 32 or not 32 <= width <= 1024:
+        raise ValueError(f"{name} must be a multiple of 32 in [32, 1024], got {width}")
 
 
 def require_device(tensors: dict, device: torch.device) -> None:

@@ -13,9 +13,14 @@ Counterpart of ``repro.kernels.build``.  Two engines, identical outputs:
 
 Both emit exactly the level arrays of
 ``flat.pyramid_schedule(bulk.build_pyramid(...))``.
+
+:func:`hilbert_permute` is the build-time Hilbert slot order
+(``order="hilbert"``), host numpy as in the JAX package.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -104,4 +109,79 @@ def device_schedule(mbrs, *, levels: int | None = None, engine: str = "kernel",
         n_objects=n,
         root_unconditional=False,
         test_object_mbr=False,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Build-time Hilbert slot ordering (host numpy, as in the reference)
+# ---------------------------------------------------------------------------
+
+
+def hilbert_keys(x, y, order: int = 16) -> np.ndarray:
+    """Vectorized Hilbert-curve index of points normalized to [0, 1]
+    (bitwise xy->d walk over ``order`` bits; ties are broken by the
+    caller's stable argsort)."""
+    n = 1 << order
+    x = np.clip((np.asarray(x, np.float64) * n).astype(np.int64), 0, n - 1)
+    y = np.clip((np.asarray(y, np.float64) * n).astype(np.int64), 0, n - 1)
+    d = np.zeros_like(x)
+    s = n >> 1
+    while s > 0:
+        rx = ((x & s) > 0).astype(np.int64)
+        ry = ((y & s) > 0).astype(np.int64)
+        d += s * s * ((3 * rx) ^ ry)
+        # rotate the quadrant: reflect when rx==1, then swap axes (ry==0)
+        swap = ry == 0
+        refl = swap & (rx == 1)
+        xr = np.where(refl, s - 1 - x, x)
+        yr = np.where(refl, s - 1 - y, y)
+        x = np.where(swap, yr, xr)
+        y = np.where(swap, xr, yr)
+        s >>= 1
+    return d
+
+
+def hilbert_permute(schedule: LevelSchedule, order: int = 16) -> LevelSchedule:
+    """Renumber every level's real slots along the Hilbert curve of their
+    MBR centers (a within-level bijection; padded slots stay in place).
+
+    Parents are remapped through the previous level's permutation and
+    object entry slots through their own level's, so hits and per-level
+    visits are unchanged; only which slots share a thread block changes.
+    Computed in numpy on the host (as in the JAX package); the result lies
+    on the schedule's device."""
+    mbr_cm = schedule.mbr_cm.cpu().numpy()
+    parent0 = schedule.parent.cpu().numpy()
+    obj_slot0 = schedule.obj_slot.cpu().numpy()
+    n_real = schedule.n_real.cpu().numpy()
+    obj = schedule.obj_mbr.cpu().numpy().astype(np.float64)
+    lo = obj[:, :2].min(axis=0)
+    span = np.maximum(obj[:, 2:].max(axis=0) - lo, 1e-30)
+    mbr = np.array(mbr_cm, copy=True)
+    parent = np.array(parent0, copy=True)
+    obj_slot = np.array(obj_slot0, copy=True)
+    obj_level = schedule.obj_level.cpu().numpy()
+    prev_perm = None  # old slot -> new slot, previous level
+    for l in range(schedule.levels):
+        nr = int(n_real[l])
+        cx = (mbr_cm[l, 0, :nr] + mbr_cm[l, 2, :nr]) / 2.0
+        cy = (mbr_cm[l, 1, :nr] + mbr_cm[l, 3, :nr]) / 2.0
+        keys = hilbert_keys((cx - lo[0]) / span[0], (cy - lo[1]) / span[1], order=order)
+        by_key = np.argsort(keys, kind="stable")  # new slot -> old slot
+        perm = np.empty(nr, np.int64)
+        perm[by_key] = np.arange(nr)              # old slot -> new slot
+        mbr[l, :, :nr] = mbr_cm[l][:, by_key]
+        if l > 0:
+            old_parent = np.asarray(parent0[l, :nr], np.int64)
+            parent[l, :nr] = prev_perm[old_parent[by_key]].astype(parent0.dtype)
+        mask = obj_level == l
+        if mask.any():
+            obj_slot[mask] = perm[obj_slot0[mask].astype(np.int64)].astype(obj_slot.dtype)
+        prev_perm = perm
+    dev = schedule.device
+    return dataclasses.replace(
+        schedule,
+        mbr_cm=torch.from_numpy(mbr).to(dev),
+        parent=torch.from_numpy(parent).to(dev),
+        obj_slot=torch.from_numpy(obj_slot).to(dev),
     )

@@ -16,10 +16,19 @@ from ._lib import counters as counters  # noqa: F401 (re-export)
 from .build import build_levels as build_levels  # noqa: F401
 from .build import build_levels_torch as build_levels_torch  # noqa: F401
 from .build import device_schedule as device_schedule  # noqa: F401
+from .build import hilbert_keys as hilbert_keys  # noqa: F401
+from .build import hilbert_permute as hilbert_permute  # noqa: F401
+from .mbr_scan import mbr_scan as mbr_scan  # noqa: F401
+from .mbr_scan import mbr_scan_cm as mbr_scan_cm  # noqa: F401
+from .mbr_scan import mbr_scan_torch as mbr_scan_torch  # noqa: F401
 from .pyramid_scan import level_sweep as level_sweep  # noqa: F401
+from .pyramid_scan import level_sweep_hier as level_sweep_hier  # noqa: F401
+from .pyramid_scan import level_sweep_hier_torch as level_sweep_hier_torch  # noqa: F401
 from .pyramid_scan import level_sweep_torch as level_sweep_torch  # noqa: F401
+from .pyramid_scan import per_level_region_search as per_level_region_search  # noqa: F401
 from .pyramid_scan import pyramid_scan as pyramid_scan  # noqa: F401
 from .pyramid_scan import pyramid_scan_compact as pyramid_scan_compact  # noqa: F401
+from .pyramid_scan import pyramid_scan_compact8 as pyramid_scan_compact8  # noqa: F401
 from .quantize import grid_params as grid_params  # noqa: F401
 from .quantize import quantize_cm as quantize_cm  # noqa: F401
 from .quantize import quantize_cm_torch as quantize_cm_torch  # noqa: F401

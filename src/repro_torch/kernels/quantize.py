@@ -6,6 +6,10 @@ floor, hi ceil), so every quantized box contains its exact box and the
 quantized sweep keeps a superset of the exact survivors.  The grid derives
 from the object-MBR union (the root box); unused slots (lo = +inf) map to
 the integer never-overlap sentinel ``Q_NEVER_MBR``.
+
+The coarse uint8 tiles of ``compact8`` come from the plain quantizer at
+``cells=CELLS8``, as in the JAX package (which uses no Pallas kernel
+there); the uint16 tiles go through ``csrc/quantize.cu``.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.flat import CELLS, LevelSchedule, QuantizedSchedule
+from repro_torch.core.flat import CELLS, CELLS8, LevelSchedule, QuantizedSchedule
 
 from . import _lib
 
@@ -40,14 +44,16 @@ def grid_params(schedule: LevelSchedule, cells: int = CELLS):
 
 
 def quantize_cm_torch(mbr_cm: torch.Tensor, origin: torch.Tensor,
-                      inv_cell: torch.Tensor, *, cells: int = CELLS) -> torch.Tensor:
-    """Plain version: (L, 4, W) float32 -> (L, 4, W) uint16 grid cells."""
+                      inv_cell: torch.Tensor, *, cells: int = CELLS,
+                      dtype: torch.dtype = torch.uint16) -> torch.Tensor:
+    """Plain version: (L, 4, W) float32 -> (L, 4, W) ``dtype`` grid cells
+    (uint16, or uint8 on the coarse ``CELLS8`` grid)."""
     t = (mbr_cm - origin[None, :, None]) * inv_cell[None, :, None]
     is_lo = (torch.arange(4, device=mbr_cm.device) < 2)[None, :, None]
     cell = torch.where(is_lo, torch.floor(t), torch.ceil(t)).clamp(0.0, float(cells))
     cell = torch.where(is_lo & (mbr_cm == float("inf")), float(cells + 1), cell)
     # uint16 has little op support: go through int32 (exact for [0, 65535])
-    return cell.to(torch.int32).to(torch.uint16)
+    return cell.to(torch.int32).to(dtype)
 
 
 def quantize_cm(mbr_cm: torch.Tensor, origin: torch.Tensor,
@@ -80,17 +86,14 @@ def quantize_cm(mbr_cm: torch.Tensor, origin: torch.Tensor,
 
 
 def quantize_schedule(schedule: LevelSchedule, *, engine: str = "kernel",
-                      upper8: bool = False) -> QuantizedSchedule:
+                      upper8: bool = False, split: int | None = None
+                      ) -> QuantizedSchedule:
     """Lower a :class:`LevelSchedule` to its compact uint16 tile form.
 
-    ``upper8=True`` (the coarse uint8 upper levels of ``compact8``) is not
-    ported yet.
+    ``upper8=True`` also materializes coarse uint8 tiles for the levels
+    ``[0, split)`` (default all but the deepest) on a ``CELLS8``-cell grid
+    sharing the same origin: the form ``pyramid_scan_compact8`` sweeps.
     """
-    if upper8:
-        raise NotImplementedError(
-            "quantize_schedule(upper8=True) (precision='compact8') is not "
-            "ported to repro_torch yet; see ROADMAP.md"
-        )
     if engine not in ENGINES:
         raise ValueError(f"unknown quantize engine {engine!r}; expected one of {ENGINES}")
     origin, inv_cell = grid_params(schedule)
@@ -107,6 +110,13 @@ def quantize_schedule(schedule: LevelSchedule, *, engine: str = "kernel",
         confirm = schedule.mbr_cm[
             schedule.obj_level.long(), :, schedule.obj_slot.long()
         ].contiguous()
+    mbr_q8 = inv_cell8 = None
+    if split is None:
+        split = max(schedule.levels - 1, 0) if upper8 else 0
+    if upper8 and split > 0:
+        _, inv_cell8 = grid_params(schedule, cells=CELLS8)
+        mbr_q8 = quantize_cm_torch(schedule.mbr_cm[:split], origin, inv_cell8,
+                                   cells=CELLS8, dtype=torch.uint8)
     return QuantizedSchedule(
         base=schedule,
         mbr_q=mbr_q,
@@ -115,4 +125,8 @@ def quantize_schedule(schedule: LevelSchedule, *, engine: str = "kernel",
         inv_cell=inv_cell,
         confirm_mbr=confirm,
         cells=CELLS,
+        mbr_q8=mbr_q8,
+        split=split if upper8 else 0,
+        cells8=CELLS8,
+        inv_cell8=inv_cell8,
     )

@@ -80,7 +80,7 @@ def test_region_point_count_match_jax(jax_results, build, precision):
 
 
 def test_host_backend_matches_jax_host(jax_results):
-    idx = SpatialIndex.build(_data(), backend="host", device="cpu")
+    idx = SpatialIndex.build(_data(), structure="pyramid", backend="host", device="cpu")
     o_region, o_point, o_count, o_stats = jax_results["host"]
     region = idx.region(_queries())
     assert np.array_equal(_np(region.hits), o_region.hits)
@@ -94,7 +94,7 @@ def test_host_backend_matches_jax_host(jax_results):
 
 @pytest.mark.parametrize("precision", ["float32", "compact"])
 def test_query_block_chunks_are_transparent(precision):
-    idx = SpatialIndex.build(_data(), precision=precision, device="cpu")
+    idx = SpatialIndex.build(_data(), structure="pyramid", precision=precision, device="cpu")
     whole = idx.region(_queries())
     for backend_opts in ({"query_block": 3}, {"block_w": 256, "query_block": 1}):
         chunked = idx.with_backend("cuda", precision=precision, **backend_opts)
@@ -105,7 +105,7 @@ def test_query_block_chunks_are_transparent(precision):
 
 
 def test_with_backend_shares_the_build():
-    idx = SpatialIndex.build(_data(), build="device", device="cpu")
+    idx = SpatialIndex.build(_data(), structure="pyramid", build="device", device="cpu")
     twin = idx.with_backend("cuda", precision="compact")
     assert twin.artifacts is idx.artifacts
     assert twin.artifacts.quantized is idx.artifacts.quantized
@@ -114,13 +114,14 @@ def test_with_backend_shares_the_build():
 
 def test_registry():
     assert backend_names() == ["cuda", "host"]
-    assert advertised_pairs() == [("pyramid", "cuda"), ("pyramid", "host")]
+    assert advertised_pairs() == [
+        (structure, backend) for structure in ("mqr", "pyramid", "rtree")
+        for backend in ("cuda", "host")
+    ]
 
 
 @pytest.mark.parametrize("opts", [
-    {"structure": "mqr"}, {"structure": "rtree"}, {"order": "hilbert"},
-    {"precision": "compact8"}, {"stream": True}, {"autotune": "auto"},
-    {"autotune": "on"}, {"capacity": 64}, {"merge": {}},
+    {"stream": True}, {"capacity": 64}, {"merge": {}},
 ])
 def test_unported_options_raise(opts):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -149,7 +150,7 @@ def test_bad_options_raise():
     with pytest.raises(ValueError):
         SpatialIndex.build(data, device="cpu", precision="float16")
     with pytest.raises(ValueError):
-        SpatialIndex.build(data, device="cpu", build="gpu")
+        SpatialIndex.build(data, structure="pyramid", device="cpu", build="gpu")
     with pytest.raises(ValueError):
         SpatialIndex.build(data, device="cpu", backend="pallas")
     with pytest.raises(ValueError):

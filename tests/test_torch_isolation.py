@@ -50,7 +50,8 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "d = datasets.uniform_squares(300, seed=4)\n"
         "q = datasets.region_queries(d, 4, seed=4)\n"
         "for p in ('float32', 'compact'):\n"
-        "    r = SpatialIndex.build(d, build='device', precision=p, device='cpu').region(q)\n"
+        "    r = SpatialIndex.build(d, structure='pyramid', build='device', precision=p,\n"
+        "                           device='cpu').region(q)\n"
         "    assert r.hits.shape == (4, 300) and int(r.counts.sum()) > 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"

@@ -106,13 +106,3 @@ def test_wide_schedule_keeps_int32_parents():
     sched = ops.device_schedule(np.concatenate([ll, ll + 10], 1), levels=2, device="cpu")
     q = ops.quantize_schedule(sched)
     assert q.parent_q.dtype == torch.int32 and q.mbr_q.dtype == torch.uint16
-
-
-def test_compact8_not_ported():
-    js = _jax_pyramid("uniform_squares", 50)
-    sched = convert.schedule_from_numpy(dataclasses.asdict(js), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.quantize_schedule(sched, upper8=True)
-    jq8 = jquant.quantize_schedule(js, engine="jnp", upper8=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        convert.quantized_from_numpy(dataclasses.asdict(jq8), device="cpu")

@@ -170,7 +170,8 @@ def test_subnormal_query_matches_numpy_oracle(build, precision):
     assert qs[0, 3] != 0.0  # a real subnormal, not flushed by numpy
     want = _brute(rects, qs)
     assert not want[0].any() and want[1].all()
-    idx = SpatialIndex.build(rects, build=build, precision=precision, device="cpu")
+    idx = SpatialIndex.build(rects, structure="pyramid", build=build, precision=precision,
+                             device="cpu")
     got = idx.region(qs)
     assert np.array_equal(_np(got.hits), want)
     # the sweep on its own agrees too
