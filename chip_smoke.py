@@ -33,13 +33,36 @@ it and read just after):
      hits equal the host pointer-search oracle (visits too at float32),
      compact hits equal float32 hits, and each tree schedule equals the
      second build's;
-  7. flat levels: a tree schedule swept with ``uncond_from = L - 1`` by
-     each sweep kernel equals its plain version;
-  8. each kernel against its plain version at its path's shapes (exact
+  7. flat levels: a tree schedule swept with ``uncond_from = L - 1`` and
+     ``1`` by each sweep kernel (the streaming one too) equals its plain
+     version;
+  8. live pyramid path: a second device-built index of the same n objects,
+     at float32 and compact (fixed tiling), goes through three mutation
+     steps, each followed by region, point and count batches: (a) insert
+     200 squares (the delta buffer, capacity 256), delete 1,000 base ids
+     and 50 of the new ids; (b) ``flush()`` (a device rebuild); (c) insert
+     a batch larger than the capacity (the merge path).  After each step:
+     hits equal a brute-force numpy float32 overlap over the live object
+     table and ``alive``, hits and visits (delta columns included) equal
+     the plain path on the card, compact hits equal float32 hits, counts
+     agree; hits are bit-identical across the flush.  Fails unless the
+     build, quantize and both sweep kernels launched;
+  9. live trees: the mqr-tree and R-tree of phase 5 extended with the same
+     inserts and deletes (no flush), checked as in 8; and a small mqr-tree
+     (2,000 objects) through a flush, checked against the port's own mqr
+     insertion-rule oracle (``repro_torch.update.oracle``);
+ 10. stream path: ``stream=True`` backends (fixed tiling) on the pyramid at
+     float32 and compact and on both trees at float32 and compact; hits and
+     visits equal the resident sweep's, kernel #2's mask equals kernel #1's
+     and its plain version's, its skip count equals the plain rule's and is
+     above 0 on the pyramid and the mqr-tree; fails unless the streaming
+     kernel launched;
+ 11. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round),
      timed with CUDA events (median of 7 after warm-up), beside the least
-     time the card needs for the same bytes and operations;
-  9. end-to-end times of builds, region and point batches (first call,
+     time the card needs for the same bytes and operations (for the
+     streaming sweep, the tile and parent bytes of the tiles it read);
+ 12. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one region batch per path and
      precision (device time by kernel, and the device's idle share).
@@ -158,7 +181,8 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     if same(a, b):
         return 0.0
     worst = 0.0
-    for x, y in zip(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)):
+    rows = a.shape[0] if a.dim() else 1
+    for x, y in zip(a.reshape(rows, -1), b.reshape(rows, -1)):
         x64, y64 = x.to(torch.float64), y.to(torch.float64)
         both = torch.isfinite(x64) & torch.isfinite(y64)
         if both.any():
@@ -537,8 +561,275 @@ def run(args, second) -> int:
                 checks.expect(same(got, want),
                               f"{name} with uncond_from = {uncond} of L = {s.levels} == "
                               f"plain ({int(got[uncond:].sum())} flat-level survivors)")
+            # kernel #2 with flat levels: windows made with the same uncond_from
+            win_off, win_w = ops.stream_windows(s.parent, s.n_real, block_w=128, device=dev,
+                                                uncond_from=uncond)
+            for name, sweep_args in (("f32", (tq, s.mbr_cm, s.parent)),
+                                     ("u16 tiles, u16 parents",
+                                      (qq16, q16.mbr_q, q16.parent_q))):
+                act, skipped = ops.level_sweep_stream(*sweep_args, win_off, win_w,
+                                                      uncond_from=uncond)
+                want, want_skipped = ops.level_sweep_stream_torch(*sweep_args, win_off, win_w,
+                                                                  uncond_from=uncond)
+                resident = ops.level_sweep(*sweep_args, uncond_from=uncond)
+                checks.expect(same(act, want) and same(skipped, want_skipped)
+                              and same(act, resident),
+                              f"level_sweep_stream {name} with uncond_from = {uncond} == plain "
+                              f"and == level_sweep ({int(skipped)} level-tiles skipped)")
 
     checks.phase("flat levels (uncond_from = L - 1, and 1)", flat_levels)
+
+    # -- 8. live pyramid path ------------------------------------------
+    live_out = {}
+
+    def brute_live(log, qs):
+        """Live contract: numpy float32 overlap over the live object table
+        and ``alive``, chunked over queries -> (Q, id_space) bool."""
+        table = log.mbr_table.astype(np.float32)
+        want = np.zeros((qs.shape[0], table.shape[0]), bool)
+        for i in range(0, qs.shape[0], 32):
+            q = qs[i:i + 32, None, :]
+            want[i:i + 32] = ((table[None, :, 0] <= q[..., 2]) & (q[..., 0] <= table[None, :, 2])
+                              & (table[None, :, 1] <= q[..., 3]) & (q[..., 1] <= table[None, :, 3])
+                              & log.alive[None, :])
+        return want
+
+    def live_plain(ix, precision, q):
+        """The live sweep of ``ix``'s current epoch by the plain versions."""
+        precision = "compact" if precision == "compact8" else precision
+        aug = ix._updates.augmented(precision)
+        fn = ops.fused_search_compact_live if precision == "compact" else ops.fused_search_live
+        return fn(q, *aug.arrays, engine="torch", **aug.statics)
+
+    def live_step(ixs, qs, ps):
+        """region (first call after the mutation, then steady), point and
+        count on every index of ``ixs`` (precision -> index)."""
+        res = {}
+        for precision, ix in ixs.items():
+            sync()
+            t = time.perf_counter()
+            region = ix.region(qs)
+            sync()
+            first_ms = (time.perf_counter() - t) * 1e3
+            res[precision] = dict(region=region, point=ix.point(ps), count=ix.count(qs),
+                                  first_ms=first_ms,
+                                  steady_ms=wall_ms(lambda: ix.region(qs), 3))
+        return res
+
+    def check_live(label, ixs, res, qs, ps):
+        log = next(iter(ixs.values()))._updates
+        want = brute_live(log, qs)
+        q = torch.from_numpy(qs).to(dev)
+        p = torch.from_numpy(ps).to(dev)
+        pq = torch.cat([p, p], dim=1)
+        for precision, ix in ixs.items():
+            r = res[precision]
+            checks.expect(np.array_equal(r["region"].hits.cpu().numpy(), want),
+                          f"{label} {precision} hits == brute-force live mask")
+            for what, qq in (("region", q), ("point", pq)):
+                hits, visits = live_plain(ix, precision, qq)
+                checks.expect(same(r[what].hits, hits) and same(r[what].visits_per_level, visits),
+                              f"{label} {precision} {what} hits and visits (delta columns "
+                              f"included) == plain path")
+            checks.expect(same(r["count"], r["region"].hits.sum(dim=1)),
+                          f"{label} {precision} count == region hits per query")
+            if precision != "float32":
+                checks.expect(same(r["region"].hits, res["float32"]["region"].hits),
+                              f"{label} {precision} hits == float32 hits")
+        print(f"  {label}: hits {int(res['float32']['region'].hits.sum())}, delta visits/query "
+              f"{float(res['float32']['region'].delta_visits.sum()) / qs.shape[0]:.2f}; "
+              + ", ".join(f"{p} first {r['first_ms']:.1f} ms, steady {r['steady_ms']:.2f} ms"
+                          for p, r in res.items()), flush=True)
+
+    def live_pyramid():
+        sync()
+        _lib.counters.reset()
+        live = SpatialIndex.build(data, structure="pyramid", build="device", **FIXED)
+        ixs = {"float32": live,
+               "compact": live.with_backend("cuda", precision="compact", **FIXED)}
+        rng = np.random.default_rng(args.seed + 3)
+        sync()
+        t = time.perf_counter()
+        gids = live.insert(datasets.uniform_squares(200, seed=args.seed + 2))
+        live.delete(rng.choice(args.n, size=1000, replace=False))
+        live.delete(rng.choice(gids, size=50, replace=False))
+        live_out["mutate_ms"] = (time.perf_counter() - t) * 1e3
+        steps = {"mutate": live_step(ixs, queries, points)}
+        check_live("live pyramid, buffered", ixs, steps["mutate"], queries, points)
+        before = steps["mutate"]["float32"]["region"].hits
+        sync()
+        t = time.perf_counter()
+        flushed = live.flush()
+        sync()
+        live_out["flush_ms"] = (time.perf_counter() - t) * 1e3
+        checks.expect(flushed and live._updates.n_delta == 0 and live._updates.dead_base == 0,
+                      "flush() merged the buffer and the tombstones")
+        steps["flush"] = live_step(ixs, queries, points)
+        check_live("live pyramid, flushed", ixs, steps["flush"], queries, points)
+        after = steps["flush"]["float32"]["region"].hits
+        w = before.shape[1]
+        checks.expect(same(after[:, :w], before) and not bool(after[:, w:].any()),
+                      "live pyramid hits bit-identical across the flush (global ids kept)")
+        del before, after
+        big = datasets.uniform_squares(live._updates.capacity + 44, seed=args.seed + 4)
+        sync()
+        t = time.perf_counter()
+        live.insert(big)
+        sync()
+        live_out["merge_insert_ms"] = (time.perf_counter() - t) * 1e3
+        checks.expect(live._updates.flushes == 2 and live._updates.n_delta == 0,
+                      "an insert larger than the capacity merged directly")
+        steps["merge"] = live_step(ixs, queries, points)
+        check_live("live pyramid, overflow merge", ixs, steps["merge"], queries, points)
+        sync()
+        paths["live pyramid"] = _lib.counters.snapshot()
+        print(f"  launches {paths['live pyramid']}", flush=True)
+        expect_launched("live pyramid", ("build_levels", "quantize_cm", "level_sweep_f32",
+                                         "level_sweep_u16"))
+        live_out["steps"] = {k: {p: {m: r[m] for m in ("first_ms", "steady_ms")}
+                                 for p, r in v.items()} for k, v in steps.items()}
+        live_out["index"] = live
+        live_out["stats"] = dataclasses.asdict(live.stats)
+        print(f"  mutate (200 inserts, 1,050 deletes) {live_out['mutate_ms']:.1f} ms, flush "
+              f"{live_out['flush_ms']:.1f} ms, oversized insert (merge) "
+              f"{live_out['merge_insert_ms']:.1f} ms; stats {live_out['stats']}", flush=True)
+
+    checks.phase("live pyramid path", live_pyramid)
+
+    # -- 9. live trees ---------------------------------------------------
+    def live_trees():
+        from repro_torch.update import oracle
+
+        sync()
+        _lib.counters.reset()
+        rng = np.random.default_rng(args.seed + 5)
+        new = datasets.uniform_squares(200, seed=args.seed + 2)
+        for structure, tr in trees.items():
+            lix = tr["index"].extend(new)  # a new index; the tree path's stays pristine
+            gids = np.arange(args.tree_n, args.tree_n + new.shape[0])  # ids are append-only
+            lix.delete(rng.choice(args.tree_n, size=min(1000, args.tree_n // 2), replace=False))
+            lix.delete(rng.choice(gids, size=50, replace=False))
+            ixs = {p: lix if p == "float32" else lix.with_backend("cuda", precision=p)
+                   for p in PRECISIONS}
+            res = live_step(ixs, tree_queries, tree_points)
+            check_live(f"live {structure}", ixs, res, tree_queries, tree_points)
+            live_out[structure] = {p: {m: r[m] for m in ("first_ms", "steady_ms")}
+                                   for p, r in res.items()}
+        small = datasets.uniform_squares(2000, seed=args.seed + 6)
+        sq = datasets.region_queries(small, 32, seed=args.seed + 6).astype(np.float32)
+        t = time.perf_counter()
+        six = SpatialIndex.build(small)
+        ixs = {"float32": six, "compact": six.with_backend("cuda", precision="compact")}
+        g = six.insert(datasets.uniform_squares(200, seed=args.seed + 7))
+        six.delete(rng.choice(2000, size=100, replace=False))
+        six.delete(rng.choice(g, size=20, replace=False))
+        q = torch.from_numpy(sq).to(dev)
+        for stage in ("buffered", "flushed"):
+            if stage == "flushed":
+                checks.expect(six.flush(), "small mqr-tree flush() merged")
+            want = oracle.hits_mask(six, sq, six.id_space)
+            for precision, ix in ixs.items():
+                r = ix.region(sq)
+                hits, visits = live_plain(ix, precision, q)
+                checks.expect(np.array_equal(r.hits.cpu().numpy(), want),
+                              f"small mqr-tree, {stage}, {precision}: hits == mqr "
+                              f"insertion-rule oracle")
+                checks.expect(same(r.hits, hits) and same(r.visits_per_level, visits),
+                              f"small mqr-tree, {stage}, {precision}: hits and visits == "
+                              f"plain path")
+        live_out["small_mqr_s"] = time.perf_counter() - t
+        sync()
+        paths["live trees"] = _lib.counters.snapshot()
+        print(f"  small mqr-tree (2,000 objects, build + mutations + flush + two oracle "
+              f"trees, host Python) {live_out['small_mqr_s']:.1f} s", flush=True)
+        print(f"  launches {paths['live trees']}", flush=True)
+        expect_launched("live trees", ("level_sweep_f32", "level_sweep_u16", "level_sweep_u16p"))
+
+    checks.phase("live trees", live_trees)
+
+    # -- 10. stream path ---------------------------------------------------
+    stream_out = {}
+
+    def stream_path():
+        sync()
+        _lib.counters.reset()
+        specs = [("pyramid", p, idx, queries, points) for p in ("float32", "compact")]
+        specs += [(st, p, tr["index"], tree_queries, tree_points)
+                  for st, tr in trees.items() for p in ("float32", "compact")]
+        for structure, precision, base, qs, ps in specs:
+            ix = base.with_backend("cuda", stream=True, precision=precision, **FIXED)
+            sync()
+            t = time.perf_counter()
+            region = ix.region(qs)
+            sync()
+            first_ms = (time.perf_counter() - t) * 1e3
+            stream_out[structure, precision] = dict(
+                index=ix, region=region, skipped=ix.stats.tiles_skipped,
+                point=ix.point(ps), count=ix.count(qs), first_ms=first_ms)
+        sync()
+        paths["stream"] = _lib.counters.snapshot()
+        print(f"  launches {paths['stream']}", flush=True)
+        expect_launched("stream", ("level_sweep_stream_f32", "level_sweep_stream_u16",
+                                   "level_sweep_stream_u16p"))
+
+    checks.phase("stream path", stream_path)
+
+    def stream_inputs(ix, precision, q):
+        """(queries, tiles, parents, windows) of ``ix``'s streaming sweep."""
+        s = ix.schedule
+        win_off, win_w = ix._backend._windows[FIXED["block_w"]]
+        if precision == "float32":
+            return q, s.mbr_cm, s.parent, win_off, win_w
+        qs16 = ix.artifacts.quantized
+        qq = _quantize_queries(q, qs16.origin, qs16.inv_cell, qs16.cells)
+        return qq, qs16.mbr_q, qs16.parent_q, win_off, win_w
+
+    def stream_results():
+        tq = torch.from_numpy(tree_queries).to(dev)
+        for (structure, precision), r in stream_out.items():
+            ref = out[precision] if structure == "pyramid" else trees[structure][precision]
+            for what in ("region", "point"):
+                checks.expect(same(r[what].hits, ref[what].hits)
+                              and same(r[what].visits_per_level, ref[what].visits_per_level),
+                              f"stream {structure} {precision} {what} hits and visits == "
+                              f"resident sweep")
+            checks.expect(same(r["count"], r["region"].hits.sum(dim=1)),
+                          f"stream {structure} {precision} count == region hits per query")
+            ix = r["index"]
+            root = ix.schedule.root_unconditional
+            qq, tiles, parent, win_off, win_w = stream_inputs(
+                ix, precision, q_dev if structure == "pyramid" else tq)
+            act2, sk2 = ops.level_sweep_stream(qq, tiles, parent, win_off, win_w,
+                                               root_unconditional=root)
+            act1 = ops.level_sweep(qq, tiles, parent, root_unconditional=root)
+            checks.expect(same(act2, act1), f"stream {structure} {precision}: kernel #2 mask "
+                          f"== kernel #1 mask")
+            del act1
+            actp, skp = ops.level_sweep_stream_torch(qq, tiles, parent, win_off, win_w,
+                                                     root_unconditional=root)
+            checks.expect(same(act2, actp), f"stream {structure} {precision}: kernel #2 mask "
+                          f"== plain version")
+            del act2, actp
+            total = win_off.numel()
+            checks.expect(int(sk2) == int(skp) == r["skipped"],
+                          f"stream {structure} {precision}: skipped tiles {int(sk2)} == plain "
+                          f"rule {int(skp)} == AccessStats.tiles_skipped {r['skipped']} "
+                          f"(of {total} level-tiles, win_w {win_w})")
+            if structure in ("pyramid", "mqr"):
+                checks.expect(int(sk2) > 0, f"stream {structure} {precision} skipped tiles")
+            r["total_tiles"], r["win_w"] = total, win_w
+        # the fourth instantiation: float32 tiles with uint16 parents
+        s = trees["mqr"]["index"].schedule if "mqr" in trees else sched
+        q = tq if "mqr" in trees else q_dev
+        win_off, win_w = ops.stream_windows(s.parent, s.n_real, block_w=128, device=dev)
+        if s.width <= 65535:
+            p16 = s.parent.to(torch.uint16)
+            got = ops.level_sweep_stream(q, s.mbr_cm, p16, win_off, win_w)
+            want = ops.level_sweep_stream_torch(q, s.mbr_cm, p16, win_off, win_w)
+            checks.expect(all(same(a, b) for a, b in zip(got, want)),
+                          "level_sweep_stream float32 tiles + uint16 parents == plain version")
+
+    checks.phase("stream results", stream_results)
 
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
@@ -571,6 +862,32 @@ def run(args, second) -> int:
         the (L, Q, W) mask written once."""
         tested = levels - int(root_only)
         return nq * 16 + tested * width * (tile_bytes + pbytes) + levels * nq * width
+
+    def stream_row(name, ix, precision, q):
+        """Kernel #2 on ``ix``'s streaming sweep; its bound counts the tile
+        and parent bytes of the tiles this run reads (not the skipped ones)
+        and the compares of their slots."""
+        qq, tiles, parent, win_off, win_w = stream_inputs(ix, precision, q)
+        root = ix.schedule.root_unconditional
+        levels, _, width = tiles.shape
+        nq = qq.shape[0]
+        skipped = int(ops.level_sweep_stream(qq, tiles, parent, win_off, win_w,
+                                             root_unconditional=root)[1])
+        read_slots = (win_off.numel() - skipped) * FIXED["block_w"]
+        tile_bytes = 4 * tiles.element_size() + parent.element_size()
+        kernel_row(
+            name, sweep_src, "src/repro/kernels/pyramid_scan.py:530",
+            lambda: ops.level_sweep_stream(qq, tiles, parent, win_off, win_w,
+                                           root_unconditional=root),
+            lambda: ops.level_sweep_stream_torch(qq, tiles, parent, win_off, win_w,
+                                                 root_unconditional=root),
+            nbytes=nq * 16 + win_off.numel() * 4 + read_slots * tile_bytes
+            + levels * nq * width,
+            ops_count=read_slots * nq * 8, launches=paths.get("stream", {}).get(name, 0),
+        )
+        print(f"  {name}: {skipped} of {win_off.numel()} level-tiles skipped, "
+              f"{int((win_off < 0).sum())} of them statically empty (win_w {win_w})",
+              flush=True)
 
     def kernel_phase():
         L, _, W = sched.mbr_cm.shape
@@ -642,8 +959,16 @@ def run(args, second) -> int:
             nbytes=nq * 16 + W * 16 + nq * W,
             ops_count=nq * W * 8, launches=extras.get("mbr_scan", 0),
         )
+        # #2 on the pyramid at float32 and compact, with the windows of its path
+        for name, precision in (("level_sweep_stream_f32", "float32"),
+                                ("level_sweep_stream_u16", "compact")):
+            if ("pyramid", precision) in stream_out:
+                stream_row(name, stream_out["pyramid", precision]["index"], precision, q_dev)
         if "mqr" not in trees:
             return
+        if ("mqr", "compact") in stream_out:
+            stream_row("level_sweep_stream_u16p", stream_out["mqr", "compact"]["index"],
+                       "compact", torch.from_numpy(tree_queries).to(dev))
         # the mqr tree schedule: uint16 parents, root-only level 0, object gate
         ts = trees["mqr"]["index"].schedule
         t16 = trees["mqr"]["index"].artifacts.quantized
@@ -689,12 +1014,29 @@ def run(args, second) -> int:
                 ix = tr[precision]["index"]
                 tr[precision]["region_ms"] = wall_ms(lambda: ix.region(tree_queries))
                 tr[precision]["point_ms"] = wall_ms(lambda: ix.point(tree_points))
+        for (structure, _), r in stream_out.items():
+            qs = queries if structure == "pyramid" else tree_queries
+            r["region_ms"] = wall_ms(lambda: r["index"].region(qs))
         sync()
         live = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         out["compact"]["index"].region(queries)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         out["batch_peak_gib"] = out["peak_gib"] - live / 2 ** 30
+        if "index" in live_out:
+            sync()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            live_out["index"].region(queries)
+            live_out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            live_out["batch_peak_gib"] = live_out["peak_gib"] - resident / 2 ** 30
+            print(f"  peak device memory during one live float32 pyramid region batch: "
+                  f"{live_out['peak_gib']:.2f} GiB, of which the batch itself "
+                  f"{live_out['batch_peak_gib']:.2f} GiB", flush=True)
+        for (structure, precision), r in stream_out.items():
+            print(f"  stream {structure} {precision}: region {r['region_ms']:.2f} ms "
+                  f"(median of {REPEATS}), first {r['first_ms']:.1f} ms; tiles skipped "
+                  f"{r['skipped']} of {r.get('total_tiles')}", flush=True)
         print(f"  build (first) {out['build_ms']:.1f} ms, build (steady, median of 5) "
               f"{out['build_steady_ms']:.1f} ms", flush=True)
         for precision in ("float32", "compact", "compact8"):
@@ -729,6 +1071,12 @@ def run(args, second) -> int:
                    for p in ("float32", "compact", "compact8")]
         batches += [(f"{s} {p}", trees[s][p]["index"], tree_queries)
                     for s in trees for p in ("float32", "compact8")]
+        if ("pyramid", "float32") in stream_out:
+            batches.append(("pyramid float32 stream=True",
+                            stream_out["pyramid", "float32"]["index"], queries))
+        if "index" in live_out:
+            batches.append(("pyramid float32 live (after the merge)", live_out["index"],
+                            queries))
         for label, ix, qs in batches:
             ix.region(qs)
             sync()
@@ -776,6 +1124,11 @@ def run(args, second) -> int:
             tuned={str(k): str(v) for k, v in tr["index"].artifacts.tuned.items()},
         ) for s, tr in trees.items()},
         launches=paths,
+        live={k: v for k, v in live_out.items() if k != "index"},
+        stream={f"{st} {p}": dict(skipped=r["skipped"], total_tiles=r.get("total_tiles"),
+                                  win_w=r.get("win_w"), region_ms=r.get("region_ms"),
+                                  first_ms=r["first_ms"])
+                for (st, p), r in stream_out.items()},
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

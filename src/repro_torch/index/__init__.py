@@ -1,5 +1,7 @@
 """The :class:`SpatialIndex` façade and its backend registry."""
 
+from repro_torch.update import MergePolicy
+
 from .api import (
     AccessStats,
     BuildArtifacts,

@@ -14,6 +14,14 @@ host), ``rtree`` (Guttman baseline) and ``pyramid`` (bulk fixed point,
 runs); without a card and without that request, building raises.  Results
 are torch tensors on the backend's device.  Options the port does not
 have yet raise ``NotImplementedError`` naming ROADMAP.md.
+
+Online mutation (DESIGN.md §8): :meth:`SpatialIndex.insert` /
+:meth:`delete` / :meth:`flush` route through :mod:`repro_torch.update` —
+inserts land in a delta buffer swept by the same fused sweep as flat
+levels, deletes tombstone ids masked in the sweep's epilogue, and a merge
+policy decides when to compact into a fresh base build.  Object ids are
+global and append-only, so hit masks stay comparable across mutations and
+merges.
 """
 
 from __future__ import annotations
@@ -33,7 +41,11 @@ from repro_torch.core.flat import (
     level_schedule,
     pyramid_schedule,
 )
+from repro_torch.core.metrics import compute_metrics
 from repro_torch.kernels import ops
+from repro_torch.update import BufferFullError, MergePolicy, UpdateLog, as_policy
+from repro_torch.update.engine import LiveEngine
+from repro_torch.update.oracle import live_tree
 
 from .registry import BackendSpec, get_backend
 
@@ -41,8 +53,11 @@ STRUCTURES = ("mqr", "rtree", "pyramid")
 
 # Build-time options; everything else in **opts goes to the backend factory.
 _BUILD_OPTS = ("levels", "max_entries", "build", "order")
-# Live-update / durability options of the JAX façade, not ported yet.
+# Live-update / durability options (structure-agnostic, façade-consumed).
 _UPDATE_OPTS = ("capacity", "merge", "admission", "fault_plan")
+
+# Admission policies for mutations that cannot be buffered.
+ADMISSION_MODES = ("merge", "shed")
 
 
 def _roadmap(what: str) -> NotImplementedError:
@@ -93,13 +108,20 @@ def validate_queries(queries, *, what: str = "queries") -> np.ndarray:
 class RegionResult:
     """Result of a batched region (or point) search.
 
-    hits:             (Q, n_objects) bool object-overlap mask.
+    hits:             (Q, id_space) bool object-overlap mask — columns are
+                      GLOBAL object ids (build positions until live updates
+                      begin; append-only afterwards).
     visits_per_level: (Q, L) int32 node accesses by tree level — the
-                      paper's disk accesses broken down by depth.
+                      paper's disk accesses broken down by depth.  Once
+                      live updates begin, columns past ``base_levels`` are
+                      the delta buffer's flat-scan accesses.
+    base_levels:      levels of the frozen base build; None for an index
+                      with no live-update state.
     """
 
     hits: torch.Tensor
     visits_per_level: torch.Tensor
+    base_levels: Optional[int] = None
 
     @property
     def visits(self) -> torch.Tensor:
@@ -115,6 +137,15 @@ class RegionResult:
         """Object ids found by query ``i`` (ascending)."""
         return torch.nonzero(self.hits[i]).flatten()
 
+    @property
+    def delta_visits(self) -> torch.Tensor:
+        """(Q,) delta-buffer accesses per query (all zero when the index
+        has no live-update state)."""
+        if self.base_levels is None:
+            return torch.zeros((self.visits_per_level.shape[0],), dtype=torch.int64,
+                               device=self.visits_per_level.device)
+        return self.visits_per_level[:, self.base_levels:].sum(dim=1, dtype=torch.int64)
+
 
 @dataclasses.dataclass
 class AccessStats:
@@ -124,6 +155,15 @@ class AccessStats:
     queries: int = 0
     node_accesses: int = 0
     launches: int = 0        # sweep launches (0 for the host backend)
+    # live-update ledger
+    inserts: int = 0
+    deletes: int = 0
+    flushes: int = 0         # merges (manual, policy, or overflow)
+    shed_mutations: int = 0  # objects dropped by admission="shed"
+    delta_accesses: int = 0  # node_accesses spent on delta-buffer levels
+    # (level, tile) pairs the streaming sweep (stream=True) skipped, as the
+    # kernel counted them on the device
+    tiles_skipped: int = 0
 
     def record(self, n_queries: int, accesses: int, launches: int) -> None:
         self.queries += int(n_queries)
@@ -158,6 +198,9 @@ class BuildArtifacts:
         if self.n_objects == 0:
             raise ValueError("a spatial index needs at least one MBR")
         self.order = order
+        # the user's options, so a merge or extend() can re-run the same build
+        self.build_opts = dict(levels=levels, max_entries=max_entries, build=build,
+                               order=order)
         self.pointer_tree = None
         self._flat: Optional[FlatTree] = None
         self._schedule: Optional[LevelSchedule] = None
@@ -237,11 +280,29 @@ class SpatialIndex:
                 f"backend {spec.name!r} does not serve structure "
                 f"{artifacts.structure!r} (serves: {sorted(spec.structures)})"
             )
-        self.artifacts = artifacts
+        self._artifacts = artifacts
         self.spec = spec
         self.stats = AccessStats()
+        self._backend_opts = dict(backend_opts)
         self._backend = spec.factory(artifacts, **backend_opts)
+        # Live-update state, created on the first insert/delete.  The log
+        # lives in a shared one-slot cell so `with_backend` twins see each
+        # other's mutations whichever mutates first.
+        self._policy = None            # MergePolicy from build()
+        self._updates_cell = {"log": None}
+        self._live_engine = None
+        self._backend_base_epoch = 0   # base epoch self._backend was built at
+        self._admission = "merge"      # what to do with unbufferable batches
 
+    @property
+    def _updates(self):
+        return self._updates_cell["log"]
+
+    @_updates.setter
+    def _updates(self, log):
+        self._updates_cell["log"] = log
+
+    # -- construction --------------------------------------------------
     @classmethod
     def build(cls, mbrs, *, structure: str = "mqr", backend: str = "cuda",
               device=None, backend_opts: Optional[dict] = None,
@@ -258,29 +319,101 @@ class SpatialIndex:
             schedule directly; ``max_entries`` for the rtree;
             ``order="hilbert"``) plus backend options (``block_w``,
             ``query_block``, ``autotune="auto"|"on"|"off"``,
-            ``precision="float32"|"compact"|"compact8"``), routed by key; an
-            option the backend does not take raises ``TypeError``.
+            ``precision="float32"|"compact"|"compact8"``, ``stream=True``
+            for the streaming sweep), routed by key; an option the backend
+            does not take raises ``TypeError``.  Live-update options:
+            ``capacity`` (delta-buffer slots) and ``merge`` (a
+            :class:`repro_torch.update.MergePolicy` or kwargs dict)
+            configure how :meth:`insert` / :meth:`delete` buffer and when
+            they compact; ``admission`` says what happens to a batch the
+            buffer cannot absorb: ``"merge"`` (fold it into a compaction;
+            ``BufferFullError`` when the policy has ``auto=False``) or
+            ``"shed"`` (drop it, counted in ``stats.shed_mutations``).
+            ``fault_plan`` is not ported yet and raises.
         backend_opts: an explicit dict of backend-only options; a key also
             given in ``opts`` raises ``TypeError``.
         """
-        for k in _UPDATE_OPTS:
-            if k in opts:
-                raise _roadmap(f"option {k!r} (live updates and durability)")
+        update_opts = {k: opts.pop(k) for k in list(opts) if k in _UPDATE_OPTS}
+        if update_opts.get("fault_plan") is not None:
+            raise _roadmap("option 'fault_plan' (fault injection, ft/failures.py)")
         build_opts = {k: v for k, v in opts.items() if k in _BUILD_OPTS}
         routed = {k: v for k, v in opts.items() if k not in _BUILD_OPTS}
         for k, v in (backend_opts or {}).items():
-            if k in opts:
+            if k in opts or k in update_opts:
                 raise TypeError(f"backend_opts duplicates option {k!r} also passed directly")
-            if k in _BUILD_OPTS:
-                raise TypeError(f"backend_opts key {k!r} is a build option; pass it directly")
+            if k in _BUILD_OPTS or k in _UPDATE_OPTS:
+                kind = "build" if k in _BUILD_OPTS else "update"
+                raise TypeError(f"backend_opts key {k!r} is a {kind} option; pass it directly")
             routed[k] = v
         artifacts = BuildArtifacts(structure, mbrs, device=device, **build_opts)
-        return cls(artifacts, get_backend(backend), **routed)
+        idx = cls(artifacts, get_backend(backend), **routed)
+        if "capacity" in update_opts or "merge" in update_opts:
+            # validated eagerly so a bad option fails at build time
+            idx._policy = as_policy(update_opts.get("merge"), update_opts.get("capacity"))
+        admission = update_opts.get("admission")
+        if admission is not None:
+            if admission not in ADMISSION_MODES:
+                raise ValueError(
+                    f"unknown admission {admission!r}; expected one of {ADMISSION_MODES}")
+            idx._admission = admission
+        return idx
 
     def with_backend(self, backend: str, **backend_opts) -> "SpatialIndex":
-        """A new index answering from the SAME build artifacts on another
-        backend (build once, serve anywhere; lowerings are shared)."""
-        return SpatialIndex(self.artifacts, get_backend(backend), **backend_opts)
+        """A new index answering from the SAME build on another backend
+        (build once, serve anywhere; lowerings are shared).  Live mutation
+        state is shared too: mutations through either index are visible to
+        both."""
+        new = SpatialIndex(self.artifacts, get_backend(backend), **backend_opts)
+        new._policy = self._policy
+        new._admission = self._admission
+        new._updates_cell = self._updates_cell
+        if self._updates is not None:
+            new._backend_base_epoch = self._updates.base_epoch
+        return new
+
+    def extend(self, new_mbrs, *, flush: str = "auto") -> "SpatialIndex":
+        """Batch insertion: a new index whose live set adds ``new_mbrs``.
+
+        The batch lands in the NEW index's delta buffer and merges by
+        policy, while this index stays untouched.  ``flush="always"``
+        compacts at once (on a never-mutated index: a fresh build over the
+        concatenated objects, with no live-update state).  Batches larger
+        than the buffer capacity merge directly either way.
+        """
+        if flush not in ("auto", "always"):
+            raise ValueError(f"unknown flush {flush!r}; expected 'auto' or 'always'")
+        new_mbrs = np.asarray(new_mbrs, np.float64).reshape(-1, 4)
+        if flush == "always" and self._updates is None:
+            mbrs = np.concatenate([self.artifacts.mbrs, new_mbrs], axis=0)
+            artifacts = BuildArtifacts(self.structure, mbrs, device=self.device,
+                                       **self.artifacts.build_opts)
+            clone = SpatialIndex(artifacts, self.spec, **self._backend_opts)
+            clone._policy = self._policy
+            return clone
+        clone = self._snapshot()
+        clone.insert(new_mbrs)
+        if flush == "always":
+            clone.flush()
+        return clone
+
+    def _snapshot(self) -> "SpatialIndex":
+        """A new index over the same (current) base with an independent
+        copy of any live-update state."""
+        clone = SpatialIndex(self.artifacts, self.spec, **self._backend_opts)
+        clone._policy = self._policy
+        clone._admission = self._admission
+        if self._updates is not None:
+            clone._updates = self._updates.snapshot()
+            clone._backend_base_epoch = clone._updates.base_epoch
+        return clone
+
+    # -- introspection -------------------------------------------------
+    @property
+    def artifacts(self) -> BuildArtifacts:
+        """The CURRENT frozen base build (replaced at every merge)."""
+        if self._updates is not None:
+            return self._updates.base
+        return self._artifacts
 
     @property
     def structure(self) -> str:
@@ -296,12 +429,131 @@ class SpatialIndex:
 
     @property
     def n_objects(self) -> int:
+        """Number of LIVE objects (base survivors + buffered inserts)."""
+        if self._updates is not None:
+            return self._updates.n_live
+        return self.artifacts.n_objects
+
+    @property
+    def id_space(self) -> int:
+        """Width of ``RegionResult.hits``: the dense global-id space
+        ``[0, id_space)``.  Equals ``n_objects`` until live updates begin;
+        append-only afterwards (deleted ids never recycle)."""
+        if self._updates is not None:
+            return self._updates.id_capacity
         return self.artifacts.n_objects
 
     @property
     def schedule(self) -> LevelSchedule:
         return self.artifacts.schedule
 
+    # -- live updates --------------------------------------------------
+    def _ensure_log(self) -> UpdateLog:
+        if self._updates is None:
+            structure = self._artifacts.structure
+            device = self._artifacts.device
+            build_opts = dict(self._artifacts.build_opts)
+            self._updates = UpdateLog(
+                self._artifacts,
+                self._policy if self._policy is not None else MergePolicy(),
+                rebuild=lambda mbrs: BuildArtifacts(structure, mbrs, device=device,
+                                                    **build_opts),
+            )
+            self._backend_base_epoch = self._updates.base_epoch
+        return self._updates
+
+    def _live(self) -> LiveEngine:
+        if self._live_engine is None or self._live_engine.log is not self._updates:
+            self._live_engine = LiveEngine(self._updates, self.spec.name,
+                                           self._backend_opts)
+        return self._live_engine
+
+    def _current_backend(self):
+        """The pristine backend over the CURRENT base build, re-made lazily
+        after a merge (possibly made through a ``with_backend`` twin)."""
+        if (self._updates is not None
+                and self._backend_base_epoch != self._updates.base_epoch):
+            self._backend = self.spec.factory(self.artifacts, **self._backend_opts)
+            self._backend_base_epoch = self._updates.base_epoch
+        return self._backend
+
+    def insert(self, new_mbrs) -> np.ndarray:
+        """Insert objects ONLINE; returns their global ids.
+
+        The batch lands in the delta buffer (O(1), no rebuild) and is
+        visible to every query path at once; the merge policy, or a full
+        buffer, folds it into a fresh base build later.  Batches larger
+        than the buffer capacity merge directly (one bulk rebuild over the
+        live set).
+        """
+        new_mbrs = validate_mbrs(new_mbrs, what="insert batch")
+        n = new_mbrs.shape[0]
+        if n == 0:  # no-op: leave pristine state and epochs untouched
+            return np.zeros((0,), np.int64)
+        log = self._ensure_log()
+        if n > log.capacity:
+            # Never bufferable: folds straight into one merge, regardless
+            # of admission.
+            gids = log.merge_insert(new_mbrs)
+            self.stats.flushes += 1
+        elif not log.can_buffer(n):
+            if self._admission == "shed":
+                self.stats.shed_mutations += n
+                return np.zeros((0,), np.int64)
+            if not log.policy.auto:
+                raise BufferFullError(
+                    f"delta buffer cannot absorb {n} insert(s) (fill {log.fill:.0%}) "
+                    f"and the merge policy has auto=False; call flush() or enable "
+                    f"auto merging")
+            gids = log.merge_insert(new_mbrs)
+            self.stats.flushes += 1
+        else:
+            gids = log.buffer_insert(new_mbrs)
+            if log.policy.should_flush(fill=log.fill, tombstone_ratio=log.tombstone_ratio):
+                log.flush()
+                self.stats.flushes += 1
+        self.stats.inserts += n
+        return gids
+
+    def delete(self, ids) -> None:
+        """Delete live objects by global id (tombstones).
+
+        Base objects stay physically in the frozen build, masked out of
+        every hit set from this call on; buffered inserts free their delta
+        slot.  Unknown or already-dead ids raise ``KeyError``.
+        """
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu().numpy()
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if ids.size == 0:  # no-op: leave pristine state and epochs untouched
+            return
+        log = self._ensure_log()
+        gids = log.delete(ids)
+        self.stats.deletes += int(gids.shape[0])
+        if log.n_live > 0 and log.policy.should_flush(
+                fill=log.fill, tombstone_ratio=log.tombstone_ratio):
+            log.flush()
+            self.stats.flushes += 1
+
+    def flush(self) -> bool:
+        """Merge buffer + tombstones into a fresh base build now.
+
+        Hit sets are bit-identical before and after (global ids are
+        preserved); returns True if a merge ran.
+        """
+        if self._updates is None:
+            return False
+        if self._updates.flush():
+            self.stats.flushes += 1
+            return True
+        return False
+
+    def live_metrics(self):
+        """The paper's §5.2 structure metrics (overlap, overcoverage, …) of
+        the CURRENT live object set, on the mqr insertion-rule oracle tree."""
+        return compute_metrics(live_tree(self))
+
+    # -- queries -------------------------------------------------------
     def _queries(self, queries, width: int) -> torch.Tensor:
         if isinstance(queries, torch.Tensor):
             q = queries.to(device=self.device, dtype=torch.float32)
@@ -312,9 +564,29 @@ class SpatialIndex:
     def region(self, queries) -> RegionResult:
         """Batched region search over (Q, 4) query rectangles."""
         q = self._queries(queries, 4)
-        hits, visits, launches = self._backend.region(q)
-        self.stats.record(q.shape[0], int(visits.sum()), launches)
-        return RegionResult(hits=hits, visits_per_level=visits)
+        counts = None
+        if self._updates is None:
+            hits, visits, launches, skipped = self._backend.region(q)
+            base_levels = None
+            if skipped is not None:
+                counts = torch.stack([visits.sum(dtype=torch.int64), skipped])
+        else:
+            hits, visits, launches = self._live().region(
+                q, base_region=lambda qs: self._current_backend().region(qs)[:3])
+            base_levels = self._updates.base.schedule.levels
+            counts = torch.stack([visits.sum(dtype=torch.int64),
+                                  visits[:, base_levels:].sum(dtype=torch.int64)])
+        if counts is None:
+            self.stats.record(q.shape[0], int(visits.sum()), launches)
+        else:
+            # one device sync for the access count and its companion
+            accesses, extra = counts.tolist()
+            self.stats.record(q.shape[0], accesses, launches)
+            if base_levels is None:
+                self.stats.tiles_skipped += extra
+            else:
+                self.stats.delta_accesses += extra
+        return RegionResult(hits=hits, visits_per_level=visits, base_levels=base_levels)
 
     def point(self, points) -> RegionResult:
         """Point queries (Q, 2) as degenerate rectangles."""
@@ -326,18 +598,6 @@ class SpatialIndex:
         return self.region(queries).counts
 
     # -- not ported yet (ROADMAP.md "Port to PyTorch/CUDA") ------------
-    def insert(self, new_mbrs):
-        raise _roadmap("SpatialIndex.insert (live updates)")
-
-    def delete(self, ids):
-        raise _roadmap("SpatialIndex.delete (live updates)")
-
-    def flush(self):
-        raise _roadmap("SpatialIndex.flush (live updates)")
-
-    def extend(self, new_mbrs, **kwargs):
-        raise _roadmap("SpatialIndex.extend (live updates)")
-
     def join(self, other, predicate: str = "intersects"):
         raise _roadmap("SpatialIndex.join")
 

@@ -11,7 +11,10 @@ Two engines over the same search semantics:
   autotuned (:mod:`repro_torch.kernels.autotune`) or fixed.
 
 Every adapter returns ``(hits (Q, n_obj) bool, visits (Q, L) int32,
-launches int)`` with identical hits and per-level access counts.
+launches int, tiles_skipped)`` with identical hits and per-level access
+counts; ``tiles_skipped`` is the streaming sweep's count of skipped
+(level, tile) pairs as a 0-d int64 tensor on the device, or None where no
+streaming sweep ran.
 """
 
 from __future__ import annotations
@@ -37,10 +40,6 @@ from .trees import node_children, node_mbr, tree_height
 ALL_STRUCTURES = ("mqr", "rtree", "pyramid")
 PRECISIONS = ("float32", "compact", "compact8")
 AUTOTUNE = ("auto", "on", "off")
-
-
-def _roadmap(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; see ROADMAP.md")
 
 
 def _overlap_np(a, b):
@@ -111,7 +110,7 @@ class HostBackend:
             hits, visits = schedule_region_numpy(self.schedule, queries)
         else:
             hits, visits = self._pointer_search(queries)
-        return torch.from_numpy(hits), torch.from_numpy(visits), 0
+        return torch.from_numpy(hits), torch.from_numpy(visits), 0, None
 
     def _pointer_search(self, queries: np.ndarray):
         nq = queries.shape[0]
@@ -141,7 +140,8 @@ class HostBackend:
     doc="fused level sweep (csrc/level_sweep.cu on the card, its plain "
         "version on the CPU); precision='compact' sweeps conservative "
         "uint16 tiles, 'compact8' adds coarse uint8 upper-level tiles, both "
-        "with an exact float32 confirming pass; block_w=None autotunes",
+        "with an exact float32 confirming pass; stream=True runs the "
+        "streaming sweep with its dead-window skip; block_w=None autotunes",
 )
 class CudaBackend:
     """Fused-sweep adapter with autotuned tiling, as the JAX ``pallas``
@@ -155,7 +155,9 @@ class CudaBackend:
     fixed configuration.  Winners are cached in ``BuildArtifacts.tuned``.
     A config with ``levels_in_grid=False`` runs the per-level ``mbr_scan``
     plan.  ``launches`` counts the kernel launches of the sweep: one per
-    level per chunk (the TPU kernel made one per chunk).
+    level per chunk (the TPU kernel made one per chunk).  ``stream=True``
+    sweeps with ``level_sweep_stream`` (not with ``compact8``, as in the
+    reference); its parent windows are computed once per ``block_w``.
     """
 
     def __init__(self, artifacts, *, block_w: int | None = None,
@@ -167,8 +169,6 @@ class CudaBackend:
             raise ValueError(f"unknown autotune {autotune!r}; expected one of {AUTOTUNE}")
         if stream and precision == "compact8":
             raise ValueError("stream=True is not supported with precision='compact8'")
-        if stream:
-            raise _roadmap("stream=True (the HBM-streaming sweep)")
         if query_block is not None and query_block < 1:
             raise ValueError(f"query_block must be >= 1, got {query_block}")
         self.precision = precision
@@ -184,6 +184,7 @@ class CudaBackend:
         self.stream = stream
         self.autotune = autotune
         self._tuned = artifacts.tuned
+        self._windows: dict = {}  # block_w -> (win_off, win_w) of stream=True
         self.config: TileConfig | None = None  # the tiling of the last batch
 
     def _config(self, queries: torch.Tensor) -> TileConfig:
@@ -207,32 +208,50 @@ class CudaBackend:
             self._tuned[key] = cfg
         return cfg
 
-    def _run_one(self, queries: torch.Tensor, cfg: TileConfig):
+    def _stream_kw(self, block_w: int, skipped) -> dict:
+        """Keyword arguments of a scan: the streaming sweep's windows at
+        this ``block_w`` (computed once) and its skip counter."""
+        if not self.stream:
+            return {}
+        if block_w not in self._windows:
+            self._windows[block_w] = ops.stream_windows(
+                self.schedule.parent, self.schedule.n_real, block_w=block_w,
+                device=self.schedule.device)
+        win_off, win_w = self._windows[block_w]
+        return dict(stream=True, win_off=win_off, win_w=win_w, skipped=skipped)
+
+    def _run_one(self, queries: torch.Tensor, cfg: TileConfig, skipped=None):
         if not cfg.levels_in_grid:
-            # Per-level launch plan (float32 only; the candidate grid never
-            # proposes it elsewhere): hits and visits equal the fused sweep.
+            # Per-level launch plan (float32, not streamed; the candidate
+            # grid never proposes it elsewhere): hits and visits equal the
+            # fused sweep.
             return ops.per_level_region_search(self.schedule, queries,
                                                block_w=cfg.block_w)
         if self.precision == "compact":
             hits, visits = ops.pyramid_scan_compact(
-                self.qschedule, queries, block_w=cfg.block_w)
+                self.qschedule, queries, block_w=cfg.block_w,
+                **self._stream_kw(cfg.block_w, skipped))
         elif self.precision == "compact8":
             hits, visits = ops.pyramid_scan_compact8(
                 self.qschedule, queries, block_w=cfg.block_w)
         else:
-            hits, visits = ops.pyramid_scan(self.schedule, queries, block_w=cfg.block_w)
+            hits, visits = ops.pyramid_scan(self.schedule, queries, block_w=cfg.block_w,
+                                            **self._stream_kw(cfg.block_w, skipped))
         return hits, visits, self.schedule.levels
 
-    def _run(self, queries: torch.Tensor, cfg: TileConfig):
+    def _run(self, queries: torch.Tensor, cfg: TileConfig, skipped=None):
         qb = cfg.query_block
         if qb and queries.shape[0] > qb:
-            parts = [self._run_one(queries[i:i + qb], cfg)
+            parts = [self._run_one(queries[i:i + qb], cfg, skipped)
                      for i in range(0, queries.shape[0], qb)]
             return (torch.cat([p[0] for p in parts]),
                     torch.cat([p[1] for p in parts]),
                     sum(p[2] for p in parts))
-        return self._run_one(queries, cfg)
+        return self._run_one(queries, cfg, skipped)
 
     def region(self, queries: torch.Tensor):
         self.config = self._config(queries)
-        return self._run(queries, self.config)
+        skipped = (torch.zeros((), dtype=torch.int64, device=self.schedule.device)
+                   if self.stream else None)
+        hits, visits, launches = self._run(queries, self.config, skipped)
+        return hits, visits, launches, skipped

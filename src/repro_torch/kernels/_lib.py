@@ -48,6 +48,9 @@ _SIGNATURES = {
                                _I, _P]),
     "repro_level_sweep_hier": (_I, [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL,
                                     _I, _I, _I, _P]),
+    "repro_level_sweep_stream_workspace": (_LL, [_LL]),
+    "repro_level_sweep_stream": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _LL, _I,
+                                      _LL, _I, _I, _I, _P]),
     "repro_mbr_scan": (_I, [_P, _LL, _LL, _P, _P, _LL, _LL, _I, _P]),
     "repro_build_levels_workspace": (_LL, [_LL]),
     "repro_build_levels": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P]),

@@ -21,17 +21,24 @@ from .build import hilbert_permute as hilbert_permute  # noqa: F401
 from .mbr_scan import mbr_scan as mbr_scan  # noqa: F401
 from .mbr_scan import mbr_scan_cm as mbr_scan_cm  # noqa: F401
 from .mbr_scan import mbr_scan_torch as mbr_scan_torch  # noqa: F401
+from .pyramid_scan import fused_search_compact_live as fused_search_compact_live  # noqa: F401
+from .pyramid_scan import fused_search_live as fused_search_live  # noqa: F401
 from .pyramid_scan import level_sweep as level_sweep  # noqa: F401
 from .pyramid_scan import level_sweep_hier as level_sweep_hier  # noqa: F401
 from .pyramid_scan import level_sweep_hier_torch as level_sweep_hier_torch  # noqa: F401
+from .pyramid_scan import level_sweep_stream as level_sweep_stream  # noqa: F401
+from .pyramid_scan import level_sweep_stream_torch as level_sweep_stream_torch  # noqa: F401
 from .pyramid_scan import level_sweep_torch as level_sweep_torch  # noqa: F401
+from .pyramid_scan import parent_windows as parent_windows  # noqa: F401
 from .pyramid_scan import per_level_region_search as per_level_region_search  # noqa: F401
 from .pyramid_scan import pyramid_scan as pyramid_scan  # noqa: F401
 from .pyramid_scan import pyramid_scan_compact as pyramid_scan_compact  # noqa: F401
 from .pyramid_scan import pyramid_scan_compact8 as pyramid_scan_compact8  # noqa: F401
+from .pyramid_scan import stream_windows as stream_windows  # noqa: F401
 from .quantize import grid_params as grid_params  # noqa: F401
 from .quantize import quantize_cm as quantize_cm  # noqa: F401
 from .quantize import quantize_cm_torch as quantize_cm_torch  # noqa: F401
+from .quantize import quantize_rows as quantize_rows  # noqa: F401
 from .quantize import quantize_schedule as quantize_schedule  # noqa: F401
 
 

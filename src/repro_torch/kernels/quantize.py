@@ -17,7 +17,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.flat import CELLS, CELLS8, LevelSchedule, QuantizedSchedule
+from repro_torch.core.flat import (
+    CELLS,
+    CELLS8,
+    Q_NEVER_MBR,
+    LevelSchedule,
+    QuantizedSchedule,
+)
 
 from . import _lib
 
@@ -54,6 +60,32 @@ def quantize_cm_torch(mbr_cm: torch.Tensor, origin: torch.Tensor,
     cell = torch.where(is_lo & (mbr_cm == float("inf")), float(cells + 1), cell)
     # uint16 has little op support: go through int32 (exact for [0, 65535])
     return cell.to(torch.int32).to(dtype)
+
+
+def quantize_rows(mbrs: np.ndarray, origin: np.ndarray,
+                  inv_cell: np.ndarray) -> np.ndarray:
+    """Conservative uint16 quantization of row-major (N, 4) MBRs onto an
+    EXISTING schedule grid: the delta-buffer lowering of the live path
+    (host numpy, a copy of the reference's).
+
+    Delta rows may extend past the grid domain (inserts land anywhere).
+    Clipping lo-after-floor and hi-after-ceil into ``[0, CELLS]`` keeps the
+    conservative-superset property, because queries are clipped into the
+    same range and clip is monotone; the exact confirming pass removes the
+    extra boundary candidates.  Same float32 arithmetic as
+    :func:`quantize_cm_torch`.  Rows with ``lo == +inf`` (empty slots) map
+    to ``Q_NEVER_MBR``.
+    """
+    m = np.asarray(mbrs, np.float32)
+    origin = np.asarray(origin, np.float32)
+    inv_cell = np.asarray(inv_cell, np.float32)
+    with np.errstate(invalid="ignore", over="ignore"):
+        t = (m - origin[None, :]) * inv_cell[None, :]
+        cell = np.concatenate([np.floor(t[:, :2]), np.ceil(t[:, 2:])], axis=1)
+    cell = np.clip(cell, 0.0, float(CELLS))
+    out = cell.astype(np.uint16)
+    out[np.isposinf(m[:, 0])] = Q_NEVER_MBR
+    return out
 
 
 def quantize_cm(mbr_cm: torch.Tensor, origin: torch.Tensor,

@@ -181,5 +181,11 @@ def test_backend_option_errors():
         SpatialIndex.build(data, device="cpu", autotune="sometimes")
     with pytest.raises(ValueError):  # as in the reference
         SpatialIndex.build(data, device="cpu", stream=True, precision="compact8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SpatialIndex.build(data, device="cpu", stream=True)
+    # stream=True builds and answers as the resident sweep does
+    streamed = SpatialIndex.build(data, device="cpu", stream=True)
+    resident = streamed.with_backend("cuda")
+    qs = _queries(n=50)
+    got, want = streamed.region(qs), resident.region(qs)
+    assert torch.equal(got.hits, want.hits)
+    assert torch.equal(got.visits_per_level, want.visits_per_level)
+    assert streamed._backend.stream and not resident._backend.stream

@@ -53,6 +53,13 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "    r = SpatialIndex.build(d, structure='pyramid', build='device', precision=p,\n"
         "                           device='cpu').region(q)\n"
         "    assert r.hits.shape == (4, 300) and int(r.counts.sum()) > 0\n"
+        "    s = SpatialIndex.build(d, structure='pyramid', precision=p, stream=True,\n"
+        "                           device='cpu')\n"
+        "    assert s.region(q).hits.equal(r.hits)\n"
+        "    live = SpatialIndex.build(d, structure='pyramid', precision=p, device='cpu',\n"
+        "                              capacity=8)\n"
+        "    live.insert(d[:3]); live.delete([0]); live.flush()\n"
+        "    assert live.region(q).hits.shape == (4, live.id_space)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
