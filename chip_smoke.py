@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--n 1000000] [--queries 256] [--seed 0] [--tree-n 50000]
+                          [--moving-n 1000000] [--ticks 20]
 
 Phases (each path is driven with every launch counter set to 0 just before
 it and read just after):
@@ -57,15 +58,42 @@ it and read just after):
      and its plain version's, its skip count equals the plain rule's and is
      above 0 on the pyramid and the mqr-tree; fails unless the streaming
      kernel launched;
- 11. each kernel against its plain version at its path's shapes (exact
+ 11. join path: ``mqr.join(rtree)`` at float32 and with the left side at
+     ``precision="compact"``, the symmetric self-join ``mqr.join(mqr)``, a
+     device-built pyramid over ``exponential_squares(tree_n, seed=2)``
+     joined with the mqr-tree, and the live mqr-tree of phase 9
+     (mid-buffer, with tombstones) joined with the R-tree; fails unless the
+     float32, uint16 and symmetric instantiations of kernel #6 launched.
+     Each join's pairs equal a brute-force float32 overlap of the two live
+     object sets (row chunks on the card), each level of kernel #6's mask
+     equals ``pair_sweep_torch``, and ``pair_visits`` equals the plain
+     version's; the join's time is split into host lowering, sweep and
+     epilogue;
+ 12. k-NN path: k = 10 for the point batches at object centroids on the
+     pyramid (n) and on the mqr-tree (tree_n), through expanding-radius
+     rounds of kernel #1; ids equal a float64 brute force on the card with
+     ties by lowest id (float32 near-ties excepted and counted), dists are
+     within 4 float32 ulp of the float64 ones, and the mqr-tree's ids equal
+     the host pointer search's; prints rounds and ms per call;
+ 13. moving-object workload: ``MovingConfig(n_objects=moving_n,
+     moves_per_tick=1_000, n_zones=12, query_every=1)`` on a live
+     device-built pyramid (capacity 4,096, fixed tiling) for ``--ticks``
+     ticks, then 3 ticks of ``rebuild_per_tick=True`` on the same seed;
+     every tick's region hits and join pairs equal a brute force over the
+     current boxes and global ids (the baseline's pristine pyramid answers
+     region queries by its deepest groups, so there the hits must cover the
+     brute force), and the baseline's join pairs equal the live path's per
+     object slot; prints ticks/s, merges and pair tests;
+ 14. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round),
      timed with CUDA events (median of 7 after warm-up), beside the least
      time the card needs for the same bytes and operations (for the
      streaming sweep, the tile and parent bytes of the tiles it read);
- 12. end-to-end times of builds, region and point batches (first call,
+ 15. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
-     memory, and a torch.profiler trace of one region batch per path and
-     precision (device time by kernel, and the device's idle share).
+     memory, and a torch.profiler trace of one call per path (region
+     batches per path and precision, two joins, a k-NN call and a moving
+     tick: device time by kernel, and the device's idle share).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -227,6 +255,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tree-n", type=int, default=50_000,
                     help="objects of the mqr-tree and R-tree (host-built)")
+    ap.add_argument("--moving-n", type=int, default=1_000_000,
+                    help="objects of the moving-object workload")
+    ap.add_argument("--ticks", type=int, default=20, help="ticks of the moving workload")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -697,6 +728,8 @@ def run(args, second) -> int:
     checks.phase("live pyramid path", live_pyramid)
 
     # -- 9. live trees ---------------------------------------------------
+    live_trees_idx = {}
+
     def live_trees():
         from repro_torch.update import oracle
 
@@ -715,6 +748,7 @@ def run(args, second) -> int:
             check_live(f"live {structure}", ixs, res, tree_queries, tree_points)
             live_out[structure] = {p: {m: r[m] for m in ("first_ms", "steady_ms")}
                                    for p, r in res.items()}
+            live_trees_idx[structure] = lix  # mid-buffer, with tombstones
         small = datasets.uniform_squares(2000, seed=args.seed + 6)
         sq = datasets.region_queries(small, 32, seed=args.seed + 6).astype(np.float32)
         t = time.perf_counter()
@@ -830,6 +864,342 @@ def run(args, second) -> int:
                           "level_sweep_stream float32 tiles + uint16 parents == plain version")
 
     checks.phase("stream results", stream_results)
+
+    # -- join path: kernel #6 on the trees, a device pyramid, a live side --
+    from repro_torch.index.join import lower_join
+    from repro_torch.kernels.join_scan import count_true
+
+    join_out = {}
+
+    def join_path():
+        mqr, rtree = trees["mqr"]["index"], trees["rtree"]["index"]
+        t = time.perf_counter()
+        pyr = SpatialIndex.build(datasets.exponential_squares(args.tree_n, seed=2),
+                                 structure="pyramid", build="device")
+        sync()
+        print(f"  pyramid over exponential_squares({args.tree_n}, seed=2): L "
+              f"{pyr.schedule.levels} W {pyr.schedule.width}, built in "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms", flush=True)
+        specs = [("mqr x rtree float32", mqr, rtree),
+                 ("mqr x rtree compact", mqr.with_backend("cuda", precision="compact"), rtree),
+                 ("mqr self-join", mqr, mqr),
+                 ("pyramid x mqr", pyr, mqr)]
+        if "mqr" in live_trees_idx:
+            specs.append(("live mqr x rtree", live_trees_idx["mqr"], rtree))
+        # counts are read around each join (its own row of the kernels
+        # line), and their sum is the join path's
+        paths["join"] = {}
+        for label, left, right in specs:
+            sync()
+            _lib.counters.reset()
+            t = time.perf_counter()
+            res = left.join(right)
+            sync()
+            launches = _lib.counters.snapshot()
+            join_out[label] = dict(left=left, right=right, result=res, launches=launches,
+                                   first_ms=(time.perf_counter() - t) * 1e3)
+            for name, count in launches.items():
+                paths["join"][name] = paths["join"].get(name, 0) + count
+        print(f"  launches {paths['join']}", flush=True)
+        expect_launched("join", ("pair_sweep_f32", "pair_sweep_u16", "pair_sweep_sym"))
+
+    def brute_pairs(left, right):
+        """float32 closed-boundary overlap of the two live object sets,
+        tombstones applied, in row chunks on the card."""
+        def side(ix):
+            log = ix._updates
+            if log is None:
+                table, alive = ix.artifacts.mbrs, np.ones((ix.artifacts.n_objects,), bool)
+            else:
+                table, alive = log.mbr_table, log.alive
+            return (torch.from_numpy(table.astype(np.float32)).to(dev),
+                    torch.from_numpy(alive).to(dev))
+
+        (ta, aa), (tb, ab) = side(left), side(right)
+        want = torch.empty((ta.shape[0], tb.shape[0]), dtype=torch.bool, device=dev)
+        for i in range(0, ta.shape[0], 4096):
+            rows = slice(i, i + 4096)
+            want[rows] = (overlaps(ta[rows, None, :], tb[None, :, :])
+                          & aa[rows, None] & ab[None, :])
+        return want
+
+    def join_results():
+        for label, r in join_out.items():
+            left, right, res = r["left"], r["right"], r["result"]
+            want = brute_pairs(left, right)
+            checks.expect(same(res.pairs, want),
+                          f"{label}: pairs == brute-force float32 overlap of the live sets "
+                          f"({int(count_true(want))} pairs)")
+            del want
+            jargs, k, sym = lower_join(left, right)
+            sweep = (jargs[0], jargs[1], jargs[5], jargs[6])
+            act = ops.pair_sweep(*sweep, symmetric=sym)
+            plain = ops.pair_sweep_torch(*sweep, symmetric=sym)
+            levels_equal = [same(act[l], plain[l]) for l in range(k)]
+            err = max_abs_err(act, plain)
+            checks.expect(all(levels_equal),
+                          f"{label}: each of the {k} levels of kernel #6's mask == "
+                          f"pair_sweep_torch (max_abs_err {err})")
+            epilogue_args = (*jargs[2:5], *jargs[7:])
+            _, plain_visits = ops.join_epilogue(plain, *epilogue_args, symmetric=sym)
+            checks.expect(same(res.pair_visits, plain_visits),
+                          f"{label}: pair_visits == plain version's")
+            del plain
+            # where a join's time goes: host lowering, the sweep, the epilogue
+            sync()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            join_ms = wall_ms(lambda: left.join(right), 3)
+            r["peak_gib"] = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+            r.update(
+                k=k, wa=sweep[0].shape[2], wb=sweep[2].shape[2], tiles=str(sweep[0].dtype),
+                symmetric=sym, sweep_args=sweep, n_pairs=res.n_pairs,
+                pair_visits=res.pair_visits.tolist(),
+                lower_ms=wall_ms(lambda: lower_join(left, right), 3),
+                sweep_ms=time_ms(lambda: ops.pair_sweep(*sweep, symmetric=sym), 3),
+                epilogue_ms=time_ms(lambda: ops.join_epilogue(act, *epilogue_args,
+                                                              symmetric=sym), 3),
+                join_ms=join_ms)
+            del act, res, r["result"]  # a 50k x 50k pair mask each
+            print(f"  {label}: K {k}, Wa {r['wa']}, Wb {r['wb']} ({r['tiles']}"
+                  f"{', symmetric' if sym else ''}), {r['n_pairs']} pairs, pair tests "
+                  f"{sum(r['pair_visits'])}; join {r['join_ms']:.2f} ms (first "
+                  f"{r['first_ms']:.1f}): lowering {r['lower_ms']:.2f}, sweep "
+                  f"{r['sweep_ms']:.3f}, epilogue {r['epilogue_ms']:.2f} ms; peak device "
+                  f"memory over the resident set {r['peak_gib']:.2f} GiB", flush=True)
+
+    checks.phase("join path", join_path)
+    checks.phase("join results", join_results)
+
+    # -- k-NN path: expanding-radius rounds through kernel #1 --------------
+    knn_out = {}
+    knn_k = 10
+
+    def knn_path():
+        sync()
+        _lib.counters.reset()
+        specs = [("pyramid", idx, points, data)]
+        if "mqr" in trees:
+            specs.append(("mqr", trees["mqr"]["index"], tree_points, tree_data))
+        for label, ix, pts, d in specs:
+            rounds = ix.stats.knn_rounds
+            sync()
+            t = time.perf_counter()
+            res = ix.knn(pts, knn_k)
+            sync()
+            knn_out[label] = dict(index=ix, points=pts, data=d, result=res,
+                                  first_ms=(time.perf_counter() - t) * 1e3,
+                                  rounds=ix.stats.knn_rounds - rounds)
+        sync()
+        paths["knn"] = _lib.counters.snapshot()
+        print(f"  launches {paths['knn']}", flush=True)
+        expect_launched("knn", ("level_sweep_f32",))
+        if "mqr" in trees:
+            t = time.perf_counter()
+            res = trees["mqr"]["index"].with_backend("host").knn(tree_points, knn_k)
+            knn_out["mqr host"] = dict(result=res, points=tree_points, data=tree_data,
+                                       first_ms=(time.perf_counter() - t) * 1e3)
+
+    def mindist64(p, m):
+        """float64 Euclidean point-to-MBR distance, broadcasting (..., 2)
+        points against (..., 4) MBRs."""
+        dx = torch.maximum(m[..., 0] - p[..., 0], p[..., 0] - m[..., 2]).clamp_min(0.0)
+        dy = torch.maximum(m[..., 1] - p[..., 1], p[..., 1] - m[..., 3]).clamp_min(0.0)
+        return torch.sqrt(dx * dx + dy * dy)
+
+    def near_tie(d_got, d_want):
+        """Where two ids at one rank may differ: their float64 distances
+        differ, by at most 2.5e-4 (the rounding of float32 distances in a
+        1000-unit world).  At an exact tie (distance 0 at a centroid query
+        inside several objects, above all) the lowest id must come first."""
+        diff = (d_got - d_want).abs()
+        return (diff > 0) & (diff <= 2.5e-4)
+
+    def check_knn(label, res, table64, pts):
+        """ids equal the float64 brute force on the card (stable sort: ties
+        by lowest id), except at a float32 near-tie (:func:`near_tie`);
+        dists within 4 float32 ulp of the float64 ones."""
+        tbl = torch.from_numpy(table64).to(dev)
+        p = torch.from_numpy(np.asarray(pts, np.float64)).to(dev)
+        want = torch.cat([torch.sort(mindist64(p[i:i + 32, None, :], tbl[None, :, :]),
+                                     dim=1, stable=True).indices[:, :knn_k]
+                          for i in range(0, p.shape[0], 32)])
+        ids = res.ids.to(dev).long()
+        d_got = mindist64(p[:, None, :], tbl[ids])
+        d_want = mindist64(p[:, None, :], tbl[want])
+        swapped = ids != want
+        checks.expect(bool((~swapped | near_tie(d_got, d_want)).all()),
+                      f"{label}: ids == float64 brute force, ties by lowest id "
+                      f"({int(swapped.sum())} of {ids.numel()} differ, all float32 "
+                      f"near-ties)")
+        dists = res.dists.to(dev).double()
+        checks.expect(bool(((dists - d_got).abs() <= 2.0 ** -21 * d_got).all()),
+                      f"{label}: dists == float64 distances of the ids within 4 float32 ulp")
+        return ids, d_got
+
+    def knn_results():
+        dev_ids = {}
+        for label, r in knn_out.items():
+            geometry = r["data"] if label == "mqr host" else (
+                r["data"].astype(np.float32).astype(np.float64))
+            dev_ids[label] = check_knn(label, r["result"], geometry, r["points"])
+            if "rounds" in r:
+                r["ms"] = wall_ms(lambda: r["index"].knn(r["points"], knn_k), 3)
+                print(f"  {label} k-NN (k {knn_k}, {r['points'].shape[0]} points): "
+                      f"{r['rounds']} rounds, {r['ms']:.2f} ms per call (first "
+                      f"{r['first_ms']:.1f} ms), visits/point "
+                      f"{float(r['result'].visits.sum()) / r['points'].shape[0]:.2f}",
+                      flush=True)
+            else:
+                print(f"  {label} (knn_pointer, host Python): {r['first_ms']:.1f} ms",
+                      flush=True)
+        if "mqr host" in dev_ids:
+            (host_ids, host_d), (card_ids, card_d) = dev_ids["mqr host"], dev_ids["mqr"]
+            swapped = host_ids != card_ids
+            checks.expect(bool((~swapped | near_tie(host_d, card_d)).all()),
+                          f"mqr k-NN on the card == host pointer search "
+                          f"({int(swapped.sum())} ids differ, all float32 near-ties)")
+
+    checks.phase("k-NN path", knn_path)
+    checks.phase("k-NN results", knn_results)
+
+    # -- moving-object workload: a live 1e6-object pyramid, geofence joins --
+    moving_out = {}
+
+    def moving_oracle(w, res):
+        """Region hits and join pairs a tick must answer: float32 overlap of
+        the workload's current boxes, at each object's current global id.
+        Returns (region hits == oracle, extra region hits, pairs == oracle)."""
+        boxes = torch.from_numpy(w.boxes().astype(np.float32)).to(dev)
+        gid = torch.from_numpy(w.gid).to(dev)
+        q = torch.from_numpy(w.queries).to(dev)
+        zones = torch.from_numpy(w.zone_mbrs.astype(np.float32)).to(dev)
+        n_id = w.query_index.id_space
+        hits = torch.zeros((q.shape[0], n_id), dtype=torch.bool, device=dev)
+        hits[:, gid] = overlaps(boxes[None, :, :], q[:, None, :])
+        pairs = torch.zeros((n_id, zones.shape[0]), dtype=torch.bool, device=dev)
+        pairs[gid] = overlaps(boxes[:, None, :], zones[None, :, :])
+        got = res.region.hits
+        covered = not bool((hits & ~got).any())
+        return same(got, hits), covered, int((got & ~hits).sum()), same(res.join.pairs, pairs)
+
+    def run_ticks(w, ticks, label, exact_region=True, keep=0):
+        """``ticks`` ticks of ``w``, each checked against the brute force:
+        join pairs exactly; region hits exactly on a live index, and on a
+        pristine pyramid (the rebuild baseline) as a cover, its deepest
+        groups being the membership test (phase 3)."""
+        seconds, bad, extra, tests, views = [], [], 0, 0, []
+        for _ in range(ticks):
+            sync()
+            t = time.perf_counter()
+            res = w.tick()
+            sync()
+            seconds.append(time.perf_counter() - t)
+            exact, covered, n_extra, pairs_ok = moving_oracle(w, res)
+            extra += n_extra
+            if not pairs_ok or not (exact if exact_region else covered):
+                bad.append(res.tick)
+            tests += sum(res.join.pair_visits.tolist())
+            if len(views) < keep:
+                gid = torch.from_numpy(w.gid).to(dev)
+                views.append((res.region.hits[:, gid], res.join.pairs[gid]))
+        how = "exact" if exact_region else "cover"
+        checks.expect(not bad, f"{label}: every tick's join pairs and region hits == brute "
+                               f"force over the current boxes ({how}; {extra} extra region "
+                               f"hits; bad ticks {bad})")
+        return seconds, tests, views, res
+
+    def moving_kernels(w, last):
+        """The last live tick's kernels against their plain versions at this
+        path's shapes: #6 per level and the join's visits, the live region
+        sweep (#1, Q = 4) and the last merge's device build (#4)."""
+        jargs, k, sym = lower_join(w.index, w.zones)
+        sweep = (jargs[0], jargs[1], jargs[5], jargs[6])
+        act = ops.pair_sweep(*sweep, symmetric=sym)
+        plain = ops.pair_sweep_torch(*sweep, symmetric=sym)
+        err = max_abs_err(act, plain)
+        checks.expect(all(same(act[l], plain[l]) for l in range(k)),
+                      f"moving, last tick: each of the {k} levels of kernel #6's "
+                      f"({sweep[0].shape[2]} x {sweep[2].shape[2]}) mask == pair_sweep_torch "
+                      f"(max_abs_err {err})")
+        _, plain_visits = ops.join_epilogue(plain, *jargs[2:5], *jargs[7:], symmetric=sym)
+        checks.expect(same(last.join.pair_visits, plain_visits),
+                      "moving, last tick: pair_visits == join_epilogue on the plain mask")
+        del act, plain
+        # the narrow-side path at this shape with uint16 tiles, and symmetric
+        cargs, _, _ = lower_join(w.index.with_backend("cuda", precision="compact", **FIXED),
+                                 w.zones)
+        zs = w.zones.artifacts.schedule.to(dev)
+        for what, args_, sym_ in (("u16 tiles", (cargs[0], cargs[1], cargs[5], cargs[6]), False),
+                                  ("the zones' symmetric self-sweep",
+                                   (zs.mbr_cm, zs.parent, zs.mbr_cm, zs.parent), True)):
+            got_, want_ = (ops.pair_sweep(*args_, symmetric=sym_),
+                           ops.pair_sweep_torch(*args_, symmetric=sym_))
+            checks.expect(same(got_, want_), f"moving: kernel #6 with {what} "
+                                             f"({args_[0].shape[2]} x {args_[2].shape[2]}) == "
+                                             f"pair_sweep_torch (max_abs_err "
+                                             f"{max_abs_err(got_, want_)})")
+        del cargs, got_, want_
+        q = torch.from_numpy(w.queries).to(dev)
+        hits, visits = live_plain(w.index, "float32", q)
+        checks.expect(same(last.region.hits, hits)
+                      and same(last.region.visits_per_level, visits),
+                      f"moving, last tick: live region sweep (Q = {q.shape[0]}) hits and "
+                      f"visits == plain path")
+        log = w.index._updates
+        base = log.base.schedule
+        rows = torch.from_numpy(log.mbr_table[log.base_gids].astype(np.float32)).to(dev)
+        got = ops.build_levels(rows, levels=base.levels)
+        want = ops.build_levels_torch(rows, levels=base.levels)
+        checks.expect(all(same(a, b) for a, b in zip(got, want))
+                      and same(got[1], base.mbr_cm) and same(got[2], base.parent),
+                      f"moving: kernel #4 over the last merge's {rows.shape[0]} rows == plain "
+                      f"version (max_abs_err {max(max_abs_err(a, b) for a, b in zip(got, want))})"
+                      f" and == the live base schedule")
+        return sweep, k, sym
+
+    def moving_path():
+        from repro_torch.launch.moving import MovingConfig, MovingWorkload
+
+        cfg = MovingConfig(n_objects=args.moving_n, moves_per_tick=1_000, n_zones=12,
+                           query_every=1, seed=args.seed)
+        sync()
+        _lib.counters.reset()
+        t = time.perf_counter()
+        w = MovingWorkload(cfg, structure="pyramid", build="device", capacity=4_096, **FIXED)
+        sync()
+        setup_ms = (time.perf_counter() - t) * 1e3
+        seconds, tests, views, last = run_ticks(w, args.ticks, "moving, live", keep=3)
+        sync()
+        paths["moving"] = _lib.counters.snapshot()
+        print(f"  launches {paths['moving']}", flush=True)
+        expect_launched("moving", ("build_levels", "level_sweep_f32", "pair_sweep_f32"))
+        sweep, k, sym = moving_kernels(w, last)
+        del last
+        st = w.index.stats
+        checks.expect(st.flushes >= 1, f"the moving workload merged ({st.flushes} merges)")
+        moving_out.update(
+            sweep_args=sweep, k=k, symmetric=sym, workload=w, setup_ms=setup_ms, ticks=args.ticks, tick_ms=[x * 1e3 for x in seconds],
+            ticks_per_s=args.ticks / sum(seconds), merges=st.flushes, pair_tests=tests,
+            joins=st.joins, inserts=st.inserts, deletes=st.deletes)
+        base = MovingWorkload(cfg, structure="pyramid", build="device", rebuild_per_tick=True,
+                              **FIXED)
+        b_seconds, _, b_views, _ = run_ticks(base, 3, "moving, rebuild_per_tick",
+                                             exact_region=False, keep=3)
+        checks.expect(len(b_views) == 3 and all(
+            same(a[1], b[1]) and not bool((a[0] & ~b[0]).any())
+            for a, b in zip(views, b_views)),
+            "rebuild_per_tick gives the live path's join pairs per object slot, and "
+            "its region hits cover the live path's (3 ticks)")
+        moving_out["rebuild_ticks_per_s"] = 3 / sum(b_seconds)
+        print(f"  {args.moving_n} objects, {args.ticks} ticks of 1,000 moves: "
+              f"{moving_out['ticks_per_s']:.2f} ticks/s (setup {setup_ms:.0f} ms; ticks "
+              f"median {statistics.median(moving_out['tick_ms']):.1f} ms, max "
+              f"{max(moving_out['tick_ms']):.1f} ms), {st.flushes} merges, {tests} pair "
+              f"tests; rebuild_per_tick {moving_out['rebuild_ticks_per_s']:.2f} ticks/s",
+              flush=True)
+
+    checks.phase("moving-object workload", moving_path)
 
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
@@ -964,6 +1334,32 @@ def run(args, second) -> int:
                                 ("level_sweep_stream_u16", "compact")):
             if ("pyramid", precision) in stream_out:
                 stream_row(name, stream_out["pyramid", precision]["index"], precision, q_dev)
+        # #6 at each join shape of the join path, and at the moving path's
+        def pair_row(name, sweep, sym, launches):
+            k, _, wa = sweep[0].shape
+            wb = sweep[2].shape[2]
+            tested = k * wa * (wa + 1) // 2 if sym else k * wa * wb
+            kernel_row(
+                name, "src/repro_torch/kernels/csrc/pair_sweep.cu",
+                "src/repro/kernels/join_scan.py:236",
+                functools.partial(ops.pair_sweep, *sweep, symmetric=sym),
+                functools.partial(ops.pair_sweep_torch, *sweep, symmetric=sym),
+                # the (K, Wa, Wb) mask written once; tiles and parents read once
+                nbytes=k * wa * wb + k * (wa + wb) * (4 * sweep[0].element_size() + 4),
+                ops_count=tested * 8, launches=launches,
+            )
+
+        for name, label in (("pair_sweep_f32", "mqr x rtree float32"),
+                            ("pair_sweep_u16", "mqr x rtree compact"),
+                            ("pair_sweep_sym", "mqr self-join"),
+                            ("pair_sweep_f32_wide", "pyramid x mqr")):
+            if "sweep_args" in join_out.get(label, {}):
+                r = join_out[label]
+                pair_row(name, r["sweep_args"], r["symmetric"],
+                         r["launches"].get(name.replace("_wide", ""), 0))
+        if "sweep_args" in moving_out:
+            pair_row("pair_sweep_f32_moving", moving_out["sweep_args"], moving_out["symmetric"],
+                     paths["moving"].get("pair_sweep_f32", 0))
         if "mqr" not in trees:
             return
         if ("mqr", "compact") in stream_out:
@@ -1067,22 +1463,32 @@ def run(args, second) -> int:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as trace
 
-        batches = [(f"pyramid {p}", out[p]["index"], queries)
+        batches = [(f"pyramid {p} region batch", out[p]["index"].region, queries)
                    for p in ("float32", "compact", "compact8")]
-        batches += [(f"{s} {p}", trees[s][p]["index"], tree_queries)
+        batches += [(f"{s} {p} region batch", trees[s][p]["index"].region, tree_queries)
                     for s in trees for p in ("float32", "compact8")]
         if ("pyramid", "float32") in stream_out:
-            batches.append(("pyramid float32 stream=True",
-                            stream_out["pyramid", "float32"]["index"], queries))
+            batches.append(("pyramid float32 stream=True region batch",
+                            stream_out["pyramid", "float32"]["index"].region, queries))
         if "index" in live_out:
-            batches.append(("pyramid float32 live (after the merge)", live_out["index"],
-                            queries))
-        for label, ix, qs in batches:
-            ix.region(qs)
+            batches.append(("pyramid float32 live (after the merge) region batch",
+                            live_out["index"].region, queries))
+        for label in ("mqr x rtree float32", "pyramid x mqr"):
+            if label in join_out:
+                batches.append((f"join {label}", join_out[label]["left"].join,
+                                join_out[label]["right"]))
+        if "pyramid" in knn_out:
+            batches.append((f"pyramid k-NN (k {knn_k})",
+                            functools.partial(idx.knn, k=knn_k), points))
+        if "workload" in moving_out:  # one more tick, after the checked run
+            batches.append(("moving tick", lambda _: moving_out["workload"].tick(), None))
+        for label, fn, arg in batches:
+            if label != "moving tick":
+                fn(arg)
             sync()
             with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
-                ix.region(qs)
+                fn(arg)
                 sync()
                 window_us = (time.perf_counter() - t) * 1e6
             rows = []
@@ -1096,13 +1502,15 @@ def run(args, second) -> int:
                     rows.append((dev_us, evt.count, evt.key))
             rows.sort(reverse=True)
             busy = sum(r[0] for r in rows)
-            print(f"  {label} region batch: host window {window_us / 1e3:.3f} ms, "
+            print(f"  {label}: host window {window_us / 1e3:.3f} ms, "
                   f"device busy {busy / 1e3:.3f} ms, idle share "
                   f"{max(0.0, 1 - busy / window_us):.3f}", flush=True)
-            for dev_us, count, key in rows[:10]:
+            # the ten largest, and the port's own kernels below them
+            ours = [r for r in rows[10:] if not r[2].startswith(("void at::", "Memcpy", "Memset"))]
+            for dev_us, count, key in rows[:10] + ours[:10]:
                 print(f"    {dev_us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
 
-    checks.phase("profile: device time by kernel, one region batch", profile)
+    checks.phase("profile: device time by kernel, one call per path", profile)
 
     summary = dict(
         n=args.n, queries=args.queries, seed=args.seed, tree_n=args.tree_n, card=card,
@@ -1129,6 +1537,14 @@ def run(args, second) -> int:
                                   win_w=r.get("win_w"), region_ms=r.get("region_ms"),
                                   first_ms=r["first_ms"])
                 for (st, p), r in stream_out.items()},
+        join={label: {f: r.get(f) for f in ("k", "wa", "wb", "tiles", "symmetric", "n_pairs",
+                                            "pair_visits", "first_ms", "join_ms", "lower_ms",
+                                            "sweep_ms", "epilogue_ms", "peak_gib",
+                                            "launches")}
+              for label, r in join_out.items()},
+        knn={label: {f: r.get(f) for f in ("rounds", "first_ms", "ms")}
+             for label, r in knn_out.items()},
+        moving={f: v for f, v in moving_out.items() if f not in ("workload", "sweep_args")},
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

@@ -328,3 +328,29 @@ def pyramid_schedule(pyr, obj_mbrs: torch.Tensor) -> LevelSchedule:
         root_unconditional=False,
         test_object_mbr=False,
     )
+
+
+def ancestor_chains(schedule: LevelSchedule, k_levels: int) -> torch.Tensor:
+    """Per-entry ancestor slots: ``(E, k_levels)`` int32 on the schedule's
+    device, column ``k`` = the slot of entry ``e``'s ancestor node at level
+    ``k``.
+
+    The tree-vs-tree join epilogue looks each entry pair up in the
+    synchronized pair mask at ``k = min(level_a, level_b)``; these chains
+    are the row/column coordinates of that lookup.  Columns past an
+    entry's own level are left 0 — the join never reads them (``min``
+    clamps to the shallower entry).  The same bottom-up walk as the JAX
+    package's, one vectorized step per level.
+    """
+    levels = schedule.obj_level.to(torch.int64)
+    dev = levels.device
+    e = levels.shape[0]
+    max_l = int(levels.max()) if e else 0
+    chains = torch.zeros((e, max(k_levels, max_l + 1)), dtype=torch.int64, device=dev)
+    cur = schedule.obj_slot.to(torch.int64)
+    chains[torch.arange(e, device=dev), levels] = cur
+    parent = schedule.parent.to(torch.int64)
+    for t in range(max_l, 0, -1):
+        cur = torch.where(levels >= t, parent[t][cur], cur)  # ancestors at level t-1
+        chains[:, t - 1] = torch.where(levels >= t - 1, cur, 0)
+    return chains[:, :k_levels].to(torch.int32).contiguous()

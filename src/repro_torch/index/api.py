@@ -6,6 +6,8 @@ Counterpart of ``repro.index.api`` for the slices ported so far:
     res = idx.region(queries)        # RegionResult(hits, visits_per_level)
     res = idx.point(points)          # degenerate-rectangle queries
     cnt = idx.count(queries)         # hits per query
+    nn  = idx.knn(points, k)         # KNNResult(ids, dists, visits)
+    jr  = idx.join(other)            # JoinResult(pairs, pair_visits)
 
 Structures: ``mqr`` (the default, the paper's pointer tree, built on the
 host), ``rtree`` (Guttman baseline) and ``pyramid`` (bulk fixed point,
@@ -47,6 +49,7 @@ from repro_torch.update import BufferFullError, MergePolicy, UpdateLog, as_polic
 from repro_torch.update.engine import LiveEngine
 from repro_torch.update.oracle import live_tree
 
+from . import knn as _knn
 from .registry import BackendSpec, get_backend
 
 STRUCTURES = ("mqr", "rtree", "pyramid")
@@ -147,6 +150,22 @@ class RegionResult:
         return self.visits_per_level[:, self.base_levels:].sum(dim=1, dtype=torch.int64)
 
 
+@dataclasses.dataclass(frozen=True)
+class KNNResult:
+    """Result of a batched k-nearest-neighbour query (tensors on the
+    backend's device).
+
+    ids:    (Q, k) int32 object ids, nearest first.
+    dists:  (Q, k) float32 Euclidean MBR min-distances, ascending.
+    visits: (Q,) int64 node accesses spent answering each query (for the
+            device path: summed over every expanding-radius round).
+    """
+
+    ids: torch.Tensor
+    dists: torch.Tensor
+    visits: torch.Tensor
+
+
 @dataclasses.dataclass
 class AccessStats:
     """The paper's disk-access accounting, accumulated over the lifetime
@@ -154,7 +173,10 @@ class AccessStats:
 
     queries: int = 0
     node_accesses: int = 0
-    launches: int = 0        # sweep launches (0 for the host backend)
+    launches: int = 0        # kernel launches (0 for the host backend)
+    knn_queries: int = 0
+    knn_rounds: int = 0      # expanding-radius region rounds issued
+    joins: int = 0           # tree-vs-tree join calls
     # live-update ledger
     inserts: int = 0
     deletes: int = 0
@@ -561,31 +583,38 @@ class SpatialIndex:
             q = torch.from_numpy(np.asarray(queries, np.float32)).to(self.device)
         return q.reshape(-1, width).contiguous()
 
+    def _region_raw(self, q: torch.Tensor):
+        """One region batch on the current state, without bookkeeping:
+        ``(hits, visits, launches, base_levels, skipped)`` (``base_levels``
+        None while pristine; ``skipped`` the streaming sweep's count or
+        None)."""
+        if self._updates is None:
+            hits, visits, launches, skipped = self._backend.region(q)
+            return hits, visits, launches, None, skipped
+        hits, visits, launches = self._live().region(
+            q, base_region=lambda qs: self._current_backend().region(qs)[:3])
+        return hits, visits, launches, self._updates.base.schedule.levels, None
+
+    def _account(self, n_queries: int, visits, launches: int, base_levels, skipped) -> None:
+        """Fold one region batch into :attr:`stats` (one device sync for
+        the access count and its companion)."""
+        total = visits.sum(dtype=torch.int64)
+        if base_levels is not None:
+            extra = visits[:, base_levels:].sum(dtype=torch.int64)
+        else:
+            extra = skipped if skipped is not None else torch.zeros_like(total)
+        accesses, extra = torch.stack([total, extra]).tolist()
+        self.stats.record(n_queries, accesses, launches)
+        if base_levels is None:
+            self.stats.tiles_skipped += extra
+        else:
+            self.stats.delta_accesses += extra
+
     def region(self, queries) -> RegionResult:
         """Batched region search over (Q, 4) query rectangles."""
         q = self._queries(queries, 4)
-        counts = None
-        if self._updates is None:
-            hits, visits, launches, skipped = self._backend.region(q)
-            base_levels = None
-            if skipped is not None:
-                counts = torch.stack([visits.sum(dtype=torch.int64), skipped])
-        else:
-            hits, visits, launches = self._live().region(
-                q, base_region=lambda qs: self._current_backend().region(qs)[:3])
-            base_levels = self._updates.base.schedule.levels
-            counts = torch.stack([visits.sum(dtype=torch.int64),
-                                  visits[:, base_levels:].sum(dtype=torch.int64)])
-        if counts is None:
-            self.stats.record(q.shape[0], int(visits.sum()), launches)
-        else:
-            # one device sync for the access count and its companion
-            accesses, extra = counts.tolist()
-            self.stats.record(q.shape[0], accesses, launches)
-            if base_levels is None:
-                self.stats.tiles_skipped += extra
-            else:
-                self.stats.delta_accesses += extra
+        hits, visits, launches, base_levels, skipped = self._region_raw(q)
+        self._account(q.shape[0], visits, launches, base_levels, skipped)
         return RegionResult(hits=hits, visits_per_level=visits, base_levels=base_levels)
 
     def point(self, points) -> RegionResult:
@@ -597,12 +626,75 @@ class SpatialIndex:
         """(Q,) number of objects overlapping each query rectangle."""
         return self.region(queries).counts
 
+    def join(self, other: "SpatialIndex", predicate: str = "intersects"):
+        """Batch spatial join against another index.
+
+        Sweeps both indexes' level schedules against each other (this
+        index's backend and precision pick the engine, and its device holds
+        the result) and returns a :class:`repro_torch.index.join.JoinResult`
+        whose pair set equals the brute-force nested-loop oracle over the
+        two live object sets, including mid-buffer live state and
+        tombstones on either side.  Only ``predicate="intersects"``
+        (closed-boundary overlap, the paper's region semantics) is defined.
+        ``stats.launches`` grows by one per swept level (ROADMAP C7).
+        """
+        from .join import join_impl
+
+        result, launches = join_impl(self, other, predicate)
+        visits = result.pair_visits.tolist()
+        self.stats.joins += 1
+        self.stats.record(1, sum(visits), launches)
+        self.stats.delta_accesses += sum(visits[result.base_levels:])
+        return result
+
+    def knn(self, points, k: int) -> KNNResult:
+        """k nearest neighbours of each (Q, 2) point, by MBR min-distance.
+
+        Host backend: exact branch-and-bound over the pointer tree (brute
+        force for the pyramid, which has no pointer form, and for a live
+        index).  ``cuda`` backend: expanding-radius region rounds through
+        the backend's fused sweep until ≥k survivors, one √2-margin
+        confirming round, then a top-k distance epilogue on the device.
+        Equal distances resolve by lowest object id on every engine.
+        """
+        if isinstance(points, torch.Tensor):
+            points = points.detach().cpu().numpy()
+        points = np.asarray(points, np.float64).reshape(-1, 2)
+        if not 1 <= k <= self.n_objects:
+            raise ValueError(f"k={k} outside [1, {self.n_objects}]")
+        nq = points.shape[0]
+        live = self._updates
+        if self.spec.name == "host":
+            if live is not None:
+                # Under mutation the base pointer tree is stale; answer
+                # exactly from the live id-space table.
+                ids, dists, visits = _knn.knn_brute_masked(live.mbr_table, live.alive,
+                                                           points, k)
+            elif self.artifacts.pointer_tree is not None:
+                ids, dists, visits = _knn.knn_pointer(self.artifacts.pointer_tree, points, k)
+            else:
+                ids, dists, visits = _knn.knn_brute(self.artifacts.mbrs, points, k)
+            self.stats.knn_queries += nq
+            self.stats.record(nq, int(visits.sum()), 0)
+            return KNNResult(ids=torch.from_numpy(ids), dists=torch.from_numpy(dists),
+                             visits=torch.from_numpy(visits))
+
+        def region_fn(qs):
+            q = self._queries(qs, 4)
+            hits, visits, launches, base_levels, skipped = self._region_raw(q)
+            self._account(0, visits, launches, base_levels, skipped)
+            return hits, visits
+
+        # Live indexes rank candidates over the id-space MBR table (hits
+        # already exclude tombstones, so stale rows never rank).
+        obj_mbrs = live.mbr_table if live is not None else self.artifacts.mbrs
+        ids, dists, visits, rounds = _knn.knn_expanding(region_fn, obj_mbrs, points, k,
+                                                        device=self.device)
+        self.stats.knn_queries += nq
+        self.stats.knn_rounds += rounds
+        self.stats.queries += nq
+        return KNNResult(ids=ids, dists=dists, visits=visits)
+
     # -- not ported yet (ROADMAP.md "Port to PyTorch/CUDA") ------------
-    def join(self, other, predicate: str = "intersects"):
-        raise _roadmap("SpatialIndex.join")
-
-    def knn(self, points, k: int):
-        raise _roadmap("SpatialIndex.knn")
-
     def save(self, path):
         raise _roadmap("SpatialIndex.save (checkpoints)")

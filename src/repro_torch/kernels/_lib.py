@@ -13,7 +13,8 @@ float32 compares must stay exact on subnormal inputs.
 ``counters`` holds one launch count per kernel; each wrapper adds to it
 where it launches its kernel and nowhere else.  A sweep with uint16
 parent slots is also counted under its own ``..._u16p`` name, so a run
-can show that the uint16-parent instantiation ran.
+can show that the uint16-parent instantiation ran; a symmetric (self-join)
+pair sweep is also counted under ``pair_sweep_sym``.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "repro_build_levels_workspace": (_LL, [_LL]),
     "repro_build_levels": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P]),
     "repro_quantize_cm": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _P]),
+    "repro_pair_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P]),
 }
 
 

@@ -18,6 +18,10 @@ from .build import build_levels_torch as build_levels_torch  # noqa: F401
 from .build import device_schedule as device_schedule  # noqa: F401
 from .build import hilbert_keys as hilbert_keys  # noqa: F401
 from .build import hilbert_permute as hilbert_permute  # noqa: F401
+from .join_scan import fused_join as fused_join  # noqa: F401
+from .join_scan import join_epilogue as join_epilogue  # noqa: F401
+from .join_scan import pair_sweep as pair_sweep  # noqa: F401
+from .join_scan import pair_sweep_torch as pair_sweep_torch  # noqa: F401
 from .mbr_scan import mbr_scan as mbr_scan  # noqa: F401
 from .mbr_scan import mbr_scan_cm as mbr_scan_cm  # noqa: F401
 from .mbr_scan import mbr_scan_torch as mbr_scan_torch  # noqa: F401

@@ -1,0 +1,1 @@
+"""Workloads of the port (counterparts of ``repro.launch``)."""

@@ -129,7 +129,7 @@ def test_unported_options_raise(opts):
 
 
 @pytest.mark.parametrize("method,args", [
-    ("join", (None,)), ("knn", (np.zeros((1, 2)), 1)), ("save", ("x",)),
+    ("save", ("x",)),
 ])
 def test_unported_methods_raise(method, args):
     idx = SpatialIndex.build(_data()[:20], device="cpu")

@@ -60,6 +60,10 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "                              capacity=8)\n"
         "    live.insert(d[:3]); live.delete([0]); live.flush()\n"
         "    assert live.region(q).hits.shape == (4, live.id_space)\n"
+        "    j = live.join(r := SpatialIndex.build(d[:50], device='cpu'))\n"
+        "    assert j.pairs.shape == (live.id_space, 50) and j.n_pairs > 0\n"
+        "    nn = live.knn(q[:, :2], 3)\n"
+        "    assert nn.ids.shape == (4, 3) and bool((nn.dists[:, 1:] >= nn.dists[:, :-1]).all())\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
