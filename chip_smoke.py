@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--n 1000000] [--queries 256] [--seed 0] [--tree-n 50000]
-                          [--moving-n 1000000] [--ticks 20]
+                          [--moving-n 1000000] [--ticks 20] [--prefill 4096]
+                          [--kv-len 32768]
 
 Phases (each path is driven with every launch counter set to 0 just before
 it and read just after):
@@ -84,16 +85,43 @@ it and read just after):
      region queries by its deepest groups, so there the hits must cover the
      brute force), and the baseline's join pairs equal the live path's per
      object slot; prints ticks/s, merges and pair tests;
- 14. each kernel against its plain version at its path's shapes (exact
-     equality: masks, integers and float32 min/max/compare do not round),
-     timed with CUDA events (median of 7 after warm-up), beside the least
-     time the card needs for the same bytes and operations (for the
-     streaming sweep, the tile and parent bytes of the tiles it read);
- 15. end-to-end times of builds, region and point batches (first call,
+ 14. mqr-KV and attention kernels, at llama3.2-1B's widths (d_model 2048,
+     32 heads, 8 kv heads, head dim 64; mqr block 128, top-K 64, 6 levels),
+     random inputs from the seed: ``ops.rmsnorm`` on (prefill, 2048) and
+     ``ops.flash_attention`` on (32, prefill, 64), each in float32 and
+     bfloat16; a decode step over a (4, kv_len, 8, 64) bfloat16 cache at
+     pos = kv_len - 37 (defaults: prefill 4096, kv_len 32768): one
+     ``kvindex.build_kv_index`` per (batch, kv head), ``query_region`` per
+     query head, ``select_blocks_batched`` per kv head (ids (128, 64)),
+     then ``ops.mqr_sparse_attention`` over the kv blocks broadcast to
+     (128, kv_len / 128, 128, 64) in bfloat16 and float32; fails unless all
+     three kernels launched in both types, unless the outputs are finite
+     and of the expected shapes, unless the ids equal ``select_blocks`` on
+     the CPU over the same block MBRs, pyramids and regions (the survivor
+     masks of the region search too), and unless the region survivors come
+     first; random keys leave every block a survivor, so the same checks
+     run again on a cache whose scores drift with position, where the
+     search must prune for every head; prints the fraction of blocks
+     attended and the ms of index build, selection and attention per
+     decode step beside the plain dense decode over all blocks;
+ 15. each kernel against its plain version at its path's shapes (exact
+     equality: masks, integers and float32 min/max/compare do not round;
+     #8-#10, floating reductions, within ``rtol |plain| + row_rms x RMS of
+     the row``: float32 (1e-4, 1e-4), rmsnorm (1e-5, 1e-5); bfloat16
+     (2e-2, 3e-2); #8 and #9's limits must reject the plain version with
+     one block of keys left out), timed with CUDA events (median of 7
+     after warm-up), beside
+     the least time the card needs for the same bytes and operations (for
+     the streaming sweep, the tile and parent bytes of the tiles it read;
+     for #8 the causal FLOPs at the tensor-core bf16 peak or the float32
+     CUDA-core peak) and, for #8 and #10, one PyTorch library call on the
+     same inputs (``scaled_dot_product_attention``, ``rms_norm``);
+ 16. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one call per path (region
-     batches per path and precision, two joins, a k-NN call and a moving
-     tick: device time by kernel, and the device's idle share).
+     batches per path and precision, two joins, a k-NN call, a moving tick
+     and an mqr-KV decode step: device time by kernel, and the device's
+     idle share).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -113,6 +141,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
@@ -193,11 +222,11 @@ def wall_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float):
-    """Least time for ``nbytes`` moved and ``ops`` done: the larger of the
-    two, and which one it is."""
+def bound_ms(nbytes: float, ops: float, peak_ops: float = PEAK_OPS_PER_S):
+    """Least time for ``nbytes`` moved and ``ops`` done at ``peak_ops`` per
+    second: the larger of the two, and which one it is."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -216,6 +245,19 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
         if both.any():
             worst = max(worst, float((x64 - y64).abs()[both].max()))
     return worst
+
+
+def worst_over_limit(got: torch.Tensor, want: torch.Tensor, rtol: float,
+                     row_rms: float) -> float:
+    """Largest ``|got - want| / (rtol |want| + row_rms * RMS of want's row)``
+    over every entry; a check passes at 1 or below.  The limit follows the
+    output's own scale, row by row: attention rows over many keys are small,
+    and a fixed absolute limit would be as large as they are.  NaN (an
+    empty row, or a non-finite entry) fails."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    ratio = (got - want).abs() / (rtol * want.abs() + row_rms * rms)
+    return float(ratio.max()) if ratio.isfinite().all() else float("nan")
 
 
 def same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -258,6 +300,10 @@ def main(argv=None) -> int:
     ap.add_argument("--moving-n", type=int, default=1_000_000,
                     help="objects of the moving-object workload")
     ap.add_argument("--ticks", type=int, default=20, help="ticks of the moving workload")
+    ap.add_argument("--prefill", type=int, default=4096,
+                    help="tokens of the prefill attention and rows of the norm")
+    ap.add_argument("--kv-len", type=int, default=32_768,
+                    help="decode context of the mqr-KV step (a multiple of 128, >= 8192)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -286,7 +332,7 @@ def run(args, second) -> int:
     """Every phase after the checks of :func:`main`; ``second`` maps each
     tree structure to the future of its second build."""
     from repro_torch import SpatialIndex
-    from repro_torch.core import datasets
+    from repro_torch.core import bulk, datasets
     from repro_torch.core.flat import overlaps
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels.pyramid_scan import _quantize_queries
@@ -1201,29 +1247,215 @@ def run(args, second) -> int:
 
     checks.phase("moving-object workload", moving_path)
 
+    # -- mqr-KV block selection and the attention and norm kernels (#8-#10) --
+    # llama3.2-1B's widths (src/repro/configs/llama32_1b.py) and its mqr-KV
+    # settings (src/repro/models/transformer.py: mqr_block, mqr_topk,
+    # mqr_levels); random inputs from the seed, no weights.
+    D_MODEL, HEADS, KV_HEADS, HEAD_DIM = 2048, 32, 8, 64
+    MQR_BLOCK, MQR_TOPK, MQR_LEVELS = 128, 64, 6
+    NORM_ROWS = PREFILL = args.prefill
+    DEC_B, DEC_S = 4, args.kv_len
+    dec_pos = DEC_S - 37  # the last block is partly masked
+    attn_out = {}
+
+    def attention_path():
+        from repro_torch.core import kvindex
+
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        group = HEADS // KV_HEADS
+        nb = DEC_S // MQR_BLOCK
+        x = randn(NORM_ROWS, D_MODEL)
+        norm_scale = 1.0 + randn(D_MODEL, scale=0.1)
+        # prefill: B 1, kv heads broadcast to the query heads, (BH, S, D)
+        pq = randn(HEADS, PREFILL, HEAD_DIM)
+        pk, pv = (randn(KV_HEADS, PREFILL, HEAD_DIM).repeat_interleave(group, 0)
+                  for _ in range(2))
+        # decode: a (B, S, Hkv, Dh) bf16 cache, f32 probes, one query per head
+        keys = randn(DEC_B, DEC_S, KV_HEADS, HEAD_DIM).to(torch.bfloat16)
+        values = randn(DEC_B, DEC_S, KV_HEADS, HEAD_DIM).to(torch.bfloat16)
+        probes = randn(KV_HEADS, HEAD_DIM)
+        dq = randn(DEC_B, HEADS, HEAD_DIM)
+
+        def blocks(cache):  # (B, S, Hkv, Dh) -> (B*H, nb, bs, Dh), kv broadcast
+            c = cache.permute(0, 2, 1, 3).reshape(DEC_B, KV_HEADS, 1, nb, MQR_BLOCK, HEAD_DIM)
+            return c.expand(-1, -1, group, -1, -1, -1).reshape(
+                DEC_B * HEADS, nb, MQR_BLOCK, HEAD_DIM)
+
+        kb_bf, vb_bf = blocks(keys), blocks(values)
+        kb_f, vb_f = kb_bf.float(), vb_bf.float()
+        qd = dq.reshape(DEC_B * HEADS, HEAD_DIM)
+        q_bf = qd.to(torch.bfloat16)
+        pos_t = torch.full((), dec_pos, dtype=torch.int32, device=dev)
+
+        def build():
+            return [[kvindex.build_kv_index(keys[b, :, g], probes[g], MQR_BLOCK, MQR_LEVELS)
+                     for g in range(KV_HEADS)] for b in range(DEC_B)]
+
+        def regions():
+            return [[kvindex.query_region(dq[b, g * group:(g + 1) * group], probes[g],
+                                          pos_t + 1) for g in range(KV_HEADS)]
+                    for b in range(DEC_B)]
+
+        def select(index, regs):
+            return torch.stack([torch.stack([
+                kvindex.select_blocks_batched(index[b][g].block_mbr, index[b][g].pyramid,
+                                              regs[b][g], MQR_TOPK)
+                for g in range(KV_HEADS)]) for b in range(DEC_B)]).reshape(
+                    DEC_B * HEADS, MQR_TOPK)
+
+        sync()
+        _lib.counters.reset()
+        normed = {dt: ops.rmsnorm(x.to(dt), norm_scale) for dt in (torch.float32, torch.bfloat16)}
+        prefill = {dt: ops.flash_attention(pq.to(dt), pk.to(dt), pv.to(dt))
+                   for dt in (torch.float32, torch.bfloat16)}
+        index = build()
+        regs = regions()
+        ids = select(index, regs)
+        dec = {torch.bfloat16: ops.mqr_sparse_attention(q_bf, kb_bf, vb_bf, ids, pos_t),
+               torch.float32: ops.mqr_sparse_attention(qd, kb_f, vb_f, ids, pos_t)}
+        sync()
+        paths["attention"] = _lib.counters.snapshot()
+        print(f"  launches {paths['attention']}", flush=True)
+        expect_launched("attention", [f"{k}_{d}" for k in ("rmsnorm", "flash_attention",
+                                                            "mqr_sparse_attention")
+                                      for d in ("f32", "bf16")])
+        for what, outs, shape in (("rmsnorm", normed, (NORM_ROWS, D_MODEL)),
+                                  ("flash_attention", prefill, (HEADS, PREFILL, HEAD_DIM)),
+                                  ("mqr_sparse_attention", dec, (DEC_B * HEADS, HEAD_DIM))):
+            checks.expect(all(o.shape == shape and o.dtype == dt
+                              and bool(o.float().isfinite().all()) for dt, o in outs.items()),
+                          f"{what}: finite {shape} outputs in float32 and bfloat16")
+        def check_selection(label, index, regs, ids):
+            """The card's ids == select_blocks on the CPU, and its survivor
+            mask == pyramid_search on the CPU, given the same block MBRs,
+            pyramids and regions; survivors come first.  Returns the number
+            of survivors of each query head."""
+            cpu_ids, mask_ok, order_ok, counts = [], True, True, []
+            for b in range(DEC_B):
+                for g in range(KV_HEADS):
+                    ix = index[b][g]
+                    cix = kvindex.KVIndex(ix.block_mbr.cpu(), ix.pyramid._replace(
+                        group_of=ix.pyramid.group_of.cpu(),
+                        group_mbr=ix.pyramid.group_mbr.cpu()))
+                    reg = regs[b][g].cpu()
+                    cpu_ids.append(kvindex.select_blocks(cix, reg, MQR_TOPK))
+                    surv = bulk.pyramid_search(ix.pyramid, regs[b][g])  # (group, nb)
+                    mask_ok &= same(surv.cpu(), bulk.pyramid_search(cix.pyramid, reg))
+                    got = ids.reshape(DEC_B, KV_HEADS, group, MQR_TOPK)[b, g].long()
+                    first = surv.gather(1, got)
+                    counts += surv.sum(1).tolist()
+                    # once a non-survivor is taken, no survivor follows it
+                    order_ok &= bool((first[:, 1:] <= first[:, :-1]).all())
+                    order_ok &= bool((first.sum(1) == surv.sum(1).clamp(max=MQR_TOPK)).all())
+            cpu_ids = torch.stack(cpu_ids).reshape(DEC_B * HEADS, MQR_TOPK)
+            checks.expect(same(ids.cpu(), cpu_ids),
+                          f"{label}: ids on the card ({tuple(ids.shape)}) == select_blocks on "
+                          f"the CPU over the same block MBRs, pyramids and regions")
+            checks.expect(mask_ok, f"{label}: the region search's survivor mask on the card "
+                                   f"== pyramid_search on the CPU")
+            checks.expect(order_ok, f"{label}: survivors of the region search first")
+            return counts
+
+        counts = check_selection("mqr-KV", index, regs, ids)
+        mean_surv = sum(counts) / len(counts)
+        # Random keys span every block's score band, so there every block
+        # survives and selection goes by overlap area alone.  A cache whose
+        # scores drift with position (k . probe = 256 t / S plus noise, one
+        # unit per block) makes the region search prune, and pads the top K
+        # with zero-area ties.
+        t_pos = torch.arange(DEC_S, dtype=torch.float32, device=dev)
+        unit = probes / probes.pow(2).sum(-1, keepdim=True)  # k . probe = 1
+        drift = (randn(DEC_B, DEC_S, KV_HEADS, HEAD_DIM, scale=0.1)
+                 + (256.0 * t_pos / DEC_S)[None, :, None, None] * unit).to(torch.bfloat16)
+        d_index = [[kvindex.build_kv_index(drift[b, :, g], probes[g], MQR_BLOCK, MQR_LEVELS)
+                    for g in range(KV_HEADS)] for b in range(DEC_B)]
+        d_counts = check_selection("drifting scores", d_index, regs, select(d_index, regs))
+        checks.expect(max(d_counts) < nb,
+                      f"drifting scores: the region search prunes for every head "
+                      f"({sum(d_counts) / len(d_counts):.1f} of {nb} blocks survive on "
+                      f"average, {min(d_counts)} to {max(d_counts)})")
+        del drift, d_index
+
+        def step(_):  # one decode step: index build, selection, attention (bf16)
+            return ops.mqr_sparse_attention(q_bf, kb_bf, vb_bf,
+                                            select(build(), regions()), pos_t)
+
+        attn_out.update(
+            step=step, x=x, norm_scale=norm_scale, prefill_in=(pq, pk, pv), qd=qd, ids=ids,
+            pos=pos_t, kb=(kb_bf, vb_bf), kbf=(kb_f, vb_f),
+            selected_frac=MQR_TOPK / nb, survivor_frac=mean_surv / nb,
+            build_ms=wall_ms(build), select_ms=wall_ms(lambda: select(index, regions())))
+        all_ids = torch.arange(nb, dtype=torch.int32, device=dev).expand(
+            DEC_B * HEADS, nb).contiguous()
+        attn_out["attend_ms"] = time_ms(
+            lambda: ops.mqr_sparse_attention(q_bf, kb_bf, vb_bf, ids, pos_t))
+        attn_out["attend_all_ms"] = time_ms(
+            lambda: ops.mqr_sparse_attention(q_bf, kb_bf, vb_bf, all_ids, pos_t))
+        attn_out["dense_plain_ms"] = time_ms(
+            lambda: ops.mqr_sparse_attention_torch(q_bf, kb_bf, vb_bf, all_ids, pos_t))
+        dense = ops.mqr_sparse_attention_torch(qd, kb_f, vb_f, all_ids, pos_t)
+        attn_out["sparse_vs_dense"] = float((dec[torch.float32] - dense).abs().max())
+        print(f"  decode B {DEC_B}, S {DEC_S} ({nb} blocks of {MQR_BLOCK}), pos {dec_pos}: "
+              f"{MQR_TOPK} blocks attended per head ({attn_out['selected_frac']:.3f} of the "
+              f"cache), {mean_surv:.1f} region survivors per head on average; per step: "
+              f"index build {attn_out['build_ms']:.2f} ms ({DEC_B * KV_HEADS} indexes), "
+              f"selection {attn_out['select_ms']:.2f} ms, attention (#9, bf16) "
+              f"{attn_out['attend_ms']:.3f} ms; #9 over all {nb} blocks "
+              f"{attn_out['attend_all_ms']:.3f} ms; plain dense decode over all {nb} blocks "
+              f"{attn_out['dense_plain_ms']:.3f} ms; max |sparse - dense| (f32) "
+              f"{attn_out['sparse_vs_dense']:.4f}", flush=True)
+
+    checks.phase("mqr-KV and attention kernels", attention_path)
+
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
 
     def kernel_row(name, source, replaces, kernel_fn, plain_fn, nbytes, ops_count,
-                   launches):
+                   launches, tol=None, mutant=None, peak_ops=PEAK_OPS_PER_S, library_fn=None):
+        """Hold ``kernel_fn()`` against ``plain_fn()`` and time both, beside the
+        bound at ``peak_ops`` and ``library_fn``'s time where there is one.
+        With ``tol`` None the two must be equal; a floating reduction, which
+        cannot be bit-equal, passes ``tol = (rtol, row_rms)`` and must lie
+        within :func:`worst_over_limit`'s limit, and ``mutant = (what, fn)``,
+        the plain version with one block of keys left out, must not."""
         got, want = kernel_fn(), plain_fn()
         sync()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        ok = len(got) == len(want) and all(same(a, b) for a, b in zip(got, want))
         err = max(max_abs_err(a, b) for a, b in zip(got, want))
-        checks.expect(ok, f"{name} kernel == plain version on the card (max_abs_err {err})")
+        if tol is None:
+            ok = len(got) == len(want) and all(same(a, b) for a, b in zip(got, want))
+            checks.expect(ok, f"{name} kernel == plain version on the card (max_abs_err {err})")
+        else:
+            (g,), (w,) = got, want
+            worst = worst_over_limit(g, w, *tol)
+            checks.expect(g.shape == w.shape and worst <= 1.0,
+                          f"{name} kernel within {tol[0]} |plain| + {tol[1]} x the row's RMS "
+                          f"of the plain version on the card (max_abs_err {err}, worst "
+                          f"error / limit {worst:.3g})")
+            if mutant is not None:
+                what, mutant_fn = mutant
+                bad = worst_over_limit(mutant_fn(), w, *tol)
+                checks.expect(bad > 1.0, f"{name}: that limit rejects the plain version "
+                                         f"{what} (worst error / limit {bad:.3g})")
         del got, want
         ms = time_ms(kernel_fn)
         plain_ms = time_ms(plain_fn)
-        b_ms, b_by = bound_ms(nbytes, ops_count)
+        library_ms = time_ms(library_fn) if library_fn is not None else None
+        b_ms, b_by = bound_ms(nbytes, ops_count, peak_ops)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=library_ms,
         ))
-        print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms "
-              f"by {b_by}; {launches} launches on its path)", flush=True)
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        peak = f" at {peak_ops / 1e12:g} TFLOP/s" if b_by == "operations" else ""
+        print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library {lib}, bound "
+              f"{b_ms:.3f} ms by {b_by}{peak}; {launches} launches on its path)", flush=True)
 
     sweep_src = "src/repro_torch/kernels/csrc/level_sweep.cu"
 
@@ -1394,6 +1626,80 @@ def run(args, second) -> int:
 
     checks.phase("kernels vs plain versions", kernel_phase)
 
+    def attention_kernel_phase():
+        """#8-#10 against their plain versions at the shapes of phase 14, and
+        one PyTorch library call each where one computes the same function.
+        The limits follow each output's own scale (:func:`worst_over_limit`),
+        set from this phase's readings on the card; for #8 and #9 each is
+        also shown to reject the plain version with one block of keys left
+        out."""
+        if "ids" not in attn_out:
+            return
+        launched = paths["attention"]
+        csrc = "src/repro_torch/kernels/csrc/"
+        # (rtol, row_rms): bfloat16's rtol covers one bf16 ulp (2^-7 of |v|)
+        # at any magnitude, its row term the bf16 rounding of p before P.V
+        tol = {"rmsnorm": {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 3e-2)},
+               "flash_attention": {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)},
+               "mqr_sparse_attention": {torch.float32: (1e-4, 1e-4),
+                                        torch.bfloat16: (2e-2, 3e-2)}}
+        # dense peaks (data sheet, 700 W): bf16 on the tensor cores; the f32
+        # kernel runs on the CUDA cores (FFMA, not TF32)
+        flash_peak = {torch.float32: PEAK_OPS_PER_S, torch.bfloat16: 989e12}
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def rms_norm(*a, **k):  # a float32 weight on bfloat16 rows warns on every call
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                return torch.nn.functional.rms_norm(*a, **k)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            es = torch.empty((), dtype=dt).element_size()
+            x, w = attn_out["x"].to(dt), attn_out["norm_scale"]
+            rows, d = x.shape
+            kernel_row(
+                f"rmsnorm_{tag}", csrc + "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:33",
+                lambda: ops.rmsnorm(x, w), lambda: ops.rmsnorm_torch(x, w),
+                nbytes=2 * rows * d * es + d * 4, ops_count=rows * d * 4,
+                launches=launched.get(f"rmsnorm_{tag}", 0), tol=tol["rmsnorm"][dt],
+                library_fn=lambda: rms_norm(x, (d,), weight=w, eps=1e-6))
+            q, k, v = (t.to(dt) for t in attn_out["prefill_in"])
+            bh, s_len, hd = q.shape
+            v_cut = v.clone()
+            v_cut[:, -64:] = 0  # the last 64-key tile contributes nothing
+            kernel_row(
+                f"flash_attention_{tag}", csrc + "flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:86",
+                lambda: ops.flash_attention(q, k, v), lambda: ops.flash_attention_torch(q, k, v),
+                nbytes=4 * bh * s_len * hd * es,
+                # the causal QK^T and P.V products: S (S + 1) / 2 pairs each
+                ops_count=2 * 2 * bh * (s_len * (s_len + 1) // 2) * hd,
+                launches=launched.get(f"flash_attention_{tag}", 0),
+                tol=tol["flash_attention"][dt], peak_ops=flash_peak[dt],
+                mutant=("with the values of the last 64 keys zeroed",
+                        lambda: ops.flash_attention_torch(q, k, v_cut)),
+                library_fn=lambda: sdpa(q[None], k[None], v[None], is_causal=True))
+            del v_cut
+            qd = attn_out["qd"].to(dt)
+            kb, vb = attn_out["kb"] if dt == torch.bfloat16 else attn_out["kbf"]
+            ids, pos = attn_out["ids"], attn_out["pos"]
+            (bh_dec, hd_dec), kk, bs = qd.shape, ids.shape[1], kb.shape[2]
+            kernel_row(
+                f"mqr_sparse_attention_{tag}", csrc + "mqr_sparse_attention.cu",
+                "src/repro/kernels/mqr_sparse_attention.py:105",
+                lambda: ops.mqr_sparse_attention(qd, kb, vb, ids, pos),
+                lambda: ops.mqr_sparse_attention_torch(qd, kb, vb, ids, pos),
+                # K*bs*D elements each of k and v per (b, h), plus q, ids and out
+                nbytes=bh_dec * (2 * kk * bs * hd_dec * es + 2 * hd_dec * es + kk * 4),
+                ops_count=bh_dec * kk * bs * hd_dec * 4,
+                launches=launched.get(f"mqr_sparse_attention_{tag}", 0),
+                tol=tol["mqr_sparse_attention"][dt],
+                mutant=("with the first selected block left out",
+                        lambda: ops.mqr_sparse_attention_torch(
+                            qd, kb, vb, ids[:, 1:].contiguous(), pos)))
+
+    checks.phase("attention kernels vs plain versions", attention_kernel_phase)
+
     # -- 9. end-to-end timings and profile -----------------------------
     def timings():
         out["build_steady_ms"] = wall_ms(
@@ -1480,6 +1786,9 @@ def run(args, second) -> int:
         if "pyramid" in knn_out:
             batches.append((f"pyramid k-NN (k {knn_k})",
                             functools.partial(idx.knn, k=knn_k), points))
+        if "step" in attn_out:
+            batches.append(("mqr-KV decode step (32 index builds, selection, #9 bf16)",
+                            attn_out["step"], None))
         if "workload" in moving_out:  # one more tick, after the checked run
             batches.append(("moving tick", lambda _: moving_out["workload"].tick(), None))
         for label, fn, arg in batches:
@@ -1545,6 +1854,9 @@ def run(args, second) -> int:
         knn={label: {f: r.get(f) for f in ("rounds", "first_ms", "ms")}
              for label, r in knn_out.items()},
         moving={f: v for f, v in moving_out.items() if f not in ("workload", "sweep_args")},
+        attention={f: attn_out.get(f) for f in (
+            "selected_frac", "survivor_frac", "build_ms", "select_ms", "attend_ms",
+            "attend_all_ms", "dense_plain_ms", "sparse_vs_dense")},
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

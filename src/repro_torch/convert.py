@@ -1,11 +1,14 @@
-"""Carry a schedule built by the JAX package across to the port.
+"""Carry a schedule or an mqr-KV index built by the JAX package across to the port.
 
 The system runs no model, so its "weights" are the built index.  These
 functions take the fields of the JAX package's ``LevelSchedule`` /
 ``QuantizedSchedule`` as numpy arrays (``dataclasses.asdict`` on the JAX
 side gives them) and return the port's dataclasses on ``device``, so a
 schedule the JAX package built through any path — an mqr tree schedule
-included — can be swept by the port.  This module imports nothing of the
+included — can be swept by the port.  :func:`kvindex_from_numpy` and
+:func:`inc_kvindex_from_numpy` do the same for the reference's ``KVIndex``
+and ``IncKVIndex``, group pyramid included, so block selection can be held
+to the reference on identical state.  This module imports nothing of the
 JAX package.
 """
 
@@ -14,12 +17,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.bulk import GroupPyramid
 from repro_torch.core.flat import CELLS8, LevelSchedule, QuantizedSchedule
+from repro_torch.core.kvindex import IncKVIndex, KVIndex
 from repro_torch.kernels.ops import resolve_device
 
 
 def _tensor(value, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(value, dtype))).to(device)
+    # a writable copy: a JAX array's buffer must not become the tensor's
+    return torch.from_numpy(np.array(value, dtype=dtype, order="C", copy=True)).to(device)
 
 
 def schedule_from_numpy(fields: dict, device=None) -> LevelSchedule:
@@ -63,4 +69,36 @@ def quantized_from_numpy(fields: dict, device=None) -> QuantizedSchedule:
         cells8=int(fields.get("cells8", CELLS8)),
         inv_cell8=(None if fields.get("inv_cell8") is None
                    else _tensor(fields["inv_cell8"], np.float32, dev)),
+    )
+
+
+def _fields(value) -> dict:
+    """A NamedTuple's fields (``_asdict``) or a mapping, as a dict."""
+    return value._asdict() if hasattr(value, "_asdict") else dict(value)
+
+
+def kvindex_from_numpy(fields, device=None) -> KVIndex:
+    """The port's :class:`KVIndex` from a reference ``KVIndex`` (the
+    NamedTuple itself or its fields as a dict of numpy arrays; ``pyramid``
+    likewise a ``GroupPyramid`` or a dict)."""
+    dev = resolve_device(device)
+    f = _fields(fields)
+    p = _fields(f["pyramid"])
+    pyramid = GroupPyramid(
+        group_of=_tensor(p["group_of"], np.int32, dev),
+        group_mbr=_tensor(p["group_mbr"], np.float32, dev),
+        levels=int(p["levels"]),
+    )
+    return KVIndex(block_mbr=_tensor(f["block_mbr"], np.float32, dev), pyramid=pyramid)
+
+
+def inc_kvindex_from_numpy(fields, device=None) -> IncKVIndex:
+    """The port's :class:`IncKVIndex` from a reference ``IncKVIndex`` (the
+    NamedTuple itself or a dict of its numpy fields)."""
+    dev = resolve_device(device)
+    f = _fields(fields)
+    return IncKVIndex(
+        block_mbr=_tensor(f["block_mbr"], np.float32, dev),
+        group_mbr=_tensor(f["group_mbr"], np.float32, dev),
+        group_of=_tensor(f["group_of"], np.int32, dev),
     )

@@ -10,7 +10,8 @@ Fig. 2 quadrant rule about that box's centroid.
 Output is a "group pyramid": ``group_of[l, i]`` is object i's dense group id
 at level l and ``group_mbr[l, g]`` that group's MBR (unused ids carry the
 +inf/-inf sentinel).  Group 0 at level 0 is the root; an object alone in
-its group stops splitting.
+its group stops splitting.  :func:`pyramid_search` is the pointer-free
+region search over it (the mqr-KV block selection of ``core/kvindex.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from .flat import overlaps as _overlaps
 
 # Quadrant codes (order irrelevant to correctness; matches the JAX package).
 _NE, _NW, _SW, _SE, _EQ = 0, 1, 2, 3, 4
@@ -102,3 +105,18 @@ def build_pyramid(mbrs: torch.Tensor, levels: int) -> GroupPyramid:
         group_mbr=torch.stack(group_mbr),
         levels=levels,
     )
+
+
+def pyramid_search(pyr: GroupPyramid, region: torch.Tensor) -> torch.Tensor:
+    """Pointer-free region search: object i survives iff the group MBR of
+    every ancestor level overlaps the region.  ``region`` (4,) gives (n,)
+    bool; a batch of regions (R, 4) gives (R, n), one row per region."""
+    gather = pyr.group_of.long()[:, :, None].expand(-1, -1, 4)
+    anc = torch.gather(pyr.group_mbr, 1, gather)  # (L, n, 4)
+    per_level = _overlaps(anc, region[..., None, None, :])  # (..., L, n)
+    return per_level.all(dim=-2)
+
+
+def pyramid_stats(pyr: GroupPyramid) -> list[int]:
+    """Diagnostics: number of distinct groups per level (host-side)."""
+    return [int(torch.unique(g).numel()) for g in pyr.group_of]

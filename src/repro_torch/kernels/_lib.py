@@ -14,7 +14,9 @@ float32 compares must stay exact on subnormal inputs.
 where it launches its kernel and nowhere else.  A sweep with uint16
 parent slots is also counted under its own ``..._u16p`` name, so a run
 can show that the uint16-parent instantiation ran; a symmetric (self-join)
-pair sweep is also counted under ``pair_sweep_sym``.
+pair sweep is also counted under ``pair_sweep_sym``.  The attention and norm
+kernels (#8-#10) are also counted per element type (``flash_attention_bf16``
+and so on).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signature of every exported function: name -> (restype, argtypes).
 _SIGNATURES = {
@@ -57,7 +60,16 @@ _SIGNATURES = {
     "repro_build_levels": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _P]),
     "repro_quantize_cm": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _P]),
     "repro_pair_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P]),
+    "repro_rmsnorm": (_I, [_P, _P, _P, _LL, _I, _I, _I, _F, _P]),
+    "repro_mqr_sparse_attention": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                                        _I, _I, _F, _P]),
+    "repro_flash_attention": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P]),
 }
+
+# Element types that cross the C interface as a code (``ReproDtype`` in
+# ``csrc/common.cuh``).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 class LaunchCounters:
@@ -179,6 +191,19 @@ def require(t: torch.Tensor, name: str, dtype, shape=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    """The C dtype code of a float32 or bfloat16 argument."""
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def require_aligned(t: torch.Tensor, name: str, nbytes: int = 16) -> None:
+    """A kernel that loads ``nbytes`` at a time needs its base aligned."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name} must be {nbytes}-byte aligned")
 
 
 def require_block(width: int, name: str) -> None:

@@ -1,0 +1,72 @@
+"""Causal flash-attention forward (kernel #8).
+
+Counterpart of ``repro.kernels.flash_attention``.  On a CUDA tensor
+:func:`flash_attention` launches ``csrc/flash_attention.cu``; on a CPU
+tensor it runs :func:`flash_attention_torch`, the counterpart of
+``repro.kernels.ref.flash_attention_ref``.
+
+``block_q`` and ``block_k`` keep the reference's signature and its rule
+that S is a multiple of both (a ``ValueError`` here, an assert there); the
+kernel's own tiles are fixed at 64 query rows by 64 keys and need no such
+rule.  bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, float32
+accumulate); float32 runs on the CUDA cores in full float32, not TF32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _lib
+
+NEG_INF = -1e30  # the reference's finite mask value
+HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
+
+
+def flash_attention_torch(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Plain version: q, k, v (BH, S, D) -> (BH, S, D); float32 logits and
+    softmax, p cast to v's dtype before P.V, output in q's dtype."""
+    s, d = q.shape[1], q.shape[2]
+    logits = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32))
+    logits = logits * (1.0 / math.sqrt(d))
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Causal attention over q, k, v (BH, S, D) float32 or bfloat16, kv
+    heads already broadcast -> (BH, S, D) in q's dtype.  S must be a
+    multiple of ``block_q`` and ``block_k``; on the card D is 64 or 128."""
+    code = _lib.dtype_code(q, "q")
+    if q.dim() != 3:
+        raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
+    bh, s, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _lib.require(t, name, q.dtype, (bh, s, d))
+    if block_q < 1 or block_k < 1 or s % block_q or s % block_k:
+        raise ValueError(f"S = {s} must be a multiple of block_q = {block_q} "
+                         f"and block_k = {block_k}")
+    _lib.require_device({"k": k, "v": v}, q.device)
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for D in {HEAD_DIMS}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _lib.require_aligned(t, name)
+    out = torch.empty_like(q)
+    if out.numel():
+        rc = _lib.load().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d, code,
+            1.0 / math.sqrt(d), _lib.stream_of(q),
+        )
+        _lib.check(rc, "flash_attention")
+        _lib.counters.add("flash_attention")
+        _lib.counters.add(f"flash_attention_{_lib.DTYPE_NAMES[q.dtype]}")
+    return out

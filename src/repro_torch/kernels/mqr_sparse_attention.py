@@ -1,0 +1,116 @@
+"""mqr-KV block-table decode attention (kernel #9).
+
+Counterpart of ``repro.kernels.mqr_sparse_attention``: attend over only the
+K KV blocks that the mqr index chose (``repro_torch.core.kvindex``).  On a
+CUDA tensor :func:`mqr_sparse_attention` launches
+``csrc/mqr_sparse_attention.cu``; on a CPU tensor it runs
+:func:`mqr_sparse_attention_torch`, the counterpart of
+``repro.kernels.ref.mqr_sparse_attention_ref``.
+
+An id outside [0, nb) reads the block the reference's jnp gather reads
+(a negative id counts from the end, numpy's rule, then the index is
+clamped to [0, nb - 1]) and is masked by its own position ``id * bs + j``;
+the wrapper never reads ``ids`` or ``pos`` on the host.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _lib
+
+NEG_INF = -1e30  # the reference's finite mask value (exp(NEG - NEG) = 1, never NaN)
+THREADS = 128    # the kernel's block: D must divide it
+TARGET_BLOCKS = 2048  # (b, h, chunk) blocks to aim for: enough loads in flight
+
+
+def _scale(d: int) -> float:
+    return 1.0 / math.sqrt(d)
+
+
+def split_k(bh: int, kk: int) -> tuple[int, int]:
+    """(chunk, splits): the kernel cuts each row's K ids into ``splits``
+    chunks of ``chunk`` ids (the last may be shorter, none is empty), so
+    that about ``TARGET_BLOCKS`` blocks run."""
+    want = max(1, min(kk, -(-TARGET_BLOCKS // max(bh, 1))))
+    chunk = -(-kk // want)
+    return chunk, -(-kk // chunk)
+
+
+def mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos) -> torch.Tensor:
+    """Plain version: softmax over the K * bs gathered logits in float32
+    (products of the input type, float32 sums), p cast to v's dtype before
+    P.V, output in q's dtype.  ``pos`` is a Python int or a 0-d tensor."""
+    bh, nb, bs, d = k_blocks.shape
+    ids = ids.to(torch.int64)
+    rows = torch.arange(bh, device=ids.device)[:, None]
+    safe = torch.where(ids < 0, ids + nb, ids).clamp(0, nb - 1)
+    kg = k_blocks[rows, safe].to(torch.float32)  # (BH, K, bs, D)
+    vg = v_blocks[rows, safe]
+    logits = torch.einsum("bd,bksd->bks", q.to(torch.float32), kg) * _scale(d)
+    kpos = ids[:, :, None] * bs + torch.arange(bs, device=ids.device)
+    logits = torch.where(kpos <= pos, logits, NEG_INF)
+    p = torch.softmax(logits.reshape(bh, -1), dim=-1)
+    out = torch.einsum("bn,bnd->bd", p.to(v_blocks.dtype).to(torch.float32),
+                       vg.reshape(bh, -1, d).to(torch.float32))
+    return out.to(q.dtype)
+
+
+def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos) -> torch.Tensor:
+    """Decode attention of q (BH, D) over the blocks ``ids`` (BH, K) int32
+    of k_blocks, v_blocks (BH, nb, bs, D), keys past ``pos`` (inclusive
+    causal limit: a Python int or a 0-d integer tensor) masked -> (BH, D)
+    in q's dtype.  float32 or bfloat16.  On the card D must divide 128 (and
+    be a multiple of 8 in bfloat16), the kernel splits each row's K ids into
+    chunks (:func:`split_k`) merged by a second launch (the pair counts as
+    one launch), and it takes a float32 workspace of BH * chunks * (D + 2).
+    A k/v block must fit one block's shared memory (bs = 128 at D = 128 in
+    float32 takes 134 KB); a larger one fails the launch, which raises."""
+    code = _lib.dtype_code(q, "q")
+    if k_blocks.dim() != 4:
+        raise ValueError(f"k_blocks must be (BH, nb, bs, D), got {tuple(k_blocks.shape)}")
+    bh, nb, bs, d = k_blocks.shape
+    _lib.require(q, "q", q.dtype, (bh, d))
+    _lib.require(k_blocks, "k_blocks", q.dtype)
+    _lib.require(v_blocks, "v_blocks", q.dtype, k_blocks.shape)
+    if ids.dim() != 2 or ids.shape[0] != bh or ids.shape[1] < 1:
+        raise ValueError(f"ids must be (BH = {bh}, K >= 1), got {tuple(ids.shape)}")
+    _lib.require(ids, "ids", torch.int32)
+    dev = q.device
+    _lib.require_device({"k_blocks": k_blocks, "v_blocks": v_blocks, "ids": ids}, dev)
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype.is_floating_point or pos.dtype == torch.bool:
+            raise ValueError(f"pos must be one integer, got {pos.dtype} {tuple(pos.shape)}")
+        pos = pos.reshape(())
+    else:
+        pos = int(pos)
+    if dev.type == "cpu":
+        return mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos)
+    if dev.type != "cuda":
+        raise ValueError(f"mqr_sparse_attention runs on cuda or cpu, not {dev}")
+    lib = _lib.load()
+    vec = 16 // q.element_size()
+    if THREADS % d or d % vec:
+        raise ValueError(f"the kernel needs D dividing {THREADS} and a multiple of {vec}, "
+                         f"got {d}")
+    for name, t in (("k_blocks", k_blocks), ("v_blocks", v_blocks)):
+        _lib.require_aligned(t, name)
+    if isinstance(pos, torch.Tensor):
+        pos_dev = pos.to(device=dev, dtype=torch.int32)  # no host read
+    else:
+        pos_dev = torch.full((), pos, dtype=torch.int32, device=dev)
+    out = torch.empty((bh, d), dtype=q.dtype, device=dev)
+    if bh:
+        chunk, splits = split_k(bh, ids.shape[1])
+        part = torch.empty((bh, splits, d + 2), dtype=torch.float32, device=dev)
+        rc = lib.repro_mqr_sparse_attention(
+            q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), ids.data_ptr(),
+            pos_dev.data_ptr(), part.data_ptr(), out.data_ptr(), bh, nb, bs, ids.shape[1], d,
+            chunk, splits, code, _scale(d), _lib.stream_of(q),
+        )
+        _lib.check(rc, "mqr_sparse_attention")
+        _lib.counters.add("mqr_sparse_attention")
+        _lib.counters.add(f"mqr_sparse_attention_{_lib.DTYPE_NAMES[q.dtype]}")
+    return out

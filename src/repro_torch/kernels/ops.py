@@ -18,6 +18,8 @@ from .build import build_levels_torch as build_levels_torch  # noqa: F401
 from .build import device_schedule as device_schedule  # noqa: F401
 from .build import hilbert_keys as hilbert_keys  # noqa: F401
 from .build import hilbert_permute as hilbert_permute  # noqa: F401
+from .flash_attention import flash_attention as flash_attention  # noqa: F401
+from .flash_attention import flash_attention_torch as flash_attention_torch  # noqa: F401
 from .join_scan import fused_join as fused_join  # noqa: F401
 from .join_scan import join_epilogue as join_epilogue  # noqa: F401
 from .join_scan import pair_sweep as pair_sweep  # noqa: F401
@@ -25,6 +27,10 @@ from .join_scan import pair_sweep_torch as pair_sweep_torch  # noqa: F401
 from .mbr_scan import mbr_scan as mbr_scan  # noqa: F401
 from .mbr_scan import mbr_scan_cm as mbr_scan_cm  # noqa: F401
 from .mbr_scan import mbr_scan_torch as mbr_scan_torch  # noqa: F401
+from .mqr_sparse_attention import mqr_sparse_attention as mqr_sparse_attention  # noqa: F401
+from .mqr_sparse_attention import (  # noqa: F401
+    mqr_sparse_attention_torch as mqr_sparse_attention_torch,
+)
 from .pyramid_scan import fused_search_compact_live as fused_search_compact_live  # noqa: F401
 from .pyramid_scan import fused_search_live as fused_search_live  # noqa: F401
 from .pyramid_scan import level_sweep as level_sweep  # noqa: F401
@@ -44,6 +50,14 @@ from .quantize import quantize_cm as quantize_cm  # noqa: F401
 from .quantize import quantize_cm_torch as quantize_cm_torch  # noqa: F401
 from .quantize import quantize_rows as quantize_rows  # noqa: F401
 from .quantize import quantize_schedule as quantize_schedule  # noqa: F401
+from .rmsnorm import rmsnorm as rmsnorm  # noqa: F401
+from .rmsnorm import rmsnorm_torch as rmsnorm_torch  # noqa: F401
+
+# The plain versions under the reference's oracle names (``repro.kernels.ops``
+# re-exports ``ref.*_ref``); each is the same function as its ``*_torch``.
+flash_attention_ref = flash_attention_torch
+mqr_sparse_attention_ref = mqr_sparse_attention_torch
+rmsnorm_ref = rmsnorm_torch
 
 
 def default_device() -> torch.device:

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch import SpatialIndex, convert
+from repro_torch.core import kvindex
 from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -64,6 +65,21 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "    assert j.pairs.shape == (live.id_space, 50) and j.n_pairs > 0\n"
         "    nn = live.knn(q[:, :2], 3)\n"
         "    assert nn.ids.shape == (4, 3) and bool((nn.dists[:, 1:] >= nn.dists[:, :-1]).all())\n"
+        "import torch\n"
+        "from repro_torch.core import kvindex\n"
+        "from repro_torch.kernels import ops\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "keys, probe = torch.randn(1024, 16, generator=g), torch.randn(16, generator=g)\n"
+        "ix = kvindex.build_kv_index(keys, probe, 128, 4)\n"
+        "ids = kvindex.select_blocks_batched(ix.block_mbr, ix.pyramid,\n"
+        "    kvindex.query_region(keys[-2:], probe, 1000), 3)\n"
+        "assert ids.shape == (2, 3) and ids.dtype == torch.int32\n"
+        "kb = keys.reshape(1, 8, 128, 16).expand(2, -1, -1, -1).contiguous()\n"
+        "o = ops.mqr_sparse_attention(keys[-2:].contiguous(), kb, kb, ids, 999)\n"
+        "x = ops.flash_attention(kb[:, :1, :, :].reshape(2, 128, 16).contiguous(),\n"
+        "    kb[:, 1].contiguous(), kb[:, 2].contiguous())\n"
+        "n = ops.rmsnorm(keys, probe)\n"
+        "assert o.shape == (2, 16) and x.shape == (2, 128, 16) and n.shape == keys.shape\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -90,6 +106,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
               else getattr(sched, f) for f in sched.__dataclass_fields__}
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.schedule_from_numpy(fields)
+    kv = {"block_mbr": np.zeros((4, 4), np.float32),
+          "pyramid": {"group_of": np.zeros((2, 4), np.int32),
+                      "group_mbr": np.zeros((2, 4, 4), np.float32), "levels": 2}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.kvindex_from_numpy(kv)
+    inc = {"block_mbr": kv["block_mbr"], "group_of": kv["pyramid"]["group_of"],
+           "group_mbr": kv["pyramid"]["group_mbr"]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.inc_kvindex_from_numpy(inc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kvindex.init_incremental(4, 128, 2)
+    assert convert.kvindex_from_numpy(kv, device="cpu").block_mbr.device.type == "cpu"
     # asked for explicitly, the CPU works
     assert SpatialIndex.build(data, device="cpu").device == torch.device("cpu")
 
