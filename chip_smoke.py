@@ -109,8 +109,11 @@ it and read just after):
      #8-#10, floating reductions, within ``rtol |plain| + row_rms x RMS of
      the row``: float32 (1e-4, 1e-4), rmsnorm (1e-5, 1e-5); bfloat16
      (2e-2, 3e-2); #8 and #9's limits must reject the plain version with
-     one block of keys left out), timed with CUDA events (median of 7
-     after warm-up), beside
+     one block of keys left out; #8 also at D 128, at S 320, 200 and 64,
+     and #10 at d 2050 and on a base one element off 16-byte alignment),
+     timed on the device (the profiler's kernel time, mean of 7 calls
+     after warm-up; one call's CUDA-event window, which also holds the
+     host's time to launch, printed beside it), beside
      the least time the card needs for the same bytes and operations (for
      the streaming sweep, the tile and parent bytes of the tiles it read;
      for #8 the causal FLOPs at the tensor-core bf16 peak or the float32
@@ -208,6 +211,36 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
         sync()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, repeats: int = REPEATS) -> float:
+    """Mean device time of ``fn()`` in ms: every kernel, copy and fill it
+    launched, from the profiler's trace of ``repeats`` calls after a
+    warm-up.  An event window around one call also holds the host's time to
+    reach the launch (the wrapper's checks and allocation), which for a
+    kernel of tens of microseconds is as long as the kernel.  Falls back to
+    :func:`time_ms` if the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            sync()
+        events = prof.key_averages()
+    total_us = 0.0
+    for evt in events:
+        if evt.device_type == DeviceType.CUDA:
+            total_us += (getattr(evt, "self_device_time_total", None)
+                         or getattr(evt, "self_cuda_time_total", 0))
+    if total_us <= 0:
+        print("  (the profiler saw no device time; timing with CUDA events)", flush=True)
+        return time_ms(fn, repeats)
+    return total_us / repeats / 1e3
 
 
 def wall_ms(fn, repeats: int = REPEATS) -> float:
@@ -1443,19 +1476,21 @@ def run(args, second) -> int:
                 checks.expect(bad > 1.0, f"{name}: that limit rejects the plain version "
                                          f"{what} (worst error / limit {bad:.3g})")
         del got, want
-        ms = time_ms(kernel_fn)
-        plain_ms = time_ms(plain_fn)
-        library_ms = time_ms(library_fn) if library_fn is not None else None
+        ms = device_ms(kernel_fn)
+        window_ms = time_ms(kernel_fn)
+        plain_ms = device_ms(plain_fn)
+        library_ms = device_ms(library_fn) if library_fn is not None else None
         b_ms, b_by = bound_ms(nbytes, ops_count, peak_ops)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=library_ms,
         ))
-        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         peak = f" at {peak_ops / 1e12:g} TFLOP/s" if b_by == "operations" else ""
-        print(f"  {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, library {lib}, bound "
-              f"{b_ms:.3f} ms by {b_by}{peak}; {launches} launches on its path)", flush=True)
+        print(f"  {name}: {ms:.4f} ms on the device, {window_ms:.4f} ms in one call's event "
+              f"window (plain {plain_ms:.4f} ms, library {lib}, bound {b_ms:.4f} ms by "
+              f"{b_by}{peak}; {launches} launches on its path)", flush=True)
 
     sweep_src = "src/repro_torch/kernels/csrc/level_sweep.cu"
 
@@ -1697,6 +1732,40 @@ def run(args, second) -> int:
                 mutant=("with the first selected block left out",
                         lambda: ops.mqr_sparse_attention_torch(
                             qd, kb, vb, ids[:, 1:].contiguous(), pos)))
+
+        # Edge cases, correctness only, within the same limits: #8 at D 128,
+        # at S not a multiple of its 128-row tile and at S 64; #10 where no
+        # row can be read in 16-byte vectors (d 2050; a base one element off
+        # 16-byte alignment), at 1 and 4,097 rows.
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+        def edge(label, kernel_out, plain_out, limits):
+            worst = worst_over_limit(kernel_out, plain_out, *limits)
+            checks.expect(kernel_out.shape == plain_out.shape
+                          and kernel_out.dtype == plain_out.dtype and worst <= 1.0,
+                          f"{label}: kernel within {limits[0]} |plain| + {limits[1]} x the "
+                          f"row's RMS of the plain version (worst error / limit {worst:.3g})")
+
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            for (bh, s_len, hd), blk in (((4, 512, 128), 128), ((3, 320, 64), 64),
+                                         ((2, 200, 64), 8), ((2, 64, 64), 64)):
+                q, k, v = (torch.randn((bh, s_len, hd), generator=gen, device=dev).to(dt)
+                           for _ in range(3))
+                edge(f"flash_attention_{tag} ({bh}, {s_len}, {hd}), block_q = block_k = {blk}",
+                     ops.flash_attention(q, k, v, block_q=blk, block_k=blk),
+                     ops.flash_attention_torch(q, k, v), tol["flash_attention"][dt])
+            w = 1.0 + 0.1 * torch.randn((2050,), generator=gen, device=dev)
+            for rows in (1, 4097):
+                x = torch.randn((rows, 2050), generator=gen, device=dev).to(dt)
+                edge(f"rmsnorm_{tag} ({rows}, 2050)", ops.rmsnorm(x, w),
+                     ops.rmsnorm_torch(x, w), tol["rmsnorm"][dt])
+            rows, d = attn_out["x"].shape
+            buf = torch.randn((rows * d + 1,), generator=gen, device=dev).to(dt)
+            x = buf[1:1 + rows * d].view(rows, d)
+            w = attn_out["norm_scale"]
+            edge(f"rmsnorm_{tag} ({rows}, {d}) on a base one element off 16-byte alignment",
+                 ops.rmsnorm(x, w), ops.rmsnorm_torch(x, w), tol["rmsnorm"][dt])
 
     checks.phase("attention kernels vs plain versions", attention_kernel_phase)
 

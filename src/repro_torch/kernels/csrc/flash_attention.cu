@@ -5,71 +5,632 @@
 // broadcast to BH; scale 1/sqrt(D); online softmax in float32 with the
 // reference's finite mask value -1e30 and its running max starting there;
 // p rounded to v's type before P.V, as the reference casts it; the output
-// is acc / max(l, 1e-30) in q's type.  D is 64 or 128.
+// is acc / max(l, 1e-30) in q's type.  D is 64 or 128; any S.
 //
 // What bounds it on an H100: operations.  The causal QK^T and P.V products
 // are about 2*BH*S^2*D FLOPs against 4*BH*S*D elements of q, k, v and out.
+// At D = 64 the exponentials of the softmax (one per causal logit, on the
+// SFU's 16 a clock per SM) take about as long as the bf16 products at the
+// tensor-core peak, so the two have to overlap.
 //
 // What the design does about it:
-// * One block per (query tile of 64 rows, bh), heaviest (last) query tiles
-//   first; the block loops over 64-key tiles up to the diagonal only, with
-//   the K and V tiles staged in shared memory.  Only the diagonal tile is
-//   masked (key > query, or key past S).  Any S works: rows and keys past
-//   S are zero-filled and never stored (the wrapper keeps the reference's
-//   rule that S is a multiple of its block_q and block_k).
-// * bfloat16: the tensor cores, through mma.sync.aligned.m16n8k16 (bf16 in,
-//   float32 accumulate).  Four warps own 16 query rows each; Q stays in
-//   registers as A fragments; K and V tiles stream through two shared
-//   buffers (cp.async, the next tile in flight while one is computed) and
-//   reach the tensor cores through ldmatrix (.trans for V); the QK^T
-//   accumulators become the P fragments of P.V in registers (no round trip
-//   through shared memory); rows are padded by 16 bytes, so the 8 rows an
-//   ldmatrix reads hit distinct banks.
-// * float32: the CUDA cores in full float32 (fmaf; no TF32), so the
-//   reference's float32 tolerance holds as it is.  256 threads, each owning
-//   a 4 x 4 block of the 64 x 64 logit tile and a 4 x D/16 block of the
-//   output; Q, K, V and the logits in shared memory (padded rows).
-// Not yet: wgmma, TMA, a deeper K/V ring, warp specialisation.
+// * Both types: one block per (query tile, bh), heaviest (last) query tiles
+//   first; a block walks the key tiles up to its diagonal only, and only
+//   tiles that reach past a row are masked (key > query).  Rows and keys
+//   past S are zero-filled and never stored, so any S works (the wrapper
+//   keeps the reference's rule that S is a multiple of block_q and block_k).
+//   exp(x - m) is ex2(fmaf(s, scale*log2e, -m*log2e)) on the raw dot
+//   product s: one FFMA and one SFU instruction (ex2.approx.ftz), written
+//   out because the library is built without fast math or contraction
+//   (--fmad=false, for the sweeps) and exp2f would add a range fix-up
+//   around the SFU op.  It flushes a p below 2^-126, which no row sum can
+//   see next to the row max's exp(0) = 1.
+// * bfloat16, on the tensor cores through Hopper's wgmma (bf16 in, float32
+//   accumulate), warp-specialised.  Warpgroup 0 is the producer: one thread
+//   issues TMA loads (cp.async.bulk.tensor over a 3-D tensor map of
+//   (BH, S, D), so rows past S, or before 0, come back as zeros and never
+//   from another head) of Q once and of K and V tiles of 128 keys into a
+//   ring of stages (4 at D = 64, 2 at D = 128), each completed on an
+//   mbarrier and handed back by the consumers on another.  Consumer
+//   warpgroups own 64 query rows each: three at D = 64 (a 192-row block, so
+//   each K/V tile read from L2 feeds 192 rows), two at D = 128, whose
+//   accumulators need the registers (setmaxnreg: 24/160 and 40/232 for
+//   producer/consumers).  S = Q.K^T reads Q and K from shared memory through
+//   descriptors (128-byte swizzle, as TMA writes it; K as stored is the
+//   K-major B operand); P.V takes P from registers (the S accumulators
+//   rounded to bf16) and V as the MN-major B operand.  The consumers take
+//   turns at the tensor cores through named barriers, so one's softmax runs
+//   while another's products do, and each issues tile j's QK^T and tile
+//   j-1's P.V in one turn, before tile j's softmax.  O is rescaled only
+//   when a row of the warp has a new max (otherwise every factor is exactly
+//   1), and a masked logit's p is computed once per row.  Query tiles end
+//   at row S, so a partial tile is the lightest one, not one walking every
+//   key.
+// * float32, on the CUDA cores in full float32 (fmaf; no TF32), so the
+//   reference's float32 tolerance holds as it is.  256 threads over 64-key
+//   tiles: at D = 64 a 32 x 8 grid over 256 query rows, each thread an
+//   8 x 8 block of logits and of the output in registers (16 FMAs per
+//   16-byte shared read); at D = 128 a 16 x 16 grid over 64 rows, 4 x 4
+//   logits and 4 x 8 outputs.  Q and K are kept transposed in shared
+//   memory, (D, rows) and (D, keys), so QK^T reads them 16 bytes at a time;
+//   V is read 16 bytes along D.  K and V tiles are double-buffered with
+//   cp.async (K transposed by 4-byte copies, V by 16-byte ones), one
+//   barrier per tile.  A row's max and sum stay in registers (shuffles
+//   across the threads of the row, all in one warp); p goes through a
+//   slice of shared memory private to each warp, so it needs only
+//   __syncwarp.
+// Not yet: a persistent grid with a tile scheduler (the block start-up and
+// the last wave are not overlapped), TMA stores of the output, skipping the
+// key tiles that are wholly masked for one warpgroup, fp8, and the backward
+// pass (the reference has none).
 #include "common.cuh"
+
+#include <type_traits>
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 
 namespace {
 
-constexpr int BM = 64;  // query rows per block
-constexpr int BN = 64;  // keys per kv tile
-
-__device__ __forceinline__ int kv_tiles(int q0, int s) {
-  const int diag = (q0 + BM - 1) / BN + 1;
-  const int all = (s + BN - 1) / BN;
-  return diag < all ? diag : all;
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 on the tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int TC_WARPS = 4;  // 16 query rows each
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// 16 bytes global -> shared without a register round trip; zero-filled
-// when !valid (a source size of 0 reads nothing).
+// Two floats rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 2^x on the SFU, one instruction.  Flushing a result below 2^-126 to zero
+// changes nothing that a row sum can see: the row max contributes exp(0) = 1.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp(x - m) for a logit x = s * scale that the mask left alone: s is the
+// raw dot product, c = scale * log2e and ml = m * log2e.
+__device__ __forceinline__ float exp_logit(float s, float c, float ml) {
+  return ex2(__fmaf_rn(s, c, -ml));
+}
+
+// exp(-1e30 - m) for a masked logit, as the reference computes it (1 while
+// every logit of the row so far was masked, else 0).
+__device__ __forceinline__ float exp_masked(float m) { return exp2f((REPRO_NEG - m) * LOG2E); }
+
+// ---------------------------------------------------------------------------
+// Hopper primitives: mbarriers, TMA, wgmma, named barriers, setmaxnreg
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One box of a 3-D tensor map (coordinates innermost first, any of them
+// out of range: those elements read as zeros) into shared memory; its
+// bytes count towards the barrier's expected transaction count.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma owns across the wait that completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of a wgmma operand stored in 128-byte
+// swizzled rows, as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B: the
+// stride between 8-row groups (1,024 bytes) in `sbo`, the 128-byte swizzle
+// mode in bits 62-63.  The leading-byte offset is not read for these
+// operands (K-major, or MN-major no wider than one 64-element swizzle row),
+// so it is left at 16 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  constexpr uint64_t lbo = 16 >> 4, sbo = 1024 >> 4;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 128, f32) = d * accumulate + A (64 x 16, shared, K-major) . B (128 x 16, shared,
+// K-major)^T.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores: a TMA producer and wgmma consumer warpgroups
+// ---------------------------------------------------------------------------
+
+namespace hop {
+
+constexpr int BN = 128;         // keys per K/V tile
+constexpr int ROW_BYTES = 128;  // one swizzled row of a 64-column slab
+constexpr int BAR_TURN = 1;     // named barriers 1..NWG: the consumers' turns (0 is __syncthreads)
+
+template <int D>
+struct Cfg {
+  // Consumer warpgroups of 64 query rows each: three at D = 64 (each K/V
+  // tile read from L2 feeds 192 rows), two at D = 128, whose accumulators
+  // need the registers.  Warpgroup 0 is the producer.
+  static constexpr int NWG = D == 64 ? 3 : 2;
+  static constexpr int BM = 64 * NWG;  // query rows per block
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int REG_LOAD = NWG == 3 ? 24 : 40;    // setmaxnreg: 65,536 registers in all
+  static constexpr int REG_MMA = NWG == 3 ? 160 : 232;
+  static constexpr int SLABS = D / 64;  // 64-column slabs of a tile: a 128-byte swizzle row each
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int Q_SLAB = BM * ROW_BYTES;
+  static constexpr int KV_SLAB = BN * ROW_BYTES;
+  static constexpr int Q_BYTES = SLABS * Q_SLAB;
+  static constexpr int KV_BYTES = SLABS * KV_SLAB;  // one K or V tile
+  // 1,024 bytes of slack to align the tiles, Q, the K and V rings, then the
+  // mbarriers: Q, and K full, V full and empty per stage.
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 3 * STAGES);
+};
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+    flash_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int nbh,
+               int s, float scale) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sK = sQ + C::Q_BYTES;
+  const uint32_t sV = sK + C::STAGES * C::KV_BYTES;
+  const uint32_t bQ = sV + C::STAGES * C::KV_BYTES;
+  const uint32_t bK = bQ + 8, bV = bK + 8 * C::STAGES, bE = bV + 8 * C::STAGES;
+  constexpr int BM = C::BM, NWG = C::NWG;
+  // Query tiles end at row S, heaviest (last) first: only the lightest one
+  // starts before row 0 (TMA fills those rows with zeros; they are never
+  // stored), so a partial tile costs one key tile, not a diagonal's worth.
+  const int q0 = s - ((int)blockIdx.x / nbh + 1) * BM;
+  const int bh = (int)blockIdx.x % nbh;
+  const int n_kv = min((q0 + BM - 1) / BN + 1, (s + BN - 1) / BN);  // up to the diagonal
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bQ, 1);
+    for (int i = 0; i < C::STAGES; ++i) {
+      mbar_init(bK + 8 * i, 1);
+      mbar_init(bV + 8 * i, 1);
+      mbar_init(bE + 8 * i, 4 * NWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // producer: one thread issues every load
+    setmaxnreg_dec<C::REG_LOAD>();
+    if (tid == 0) {
+      mbar_expect_tx(bQ, C::Q_BYTES);
+      for (int g = 0; g < C::SLABS; ++g) tma_load_3d(sQ + g * C::Q_SLAB, &tq, bQ, g * 64, q0, bh);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % C::STAGES;
+        mbar_wait(bE + 8 * st, ((j / C::STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(bK + 8 * st, C::KV_BYTES);
+        for (int g = 0; g < C::SLABS; ++g)
+          tma_load_3d(sK + st * C::KV_BYTES + g * C::KV_SLAB, &tk, bK + 8 * st, g * 64, j * BN,
+                      bh);
+        mbar_expect_tx(bV + 8 * st, C::KV_BYTES);
+        for (int g = 0; g < C::SLABS; ++g)
+          tma_load_3d(sV + st * C::KV_BYTES + g * C::KV_SLAB, &tv, bV + 8 * st, g * 64, j * BN,
+                      bh);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns query rows q0 + 64w .. + 63
+  setmaxnreg_inc<C::REG_MMA>();
+  const int w = tid / 128 - 1;
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int row0 = q0 + 64 * w + 16 * warp + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const float c = scale * LOG2E;
+  float o[C::SLABS][32];
+#pragma unroll
+  for (int g = 0; g < C::SLABS; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[g][i] = 0.0f;
+  float sacc[BN / 2];       // S: chunk n of 8 keys in sacc[4n..4n+3] (rows row0, row0 + 8)
+  uint32_t pf[BN / 16][4];  // P as the bf16 A fragments of the 16-key steps of P.V
+  float m0 = REPRO_NEG, m1 = REPRO_NEG, l0 = 0.0f, l1 = 0.0f, a0 = 1.0f, a1 = 1.0f;
+  const uint32_t qa = sQ + 64 * w * ROW_BYTES;
+
+  // S = Q.K^T for the tile in stage `st`, 16 columns of D a step
+  auto issue_s = [&](int st) {
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss_n128(sacc, desc_sw128(qa + (ks / 4) * C::Q_SLAB + (ks % 4) * 32),
+                    desc_sw128(sK + st * C::KV_BYTES + (ks / 4) * C::KV_SLAB + (ks % 4) * 32),
+                    ks > 0);
+  };
+  // O += P.V for the tile in stage `st`: V (keys, D) is the MN-major B operand
+  auto issue_pv = [&](int st) {
+    const uint32_t vb = sV + st * C::KV_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+      for (int g = 0; g < C::SLABS; ++g)
+        wgmma_rs_n64(o[g], pf[kk], desc_sw128(vb + g * C::KV_SLAB + kk * 16 * ROW_BYTES));
+  };
+  // Online softmax of tile j in sacc: rows row0 (entries with bit 1 of the
+  // index clear) and row0 + 8; the 4 lanes of a quad share the rows.  Leaves
+  // p in sacc, the new max in m, the rescale factors in a0, a1, and the sums
+  // in l.  Only tiles that reach past the warpgroup's first row (DIAG) are
+  // masked.
+  auto softmax = [&](auto diag_tag, int j) {
+    constexpr bool DIAG = decltype(diag_tag)::value;
+    if constexpr (DIAG) {
+      const int k0 = j * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int col = k0 + (i >> 2) * 8 + 2 * (lane & 3) + (i & 1);
+        if (col > row0 + ((i >> 1) & 1) * 8) sacc[i] = -INFINITY;  // masked: -1e30 below
+      }
+    }
+    // four partial maxima (and sums) per row: short dependency chains, so
+    // one warpgroup's softmax ends soon after its QK^T does
+    float t0[4], t1[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      t0[n] = fmaxf(sacc[4 * n], sacc[4 * n + 1]);
+      t1[n] = fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]);
+    }
+#pragma unroll
+    for (int n = 4; n < BN / 8; ++n) {
+      t0[n % 4] = fmaxf(t0[n % 4], fmaxf(sacc[4 * n], sacc[4 * n + 1]));
+      t1[n % 4] = fmaxf(t1[n % 4], fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]));
+    }
+    float mx0 = fmaxf(fmaxf(t0[0], t0[1]), fmaxf(t0[2], t0[3]));
+    float mx1 = fmaxf(fmaxf(t1[0], t1[1]), fmaxf(t1[2], t1[3]));
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    // the running max of the logits s * scale (rounding is monotonic, so
+    // max(s) * scale is the max of the rounded logits)
+    const float mn0 = fmaxf(m0, mx0 * scale), mn1 = fmaxf(m1, mx1 * scale);
+    const float ml0 = mn0 * LOG2E, ml1 = mn1 * LOG2E;
+    a0 = exp2f((m0 - mn0) * LOG2E);
+    a1 = exp2f((m1 - mn1) * LOG2E);
+    m0 = mn0;
+    m1 = mn1;
+    const float pm0 = exp_masked(mn0), pm1 = exp_masked(mn1);  // a masked logit's p
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const bool hi = (i >> 1) & 1;
+      float p = exp_logit(sacc[i], c, hi ? ml1 : ml0);
+      if constexpr (DIAG) {
+        if (sacc[i] == -INFINITY) p = hi ? pm1 : pm0;
+      }
+      sacc[i] = p;
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      t0[n] = sacc[4 * n] + sacc[4 * n + 1];
+      t1[n] = sacc[4 * n + 2] + sacc[4 * n + 3];
+    }
+#pragma unroll
+    for (int n = 4; n < BN / 8; ++n) {
+      t0[n % 4] += sacc[4 * n] + sacc[4 * n + 1];
+      t1[n % 4] += sacc[4 * n + 2] + sacc[4 * n + 3];
+    }
+    float ps0 = (t0[0] + t0[1]) + (t0[2] + t0[3]);
+    float ps1 = (t1[0] + t1[1]) + (t1[2] + t1[3]);
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, x);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, x);
+    }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+  };
+  auto softmax_tile = [&](int j) {
+    if (j * BN + BN - 1 > q0 + 64 * w) {
+      softmax(std::true_type{}, j);
+    } else {
+      softmax(std::false_type{}, j);
+    }
+  };
+  // Pin every register a wgmma will own before its fence, so the compiler
+  // cannot sink the rescale of O or the packing of P past it.
+  auto fence_operands = [&]() {
+#pragma unroll
+    for (int g = 0; g < C::SLABS; ++g) fence_regs(o[g]);
+    fence_regs(pf);
+    fence_regs(sacc);
+  };
+  auto pack_p = [&]() {  // 8-key chunks 2kk and 2kk + 1 make one A fragment
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pf[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+      pf[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+      pf[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+      pf[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+    }
+  };
+
+  mbar_wait(bQ, 0);
+  // The warpgroups take turns in order, each handing the next its turn;
+  // the last one hands warpgroup 0 the first turn, and keeps its final one.
+  // Each walks every key tile of the block; the tiles past its own rows are
+  // wholly masked for it.
+  const int next = BAR_TURN + (w + 1) % NWG;
+  if (w == NWG - 1) named_arrive(BAR_TURN);
+  // tile 0: its QK^T alone
+  mbar_wait(bK, 0);
+  named_sync(BAR_TURN + w);  // this warpgroup's turn at the tensor cores
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  named_arrive(next);  // the next warpgroup's turn
+  wgmma_wait<0>();
+  fence_regs(sacc);
+  softmax_tile(0);
+  pack_p();
+  // tile j's QK^T and tile j-1's P.V issued in one turn; tile j's softmax
+  // runs while the P.V (and the other warpgroups' products) do
+  for (int j = 1; j < n_kv; ++j) {
+    const int st = j % C::STAGES, pst = (j - 1) % C::STAGES;
+    mbar_wait(bK + 8 * st, (j / C::STAGES) & 1);
+    named_sync(BAR_TURN + w);
+    fence_operands();
+    wgmma_fence();
+    issue_s(st);
+    wgmma_commit();
+    mbar_wait(bV + 8 * pst, ((j - 1) / C::STAGES) & 1);
+    issue_pv(pst);
+    wgmma_commit();
+    named_arrive(next);
+    wgmma_wait<1>();
+    fence_regs(sacc);
+    softmax_tile(j);
+    wgmma_wait<0>();  // the previous P.V is done: O, P and its stage are free
+#pragma unroll
+    for (int g = 0; g < C::SLABS; ++g) fence_regs(o[g]);
+    fence_regs(pf);
+    if (lane == 0) mbar_arrive(bE + 8 * pst);
+    // Rescale O only if a row of the warp has a new max: otherwise every
+    // factor is exactly 1, and after the first tiles most are.
+    if (__any_sync(0xffffffffu, a0 != 1.0f || a1 != 1.0f)) {
+#pragma unroll
+      for (int g = 0; g < C::SLABS; ++g)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[g][i] *= ((i >> 1) & 1) ? a1 : a0;
+    }
+    pack_p();
+  }
+  // the last tile's P.V, in a final turn each
+  named_sync(BAR_TURN + w);
+  {
+    const int st = (n_kv - 1) % C::STAGES;
+    mbar_wait(bV + 8 * st, ((n_kv - 1) / C::STAGES) & 1);
+    fence_operands();
+    wgmma_fence();
+    issue_pv(st);
+    wgmma_commit();
+  }
+  if (w != NWG - 1) named_arrive(next);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int g = 0; g < C::SLABS; ++g) fence_regs(o[g]);
+
+  const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = out + (long long)bh * s * D;
+#pragma unroll
+  for (int g = 0; g < C::SLABS; ++g)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = g * 64 + n * 8 + 2 * (lane & 3);
+      if (row0 >= 0 && row0 < s)
+        *reinterpret_cast<uint32_t*>(ob + (long long)row0 * D + col) =
+            pack_bf16(o[g][4 * n] / L0, o[g][4 * n + 1] / L0);
+      if (row0 + 8 >= 0 && row0 + 8 < s)
+        *reinterpret_cast<uint32_t*>(ob + (long long)(row0 + 8) * D + col) =
+            pack_bf16(o[g][4 * n + 2] / L1, o[g][4 * n + 3] / L1);
+    }
+}
+
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime so
+// that the library links against nothing but cudart.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 3-D map over (bh, s, d) bf16, read in boxes of 64 columns x `rows` rows
+// of one head, 128-byte swizzled; rows past s read as zeros.
+int make_map(CUtensorMap* map, const void* base, long long bh, int s, int d, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, long long bh, int s,
+           float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  const long long blocks = (long long)((s + C::BM - 1) / C::BM) * bh;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int rc = make_map(&mq, q, bh, s, D, C::BM);
+  if (rc == 0) rc = make_map(&mk, k, bh, s, D, BN);
+  if (rc == 0) rc = make_map(&mv, v, bh, s, D, BN);
+  if (rc != 0) return rc;
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  flash_bf16<D><<<(unsigned int)blocks, C::THREADS, C::SMEM, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, (int)bh, s, scale);
+  REPRO_LAUNCH_CHECK();
+  return 0;
+}
+
+}  // namespace hop
+
+// ---------------------------------------------------------------------------
+// float32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace fp32 {
+
+constexpr int BN = 64;        // keys per K/V tile
+constexpr int THREADS = 256;  // TY x TX: ty = tid / TX picks rows, tx = tid % TX keys and columns
+constexpr int LDK = BN + 4;   // K^T and p rows, padded: the transposed 4-byte copies hit
+constexpr int LDP = BN + 4;   // distinct banks; a multiple of 4 for 16-byte reads
+
+// Thread i of a row group owns rows 4 TY g + 4 ty + (0..3), keys 4 TX h +
+// 4 tx + (0..3) and output columns 4 TX h + 4 tx + (0..3), so every shared
+// read is 16 bytes and a row's keys lie in the TX lanes of one warp.
+template <int D>
+struct Cfg {
+  static constexpr int TX = D == 64 ? 8 : 16;  // threads across the keys and the columns
+  static constexpr int TY = THREADS / TX;      // threads across the rows
+  static constexpr int RM = D == 64 ? 8 : 4;   // rows per thread
+  static constexpr int BM = TY * RM;           // query rows per block: 256 or 64
+  static constexpr int KPT = BN / TX;          // keys per thread: 8 or 4
+  static constexpr int CPT = D / TX;           // output columns per thread: 8
+  // Q^T (D, BM); two K^T tiles (D, LDK); two V tiles (BN, D); p (BM, LDP)
+  static constexpr int SMEM = (D * BM + 2 * D * LDK + 2 * BN * D + BM * LDP) * 4;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (a source size of 0
+// reads nothing).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
@@ -80,363 +641,209 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 4 n floats from 16-byte reads at p, p + stride, ...
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 and receives row l / 4, columns 2(l % 4), +1 of
-// each (transposed with .trans): the mma fragment layout.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int D>
-__global__ void __launch_bounds__(TC_WARPS * 32)
-    flash_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-               long long nbh, int s, float scale) {
-  constexpr int LD = D + 8;       // padded shared row, in elements (16 bytes of pad)
-  constexpr int TILE = BN * LD;  // elements of one staged K or V tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // two tiles
-  __nv_bfloat16* sV = sK + 2 * TILE;                                // two tiles
-  const long long n_qt = gridDim.x / nbh;
-  const int qt = (int)(n_qt - 1 - blockIdx.x / nbh);
-  const long long bh = blockIdx.x % nbh;
-  const int q0 = qt * BM;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;
-  const long long off = bh * (long long)s * D;
-  const __nv_bfloat16* qb = q + off;
-  const __nv_bfloat16* kb = k + off;
-  const __nv_bfloat16* vb = v + off;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-
-  uint32_t qf[D / 16][4];
+__device__ __forceinline__ void ld_f4(float (&r)[N], const float* p, int stride) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int c = ks * 16 + tg * 2;
-    qf[ks][0] = r0 < s ? ld32(qb + (long long)r0 * D + c) : 0u;
-    qf[ks][1] = r1 < s ? ld32(qb + (long long)r1 * D + c) : 0u;
-    qf[ks][2] = r0 < s ? ld32(qb + (long long)r0 * D + c + 8) : 0u;
-    qf[ks][3] = r1 < s ? ld32(qb + (long long)r1 * D + c + 8) : 0u;
-  }
-  float o[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
-  float m0 = REPRO_NEG, m1 = REPRO_NEG, l0 = 0.0f, l1 = 0.0f;  // rows r0, r1
-
-  // K and V tiles stream through two shared buffers: tile kt + 1 is in
-  // flight (cp.async) while tile kt is computed.
-  auto stage = [&](int kt, int buf) {
-    const int k0 = kt * BN;
-    for (int i = tid; i < BN * D / 8; i += TC_WARPS * 32) {
-      const int row = i / (D / 8), cv = (i % (D / 8)) * 8;
-      const bool valid = k0 + row < s;
-      const long long src = (long long)(valid ? k0 + row : 0) * D + cv;
-      cp_async16(sK + buf * TILE + row * LD + cv, kb + src, valid);
-      cp_async16(sV + buf * TILE + row * LD + cv, vb + src, valid);
-    }
-    cp_async_commit();
-  };
-  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix: row within, and which matrix
-  const int nt_kv = kv_tiles(q0, s);
-  stage(0, 0);
-  for (int kt = 0; kt < nt_kv; ++kt) {
-    const int k0 = kt * BN;
-    const int buf = kt & 1;
-    if (kt + 1 < nt_kv) {
-      stage(kt + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* tK = sK + buf * TILE;
-    const __nv_bfloat16* tV = sV + buf * TILE;
-
-    float sc[BN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ks += 2) {
-        // the B fragments of k-steps ks and ks + 1: K rows nt*8.., columns ks*16 + 8 * lm
-        uint32_t b[4];
-        ldmatrix_x4(b, tK + (nt * 8 + lr) * LD + ks * 16 + lm * 8);
-        mma_bf16(sc[nt], qf[ks], b[0], b[1]);
-        mma_bf16(sc[nt], qf[ks + 1], b[2], b[3]);
-      }
-    }
-    const bool diag = k0 + BN > q0;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? r0 : r1;
-        const int col = k0 + nt * 8 + tg * 2 + (e & 1);
-        float x = sc[nt][e] * scale;
-        if (diag && (col > row || col >= s)) x = REPRO_NEG;
-        sc[nt][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(sc[nt][0], sc[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[nt][2], sc[nt][3]));
-    }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {  // the 4 lanes of a quad share rows
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-    float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-      sc[nt][0] = expf(sc[nt][0] - mn0);
-      sc[nt][1] = expf(sc[nt][1] - mn0);
-      sc[nt][2] = expf(sc[nt][2] - mn1);
-      sc[nt][3] = expf(sc[nt][3] - mn1);
-      ps0 += sc[nt][0] + sc[nt][1];
-      ps1 += sc[nt][2] + sc[nt][3];
-    }
-#pragma unroll
-    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
-      ps0 += __shfl_xor_sync(0xffffffffu, ps0, o_);
-      ps1 += __shfl_xor_sync(0xffffffffu, ps1, o_);
-    }
-    l0 = l0 * a0 + ps0;
-    l1 = l1 * a1 + ps1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= a0;
-      o[dt][1] *= a0;
-      o[dt][2] *= a1;
-      o[dt][3] *= a1;
-    }
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      // the C fragments of logit tiles 2kc, 2kc+1 are the A fragment of P
-      const uint32_t pa[4] = {pack_bf16(sc[2 * kc][0], sc[2 * kc][1]),
-                              pack_bf16(sc[2 * kc][2], sc[2 * kc][3]),
-                              pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]),
-                              pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        // the B fragments (V^T, via .trans) of output columns dt*8.. and (dt+1)*8..
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, tV + (kc * 16 + (lm & 1) * 8 + lr) * LD + (dt + (lm >> 1)) * 8);
-        mma_bf16(o[dt], pa, b[0], b[1]);
-        mma_bf16(o[dt + 1], pa, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this buffer is restaged two tiles on
-  }
-  const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = out + off;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + tg * 2;
-    if (r0 < s)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r0 * D + c) =
-          pack_bf16(o[dt][0] / L0, o[dt][1] / L0);
-    if (r1 < s)
-      *reinterpret_cast<uint32_t*>(ob + (long long)r1 * D + c) =
-          pack_bf16(o[dt][2] / L1, o[dt][3] / L1);
+  for (int h = 0; h < N / 4; ++h) {
+    const float4 t = *reinterpret_cast<const float4*>(p + h * stride);
+    r[4 * h] = t.x;
+    r[4 * h + 1] = t.y;
+    r[4 * h + 2] = t.z;
+    r[4 * h + 3] = t.w;
   }
 }
 
-// ---------------------------------------------------------------------------
-// float32 on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int F_THREADS = 256;  // 16 x 16
-
 template <int D>
-constexpr size_t f32_smem_floats() {
-  return (size_t)BM * (D + 1) + (size_t)BN * (D + 1) + (size_t)BN * D + (size_t)BM * (BN + 1) +
-         3 * BM;
-}
-
-template <int D>
-__global__ void __launch_bounds__(F_THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, long long nbh, int s,
               float scale) {
-  constexpr int LQ = D + 1, LK = D + 1, LS = BN + 1;  // padded rows: no bank conflicts
-  extern __shared__ float sm[];
-  float* sQ = sm;               // BM x LQ
-  float* sK = sQ + BM * LQ;     // BN x LK
-  float* sV = sK + BN * LK;     // BN x D
-  float* sS = sV + BN * D;      // BM x LS: logits, then p
-  float* sM = sS + BM * LS;     // running max per row
-  float* sL = sM + BM;          // running sum per row
-  float* sA = sL + BM;          // this tile's alpha per row
+  using C = Cfg<D>;
+  constexpr int BM = C::BM, RM = C::RM, TX = C::TX, TY = C::TY, KPT = C::KPT, CPT = C::CPT;
+  extern __shared__ __align__(16) float sm[];
+  float* sQ = sm;                // (D, BM): Q transposed
+  float* sK = sQ + D * BM;       // two (D, LDK): K tiles transposed
+  float* sV = sK + 2 * D * LDK;  // two (BN, D)
+  float* sP = sV + 2 * BN * D;   // (BM, LDP): each warp reads back only its own rows
   const long long n_qt = gridDim.x / nbh;
   const int qt = (int)(n_qt - 1 - blockIdx.x / nbh);
   const long long bh = blockIdx.x % nbh;
   const int q0 = qt * BM;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const long long off = bh * (long long)s * D;
   const float* qb = q + off;
   const float* kb = k + off;
   const float* vb = v + off;
+  auto row_of = [&](int i) { return (i / 4) * 4 * TY + ty * 4 + (i % 4); };  // within the block
+  auto key_of = [&](int j) { return (j / 4) * 4 * TX + tx * 4 + (j % 4); };  // within the tile
 
-  for (int i = tid; i < BM * D; i += F_THREADS) {
-    const int row = i / D, c = i % D;
-    sQ[row * LQ + c] = q0 + row < s ? qb[(long long)(q0 + row) * D + c] : 0.0f;
+  for (int i = tid; i < BM * D / 4; i += THREADS) {  // Q^T: 16-byte reads along D
+    const int row = i % BM, c4 = (i / BM) * 4;
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (q0 + row < s) x = *reinterpret_cast<const float4*>(qb + (long long)(q0 + row) * D + c4);
+    sQ[(c4 + 0) * BM + row] = x.x;
+    sQ[(c4 + 1) * BM + row] = x.y;
+    sQ[(c4 + 2) * BM + row] = x.z;
+    sQ[(c4 + 3) * BM + row] = x.w;
   }
-  for (int i = tid; i < BM; i += F_THREADS) {
-    sM[i] = REPRO_NEG;
-    sL[i] = 0.0f;
-  }
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.0f;
-
-  const int nt_kv = kv_tiles(q0, s);
-  for (int kt = 0; kt < nt_kv; ++kt) {
+  auto stage = [&](int kt, int buf) {
     const int k0 = kt * BN;
-    for (int i = tid; i < BN * D; i += F_THREADS) {
-      const int row = i / D, c = i % D;
-      const bool in = k0 + row < s;
-      sK[row * LK + c] = in ? kb[(long long)(k0 + row) * D + c] : 0.0f;
-      sV[row * D + c] = in ? vb[(long long)(k0 + row) * D + c] : 0.0f;
+    float* tK = sK + buf * D * LDK;
+    float* tV = sV + buf * BN * D;
+    // K^T: a warp copies 4 keys x 8 columns a step (32-byte runs of global
+    // memory; 32 distinct banks)
+    for (int i = tid; i < BN * D; i += THREADS) {
+      const int rest = i >> 5;
+      const int key = (rest % (BN / 4)) * 4 + ((i >> 3) & 3);
+      const int col = (rest / (BN / 4)) * 8 + (i & 7);
+      const bool valid = k0 + key < s;
+      cp_async4(tK + col * LDK + key, kb + (long long)(valid ? k0 + key : 0) * D + col, valid);
     }
-    __syncthreads();
+    for (int i = tid; i < BN * D / 4; i += THREADS) {
+      const int key = i / (D / 4), c4 = (i % (D / 4)) * 4;
+      const bool valid = k0 + key < s;
+      cp_async16(tV + key * D + c4, vb + (long long)(valid ? k0 + key : 0) * D + c4, valid);
+    }
+    cp_async_commit();
+  };
 
-    float st[4][4];
+  float acc[RM][CPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = 0.0f;
-#pragma unroll 8
+    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.0f;
+  float m[RM], l[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = REPRO_NEG;
+    l[i] = 0.0f;
+  }
+  const float c = scale * LOG2E;
+  const int n_kv = min((q0 + BM - 1) / BN + 1, (s + BN - 1) / BN);
+  stage(0, 0);
+  for (int kt = 0; kt < n_kv; ++kt) {
+    const int buf = kt & 1, k0 = kt * BN;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt is in, and every thread is done with the other buffer
+    if (kt + 1 < n_kv) stage(kt + 1, buf ^ 1);
+    const float* tK = sK + buf * D * LDK;
+    const float* tV = sV + buf * BN * D;
+
+    float sc[RM][KPT];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) sc[i][j] = 0.0f;
+#pragma unroll 2
     for (int dd = 0; dd < D; ++dd) {
-      float a[4], b[4];
+      float kv[KPT], qv[RM];
+      ld_f4(kv, tK + dd * LDK + tx * 4, 4 * TX);
+      ld_f4(qv, sQ + dd * BM + ty * 4, 4 * TY);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * LQ + dd];
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sK[(tx + 16 * j) * LK + dd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) st[i][j] = fmaf(a[i], b[j], st[i][j]);
+        for (int j = 0; j < KPT; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
     }
-    const bool diag = k0 + BN > q0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + ty + 16 * i, col = k0 + tx + 16 * j;
-        float x = st[i][j] * scale;
-        if (diag && (col > row || col >= s)) x = REPRO_NEG;
-        sS[(ty + 16 * i) * LS + tx + 16 * j] = x;
-      }
-    __syncthreads();
 
-    {  // online softmax statistics: 4 neighbouring lanes per row
-      const int row = tid >> 2, sub = tid & 3;
-      float* srow = sS + row * LS + sub * (BN / 4);
-      float mx = -INFINITY;
-      for (int c = 0; c < BN / 4; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = sM[row];
-      const float m_new = fmaxf(m_old, mx);
+    // softmax: a row is spread over the TX lanes of its warp that share ty
+    const bool diag = k0 + BN - 1 > q0;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      if (diag) {
+#pragma unroll
+        for (int j = 0; j < KPT; ++j)
+          if (k0 + key_of(j) > q0 + row_of(i)) sc[i][j] = -INFINITY;  // masked: -1e30 below
+      }
+      float mx = sc[i][0];
+#pragma unroll
+      for (int j = 1; j < KPT; ++j) mx = fmaxf(mx, sc[i][j]);
+#pragma unroll
+      for (int x = 1; x < TX; x <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      const float mn = fmaxf(m[i], mx * scale);
+      const float ml = mn * LOG2E;
+      const float alpha = exp2f((m[i] - mn) * LOG2E);
+      const float pm = diag ? exp_masked(mn) : 0.0f;  // a masked logit's p
       float ps = 0.0f;
-      for (int c = 0; c < BN / 4; ++c) {
-        const float p = expf(srow[c] - m_new);
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        float p = exp_logit(sc[i][j], c, ml);
+        if (diag && sc[i][j] == -INFINITY) p = pm;
+        sc[i][j] = p;  // float32 p: the cast to v's type is the identity
         ps += p;
-        srow[c] = p;  // float32 p: the cast to v's type is the identity
       }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      __syncwarp();
-      if (sub == 0) {
-        const float alpha = expf(m_old - m_new);
-        sA[row] = alpha;
-        sL[row] = sL[row] * alpha + ps;
-        sM[row] = m_new;
-      }
+#pragma unroll
+      for (int x = 1; x < TX; x <<= 1) ps += __shfl_xor_sync(0xffffffffu, ps, x);
+      l[i] = l[i] * alpha + ps;
+      m[i] = mn;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) acc[i][j] *= alpha;
+#pragma unroll
+      for (int h = 0; h < KPT / 4; ++h)
+        *reinterpret_cast<float4*>(sP + row_of(i) * LDP + 4 * TX * h + tx * 4) =
+            make_float4(sc[i][4 * h], sc[i][4 * h + 1], sc[i][4 * h + 2], sc[i][4 * h + 3]);
     }
-    __syncthreads();
+    __syncwarp();  // a warp reads back only the p rows it wrote
 
+#pragma unroll 1
+    for (int c4 = 0; c4 < BN; c4 += 4) {
+      float4 pv[RM];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = sA[ty + 16 * i];
+      for (int i = 0; i < RM; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(sP + row_of(i) * LDP + c4);
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] *= alpha;
+      for (int cc = 0; cc < 4; ++cc) {
+        float vv[CPT];
+        ld_f4(vv, tV + (c4 + cc) * D + tx * 4, 4 * TX);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+        }
+      }
     }
-#pragma unroll 4
-    for (int c = 0; c < BN; ++c) {
-      float p[4], vv[D / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sS[(ty + 16 * i) * LS + c];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) vv[j] = sV[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();  // every tile array is rewritten by the next tile
   }
   float* ob = out + off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    if (q0 + row >= s) continue;
-    const float L = fmaxf(sL[row], 1e-30f);
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + row_of(i);
+    if (row >= s) continue;
+    const float L = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j) ob[(long long)(q0 + row) * D + tx + 16 * j] = acc[i][j] / L;
+    for (int h = 0; h < CPT / 4; ++h)
+      *reinterpret_cast<float4*>(ob + (long long)row * D + 4 * TX * h + tx * 4) =
+          make_float4(acc[i][4 * h] / L, acc[i][4 * h + 1] / L, acc[i][4 * h + 2] / L,
+                      acc[i][4 * h + 3] / L);
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, long long bh, int s,
-           int dtype, float scale, cudaStream_t stream) {
-  const long long blocks = (long long)((s + BM - 1) / BM) * bh;
+           float scale, cudaStream_t stream) {
+  const long long blocks = (long long)((s + Cfg<D>::BM - 1) / Cfg<D>::BM) * bh;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (dtype == REPRO_BF16) {
-    const int smem = 4 * BN * (D + 8) * (int)sizeof(__nv_bfloat16);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_bf16<D><<<(unsigned int)blocks, TC_WARPS * 32, smem, stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-        (__nv_bfloat16*)out, bh, s, scale);
-  } else if (dtype == REPRO_F32) {
-    const int smem = (int)(f32_smem_floats<D>() * sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_f32<D><<<(unsigned int)blocks, F_THREADS, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)out, bh, s, scale);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  cudaError_t err = cudaFuncSetAttribute(flash_f32<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  flash_f32<D><<<(unsigned int)blocks, THREADS, Cfg<D>::SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, bh, s, scale);
   REPRO_LAUNCH_CHECK();
   return 0;
+}
+
+}  // namespace fp32
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, long long bh, int s,
+           int dtype, float scale, cudaStream_t stream) {
+  if (dtype == REPRO_BF16) return hop::launch<D>(q, k, v, out, bh, s, scale, stream);
+  if (dtype == REPRO_F32) return fp32::launch<D>(q, k, v, out, bh, s, scale, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -445,7 +852,7 @@ extern "C" {
 
 // q, k, v, out: (bh, s, d), contiguous and 16-byte aligned, of dtype code
 // REPRO_F32 or REPRO_BF16; d is 64 or 128.  Returns 0 or the CUDA error of
-// the launch.
+// the launch (cudaErrorNotSupported if the driver has no tensor-map encoder).
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                           long long bh, int s, int d, int dtype, float scale, void* stream) {
   if (bh == 0 || s == 0) return 0;

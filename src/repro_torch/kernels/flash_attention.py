@@ -7,9 +7,18 @@ tensor it runs :func:`flash_attention_torch`, the counterpart of
 
 ``block_q`` and ``block_k`` keep the reference's signature and its rule
 that S is a multiple of both (a ``ValueError`` here, an assert there); the
-kernel's own tiles are fixed at 64 query rows by 64 keys and need no such
-rule.  bfloat16 runs on the tensor cores (``mma.sync`` m16n8k16, float32
-accumulate); float32 runs on the CUDA cores in full float32, not TF32.
+kernel's own tiles are fixed and need no such rule: rows and keys past S
+are zero-filled and never stored.
+
+bfloat16 runs on Hopper's tensor cores: a producer warpgroup loads Q once
+and K/V tiles of 128 keys into a ring of shared-memory stages with TMA
+(``cp.async.bulk.tensor`` over a 3-D tensor map of (BH, S, D), completed on
+mbarriers), and two or three consumer warpgroups of 64 query rows each run
+``wgmma`` (bf16 in, float32 accumulate; P from registers), taking turns so
+that one's softmax overlaps another's products.  float32 runs on the CUDA
+cores in full float32 (no TF32): 8 x 8 register tiles of logits and
+outputs per thread (4 x 8 at D = 128), Q and K transposed in shared memory
+for 16-byte reads, K/V tiles double-buffered with ``cp.async``.
 """
 
 from __future__ import annotations

@@ -3,6 +3,14 @@
 Counterpart of ``repro.kernels.rmsnorm``.  On a CUDA tensor :func:`rmsnorm`
 launches ``csrc/rmsnorm.cu``; on a CPU tensor it runs :func:`rmsnorm_torch`,
 the counterpart of ``repro.kernels.ref.rmsnorm_ref``.
+
+The kernel reads each row once into registers with 16-byte loads, reduces
+its sum of squares with shuffles and writes the output from the registers
+with 16-byte stores; a persistent grid walks the rows, each block holding
+its share of ``scale`` in registers.  A row that cannot be read in 16-byte
+vectors (D not a multiple of 4 floats or 8 bfloat16, or a base off 16-byte
+alignment, which a contiguous view may have) takes a scalar path, so x
+needs no alignment.
 """
 
 from __future__ import annotations

@@ -58,6 +58,19 @@ def test_flash_attention_sweep(against, dtype, bh, s, d):
     _close(got, want, FLASH_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,s,d,block", [(3, 320, 64, 64), (2, 200, 64, 8), (2, 64, 64, 64)])
+def test_flash_attention_s_off_the_card_kernels_tiles(dtype, bh, s, d, block):
+    """S that is no multiple of the card kernels' query tiles (128 to 256
+    rows) but is one of block_q and block_k: the wrapper admits it."""
+    seed = bh * s + d + block
+    (jq, tq), (jk, tk), (jv, tv) = (_both(_normal(seed + i, (bh, s, d)), dtype)
+                                    for i in range(3))
+    got = ops.flash_attention(tq, tk, tv, block_q=block, block_k=block)
+    assert got.dtype == tq.dtype and got.shape == (bh, s, d)
+    _close(got, ref_ops.flash_attention_ref(jq, jk, jv), FLASH_TOL[dtype])
+
+
 def test_flash_attention_rejects_s_not_divisible_by_the_blocks():
     q = torch.zeros((1, 192, 64))
     with pytest.raises(ValueError, match="multiple"):
@@ -210,6 +223,22 @@ def test_rmsnorm_bf16_scale_and_eps(dtype):
         got = ops.rmsnorm(tx, ts, eps)
         _close(got, ref_ops.rmsnorm(jx, js, eps), NORM_TOL[dtype])
         _close(got, ref_ops.rmsnorm_ref(jx, js, eps), NORM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,d,offset", [(3, 2050, 0), (4, 256, 1), (1, 2050, 1)])
+def test_rmsnorm_odd_width_and_unaligned_base(dtype, r, d, offset):
+    """Rows that cannot be read in 16-byte vectors (a width that is no
+    multiple of the vector, a contiguous view one element off alignment)
+    are taken as they are: no alignment is required of x."""
+    a = _normal(r * d + offset, (r * d + offset,))
+    jx, _ = _both(a[offset:].reshape(r, d), dtype)
+    _, buf = _both(a, dtype)
+    tx = buf[offset:].view(r, d)
+    s = _normal(d + 5, (d,))
+    got = ops.rmsnorm(tx, torch.from_numpy(s))
+    assert got.dtype == tx.dtype and got.shape == (r, d)
+    _close(got, ref_ops.rmsnorm_ref(jx, jnp.asarray(s)), NORM_TOL[dtype])
 
 
 def test_rmsnorm_checks_arguments():
