@@ -59,7 +59,15 @@ it and read just after):
      and its plain version's, its skip count equals the plain rule's and is
      above 0 on the pyramid and the mqr-tree; fails unless the streaming
      kernel launched;
- 11. join path: ``mqr.join(rtree)`` at float32 and with the left side at
+ 11. edge shapes: kernels #1, #2 and #3 against their plain versions, by
+     equality, on device-built pyramids of width 1, 3, 17, 129 and 4,097, the
+     two trees of phase 5 (widths 13,534 and 14,237 at the defaults) and
+     Hilbert-ordered copies of the wider ones, at Q 1, 9, 33 and 257,
+     ``block_w`` 64, 128, 256 and 512, every tile and parent type each
+     kernel takes, ``root_unconditional`` both ways and ``uncond_from``
+     None, 1 and L - 1; #2's skip count against the plain rule; fails
+     unless #2 took its prefix-scan path (wide windows) at least once;
+ 12. join path: ``mqr.join(rtree)`` at float32 and with the left side at
      ``precision="compact"``, the symmetric self-join ``mqr.join(mqr)``, a
      device-built pyramid over ``exponential_squares(tree_n, seed=2)``
      joined with the mqr-tree, and the live mqr-tree of phase 9
@@ -70,13 +78,13 @@ it and read just after):
      equals ``pair_sweep_torch``, and ``pair_visits`` equals the plain
      version's; the join's time is split into host lowering, sweep and
      epilogue;
- 12. k-NN path: k = 10 for the point batches at object centroids on the
+ 13. k-NN path: k = 10 for the point batches at object centroids on the
      pyramid (n) and on the mqr-tree (tree_n), through expanding-radius
      rounds of kernel #1; ids equal a float64 brute force on the card with
      ties by lowest id (float32 near-ties excepted and counted), dists are
      within 4 float32 ulp of the float64 ones, and the mqr-tree's ids equal
      the host pointer search's; prints rounds and ms per call;
- 13. moving-object workload: ``MovingConfig(n_objects=moving_n,
+ 14. moving-object workload: ``MovingConfig(n_objects=moving_n,
      moves_per_tick=1_000, n_zones=12, query_every=1)`` on a live
      device-built pyramid (capacity 4,096, fixed tiling) for ``--ticks``
      ticks, then 3 ticks of ``rebuild_per_tick=True`` on the same seed;
@@ -85,7 +93,7 @@ it and read just after):
      region queries by its deepest groups, so there the hits must cover the
      brute force), and the baseline's join pairs equal the live path's per
      object slot; prints ticks/s, merges and pair tests;
- 14. mqr-KV and attention kernels, at llama3.2-1B's widths (d_model 2048,
+ 15. mqr-KV and attention kernels, at llama3.2-1B's widths (d_model 2048,
      32 heads, 8 kv heads, head dim 64; mqr block 128, top-K 64, 6 levels),
      random inputs from the seed: ``ops.rmsnorm`` on (prefill, 2048) and
      ``ops.flash_attention`` on (32, prefill, 64), each in float32 and
@@ -104,7 +112,7 @@ it and read just after):
      search must prune for every head; prints the fraction of blocks
      attended and the ms of index build, selection and attention per
      decode step beside the plain dense decode over all blocks;
- 15. each kernel against its plain version at its path's shapes (exact
+ 16. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #8-#10, floating reductions, within ``rtol |plain| + row_rms x RMS of
      the row``: float32 (1e-4, 1e-4), rmsnorm (1e-5, 1e-5); bfloat16
@@ -118,8 +126,10 @@ it and read just after):
      the streaming sweep, the tile and parent bytes of the tiles it read;
      for #8 the causal FLOPs at the tensor-core bf16 peak or the float32
      CUDA-core peak) and, for #8 and #10, one PyTorch library call on the
-     same inputs (``scaled_dot_product_attention``, ``rms_norm``);
- 16. end-to-end times of builds, region and point batches (first call,
+     same inputs (``scaled_dot_product_attention``, ``rms_norm``); beside
+     the rows of #1, the device time of one fill (``zero_()``) of the same
+     (L, Q, W) bytes, a practical store-rate floor printed as context;
+ 17. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one call per path (region
      batches per path and precision, two joins, a k-NN call, a moving tick
@@ -158,6 +168,13 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 REPEATS = 7
+# The edge shapes of kernels #1-#3 (the trees' widths come from the tree path).
+EDGE_WIDTHS = (1, 3, 17, 129, 4097)
+EDGE_QUERIES = (1, 9, 33, 257)
+EDGE_BLOCKS = (64, 128, 256, 512)
+# Kernel #2 tests a window wider than this many tiles on its prefix scan
+# (WIDE_WINDOW of csrc/level_sweep.cu).
+EDGE_WIDE_WINDOW = 8
 PRECISIONS = ("float32", "compact", "compact8")
 TREES = ("mqr", "rtree")
 # The pyramid path of the first slice keeps its fixed tiling, so its times
@@ -944,6 +961,116 @@ def run(args, second) -> int:
 
     checks.phase("stream results", stream_results)
 
+    # -- 11. edge shapes of kernels #1-#3 ----------------------------------
+    def edge_queries(d):
+        """257 queries over ``d``: region queries sized for ~4 hits, every
+        7th a box over the whole domain (every node overlaps it, so every
+        parent gate is read) and every 11th from the 4th a point at an
+        object's centre."""
+        q = datasets.region_queries(d, max(EDGE_QUERIES), seed=args.seed)
+        q[::7] = np.concatenate([d[:, :2].min(axis=0) - 1.0, d[:, 2:].max(axis=0) + 1.0])
+        pick = d[np.arange(3, q.shape[0], 11) % d.shape[0]]
+        c = np.stack([(pick[:, 0] + pick[:, 2]) * 0.5, (pick[:, 1] + pick[:, 3]) * 0.5], axis=1)
+        q[3::11] = np.concatenate([c, c], axis=1)
+        return torch.from_numpy(q.astype(np.float32)).to(dev)
+
+    def edge_schedule(label, s, d):
+        """#1, #2 and #3 against their plain versions, by equality, at every
+        query count, block_w, tile and parent type and mode on one schedule;
+        #2's skip count against the plain rule.  Returns (calls, calls of #2
+        that took the prefix scan, failures)."""
+        quant = ops.quantize_schedule(s, upper8=True)
+        q_all = edge_queries(d)
+        qq16_all = _quantize_queries(q_all, quant.origin, quant.inv_cell, quant.cells)
+        qq8_all = _quantize_queries(q_all, quant.origin, quant.inv_cell8, quant.cells8)
+        sp, levels = quant.split, s.levels
+        p32, p16 = s.parent, quant.parent_q
+        p32_16, p16_32 = p32.to(torch.uint16), p16.to(torch.int32)
+        windows, calls, wide, bad = {}, 0, 0, []
+        for nq in EDGE_QUERIES:
+            q, qq16, qq8 = q_all[:nq], qq16_all[:nq], qq8_all[:nq]
+            hier = (qq8, qq16, quant.mbr_q8, quant.mbr_q[sp:])
+            for root in (False, True):
+                for uncond in (None, 1, levels - 1):
+                    kw = dict(root_unconditional=root, uncond_from=uncond)
+                    want = {"f32": ops.level_sweep_torch(q, s.mbr_cm, p32, **kw),
+                            "u16": ops.level_sweep_torch(qq16, quant.mbr_q, p16, **kw),
+                            "hier": ops.level_sweep_hier_torch(*hier, p16, split=sp, **kw)}
+                    gated = levels > 1 and (uncond is None or uncond > 1)
+                    for bw in EDGE_BLOCKS:
+                        where = f"{label}, Q {nq}, block_w {bw}, root {root}, uncond {uncond}"
+                        for name, got, key in (
+                            ("#1 f32", ops.level_sweep(q, s.mbr_cm, p32, block_w=bw, **kw),
+                             "f32"),
+                            ("#1 u16 tiles, u16 parents", ops.level_sweep(
+                                qq16, quant.mbr_q, p16, block_w=bw, **kw), "u16"),
+                            ("#1 u16 tiles, i32 parents", ops.level_sweep(
+                                qq16, quant.mbr_q, p16_32, block_w=bw, **kw), "u16"),
+                            ("#3 u16 parents", ops.level_sweep_hier(
+                                *hier, p16, split=sp, block_w=bw, **kw), "hier"),
+                            ("#3 i32 parents", ops.level_sweep_hier(
+                                *hier, p16_32, split=sp, block_w=bw, **kw), "hier"),
+                        ):
+                            calls += 1
+                            if not same(got, want[key]):
+                                bad.append(f"{name} at {where}")
+                        if (bw, uncond) not in windows:
+                            windows[bw, uncond] = ops.stream_windows(
+                                s.parent, s.n_real, block_w=bw, device=dev, uncond_from=uncond)
+                        win_off, win_w = windows[bw, uncond]
+                        plain = {}
+                        for name, sweep_args, key in (
+                            ("#2 f32", (q, s.mbr_cm, p32), "f32"),
+                            ("#2 f32 tiles, u16 parents", (q, s.mbr_cm, p32_16), "f32"),
+                            ("#2 u16 tiles, u16 parents", (qq16, quant.mbr_q, p16), "u16"),
+                            ("#2 u16 tiles, i32 parents", (qq16, quant.mbr_q, p16_32), "u16"),
+                        ):
+                            if key not in plain:
+                                plain[key] = ops.level_sweep_stream_torch(
+                                    *sweep_args, win_off, win_w, block_w=bw, **kw)
+                            act, skipped = ops.level_sweep_stream(
+                                *sweep_args, win_off, win_w, block_w=bw, **kw)
+                            calls += 1
+                            wide += int(gated and win_w > EDGE_WIDE_WINDOW * bw)
+                            if not (same(act, plain[key][0])
+                                    and int(skipped) == int(plain[key][1])):
+                                bad.append(f"{name} at {where} (skipped {int(skipped)}, "
+                                           f"plain rule {int(plain[key][1])})")
+        return calls, wide, bad
+
+    def edge_shapes():
+        from repro_torch.kernels.build import hilbert_permute
+
+        t_phase = time.perf_counter()
+        cases = []
+        for w in EDGE_WIDTHS:
+            d = datasets.uniform_squares(w, seed=args.seed + w)
+            s = ops.device_schedule(d, device=dev)
+            cases.append((f"pyramid W {w}", s, d))
+            if w >= 129:  # scattered parents: wider windows
+                cases.append((f"Hilbert-ordered pyramid W {w}", hilbert_permute(s), d))
+        for structure, tr in trees.items():
+            s = tr["index"].schedule
+            cases.append((f"{structure} W {s.width}", s, tree_data))
+        if "mqr" in trees:
+            s = hilbert_permute(trees["mqr"]["index"].schedule)
+            cases.append((f"Hilbert-ordered mqr W {s.width}", s, tree_data))
+        total_wide = 0
+        for label, s, d in cases:
+            t = time.perf_counter()
+            calls, wide, bad = edge_schedule(label, s, d)
+            total_wide += wide
+            for b in bad[:5]:
+                print(f"    differs: {b}", flush=True)
+            checks.expect(not bad, f"edge shapes, {label} (L {s.levels}): {calls - len(bad)} of "
+                                   f"{calls} kernel calls == plain version ({wide} calls of #2 "
+                                   f"on the prefix scan; {time.perf_counter() - t:.1f} s)")
+        checks.expect(total_wide > 0, f"edge shapes: #2's prefix-scan path ran ({total_wide} "
+                                      f"calls)")
+        print(f"  edge shapes: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    checks.phase("edge shapes of kernels #1-#3", edge_shapes)
+
     # -- join path: kernel #6 on the trees, a device pyramid, a live side --
     from repro_torch.index.join import lower_join
     from repro_torch.kernels.join_scan import count_true
@@ -1448,9 +1575,12 @@ def run(args, second) -> int:
     kernels = []
 
     def kernel_row(name, source, replaces, kernel_fn, plain_fn, nbytes, ops_count,
-                   launches, tol=None, mutant=None, peak_ops=PEAK_OPS_PER_S, library_fn=None):
+                   launches, tol=None, mutant=None, peak_ops=PEAK_OPS_PER_S, library_fn=None,
+                   fill=False):
         """Hold ``kernel_fn()`` against ``plain_fn()`` and time both, beside the
         bound at ``peak_ops`` and ``library_fn``'s time where there is one.
+        ``fill`` also prints the device time of one fill of the kernel's
+        output (``zero_()``): a practical store-rate floor, context only.
         With ``tol`` None the two must be equal; a floating reduction, which
         cannot be bit-equal, passes ``tol = (rtol, row_rms)`` and must lie
         within :func:`worst_over_limit`'s limit, and ``mutant = (what, fn)``,
@@ -1491,6 +1621,12 @@ def run(args, second) -> int:
         print(f"  {name}: {ms:.4f} ms on the device, {window_ms:.4f} ms in one call's event "
               f"window (plain {plain_ms:.4f} ms, library {lib}, bound {b_ms:.4f} ms by "
               f"{b_by}{peak}; {launches} launches on its path)", flush=True)
+        if fill:
+            out_mask = kernel_fn()
+            fill_ms = device_ms(out_mask.zero_)
+            print(f"  {name}: one fill of the same {tuple(out_mask.shape)} bytes "
+                  f"(zero_()) {fill_ms:.4f} ms on the device (context only)", flush=True)
+            del out_mask
 
     sweep_src = "src/repro_torch/kernels/csrc/level_sweep.cu"
 
@@ -1559,6 +1695,7 @@ def run(args, second) -> int:
                                           root_unconditional=False),
             nbytes=sweep_bytes(nq, L, W, 16, 4, False),
             ops_count=L * nq * W * 8, launches=pyr.get("level_sweep_f32", 0),
+            fill=True,
         )
         qq = _quantize_queries(q_dev, qsched.origin, qsched.inv_cell, qsched.cells)
         pbytes = qsched.parent_q.element_size()
@@ -1570,6 +1707,7 @@ def run(args, second) -> int:
                                           root_unconditional=False),
             nbytes=sweep_bytes(nq, L, W, 8, pbytes, False),
             ops_count=L * nq * W * 8, launches=pyr.get("level_sweep_u16", 0),
+            fill=True,
         )
         # #3 at the pyramid's full width: uint8 tiles for L - 1 levels, int32 parents
         q8 = idx.artifacts.quantized8
@@ -1646,6 +1784,7 @@ def run(args, second) -> int:
             lambda: ops.level_sweep_torch(tqq, t16.mbr_q, t16.parent_q),
             nbytes=sweep_bytes(nq, tl, tw, 8, 2, True),
             ops_count=tl * nq * tw * 8, launches=tree.get("level_sweep_u16p", 0),
+            fill=True,
         )
         ts8 = t8.split
         kernel_row(
@@ -1662,7 +1801,7 @@ def run(args, second) -> int:
     checks.phase("kernels vs plain versions", kernel_phase)
 
     def attention_kernel_phase():
-        """#8-#10 against their plain versions at the shapes of phase 14, and
+        """#8-#10 against their plain versions at the shapes of phase 15, and
         one PyTorch library call each where one computes the same function.
         The limits follow each output's own scale (:func:`worst_over_limit`),
         set from this phase's readings on the card; for #8 and #9 each is

@@ -1,81 +1,116 @@
-// Fused level sweep of the region search: per-level active mask.
-//
-// Replaces the Pallas kernel `_sweep_kernel` of
-// src/repro/kernels/pyramid_scan.py (called from `level_sweep`, stream=False).
-// On the GPU the survivor masks of every level live in device memory,
-// which has no VMEM cap, so this resident sweep takes any width.
-// `repro_level_sweep_stream` (below) replaces `_stream_sweep_kernel`
-// (stream=True), whose dead-window skip is a separate kernel.
+// Fused level sweep of the region search: the per-level active mask.
 //
 //   act[l, q, w] = ov(q, mbr[l, :, w]) & act[l-1, q, parent[l, w]]
 //
 // with level 0 unconditional at the root slot (tree schedules) or plain
 // `ov` (pyramid), and levels >= uncond_from flat (`ov` only), exactly as
-// `_act_formula`.
+// `_act_formula` of src/repro/kernels/pyramid_scan.py.
 //
-// What bounds it on an H100: bytes.  Each level writes Q*W mask bytes and
-// reads W*(16 + 4) tile and parent bytes (W*(8 + 2|4) for uint16 tiles), and
-// the gather reads back surviving parents of the previous level; the
-// compares are ~4 operations per mask byte, far below the card's ratio.
+// One kernel body, `sweep_level`, serves three TPU kernels of that file:
+// * `repro_level_sweep` replaces `_sweep_kernel` (`level_sweep`,
+//   stream=False): float32 tiles with int32 parents, uint16 tiles with
+//   uint16 or int32 parents;
+// * `repro_level_sweep_hier` replaces `_hier_sweep_kernel`
+//   (`level_sweep_hier`, precision="compact8"): levels below `split` read
+//   uint8 tiles with the coarse queries, the rest uint16 tiles with the fine
+//   ones, each launch on its own segment's pointer, so neither the TPU
+//   kernel's clamped index maps nor its sentinel padding is needed;
+// * `repro_level_sweep_stream` replaces `_stream_sweep_kernel`
+//   (`level_sweep`, stream=True): the same mask, bit for bit, plus the
+//   dead-window skip and its count (below).
+// The TPU's sequential grid becomes one launch per level (level order is
+// the only dependency; ROADMAP C3), and its MXU one-hot gather a lazy
+// gather of the previous level's mask.
 //
-// What the design does about it:
-// * One launch per level from the host loop; level order is the only
-//   dependency and blocks run in no order, so the TPU's sequential grid
-//   becomes that loop.
-// * No one-hot matmul (the TPU's MXU gather costs O(Q*W^2/block_w) per
-//   level): the parent lookup is a plain gather of the previous level's
-//   mask, read only when the node itself overlaps.
-// * Each thread owns one slot w for a chunk of QCHUNK queries: the four
-//   coordinate-major tile rows and the parent are loaded once (coalesced
-//   across w) and reused for every query of the chunk; mask stores are
-//   coalesced across w for each query.  Query chunks are the fastest grid
-//   dimension, so the chunks that share a tile run together and the tile
-//   is read from device memory about once.
-// * uint16 and uint8 tiles are widened to int32 after the load, as
-//   `_overlap_tile` does, so device memory streams the narrow form.
+// What bounds it on an H100: the stores.  Each level writes Q*W mask bytes
+// (2.816 GB a call at L 11, Q 256, W 1e6: 0.84 ms at the data sheet's
+// 3.35 TB/s) and reads W*(6..20) tile and parent bytes.  The compares are a
+// few operations a byte, so the instructions issued per mask byte come
+// second: one byte a thread a store would cost about ten.  What the design
+// does:
+// * Wide stores.  A block takes one item, a tile of block_w slots and a
+//   chunk of queries.  Thread (r, j) owns a 16-slot window of the tile and
+//   the queries j, j + rows, ... of the chunk, and writes each query's 16
+//   mask bytes with one aligned 16-byte store: a warp stores 512
+//   contiguous bytes of a row, or whole 32-byte sectors of several rows
+//   when block_w < 512.  Rows start at q*W.  Where W is a multiple of 16
+//   (the pyramid) the windows are the tile's runs of 16.  Otherwise
+//   (the trees: W 13,534 is 2-byte aligned, 14,237 odd) each row's
+//   windows shift left by s = (row + t0) & 15 onto the row's 16-byte
+//   boundaries: the block also stages the previous tile's last run, so
+//   every store is a whole aligned chunk but for a partial one at each
+//   row's start and end (at most four aligned 1-8 byte stores each).
+//   Staging the rows in shared memory instead, or joining the chunk that
+//   straddles two tiles with a warp shuffle, measured slower (H100 80GB
+//   HBM3, 700 W).
+// * Wide tile loads.  The tile's four coordinate rows and its parents go
+//   to shared memory in 16-byte loads, one or two aligned ones joined by
+//   funnel shifts where a row is not 16-byte aligned; narrow tiles are
+//   widened to int32 only when read, as `_overlap_tile` does.
+// * A box per run.  The threads that load a run's part of a row reduce it
+//   to that side of the run's bounding box with warp shuffles; a query
+//   that misses the box (almost every one, on the pyramid) costs four
+//   compares and the store of 16 zero bytes.  Exact: a slot that passes
+//   all four compares makes the box pass them too (fminf/fmaxf skip NaN
+//   slots, which never pass).  Only where the box passes are the 16 slots
+//   compared, and the parent gate reads `prev` only for the slots that
+//   overlap, in independent loads (one round trip a window).
+// * Fat query chunks.  A chunk holds up to 256 queries, staged in shared
+//   memory once, up to 8 a thread, one row pointer each.  The chunk
+//   halves until the items are at least twice the SMs, so the trees'
+//   narrow levels still fill the card, and the grid is one block an item:
+//   a grid of a few blocks per SM walking the items measured slower (the
+//   same card).
 //
-// `repro_level_sweep_hier` replaces `_hier_sweep_kernel` (called from
-// `level_sweep_hier`, the sweep of precision="compact8"): levels below
-// `split` read uint8 tiles on the coarse grid with the coarse queries,
-// levels from `split` on read uint16 tiles with the fine queries.  It is
-// the same per-level launch with another tile type, so every mode (root
-// only, overlap, gated, flat levels) is shared.  The TPU kernel clamped
-// both tile index maps into their own segment and padded W to block_w
-// with sentinels; here each launch gets its own segment's pointer and
-// threads bound-check w, so neither is needed.
-//
-// `repro_level_sweep_stream` replaces `_stream_sweep_kernel` (called from
-// `level_sweep`, stream=True).  It computes the same mask, bit for bit,
-// and adds the TPU kernel's one semantic change, the dead-window skip:
-// the MBR and parent tile of (level l, tile t) are not read when
+// The streaming sweep's dead-window skip, and what differs from the TPU:
+// the MBR tile of (level l, tile t) is not read, and its mask is zero, when
 //   * the tile is statically empty (win_off[l, t] < 0, at every level), or
 //   * level l is gated (0 < l < uncond_from) and no slot of level l-1 in
 //     [win_off[l, t], win_off[l, t] + win_w) survived for ANY query.
-// A skipped tile's mask is all zero; sentinel MBRs and the parent gate make
-// that exact.  What differs from the TPU kernel, and why:
-// * On the TPU one core walked the grid in order, prefetching the next
-//   tile's parent window into VMEM and testing it for a live slot.  Here a
-//   block holds one QCHUNK-query chunk, so "any query" spans blocks.  Level
-//   l-1's launch therefore also writes a (W,) byte row "some query survived
-//   at slot w" (zeroed before the launch; blocks only store 1, so no
-//   atomics), three small kernels turn it into an exclusive prefix count,
-//   and every block of level l tests its window in O(1) as
-//   prefix[hi] == prefix[lo].  win_w may be the full width (a Hilbert-
-//   ordered tree), so a scan of the window per tile would cost O(T * W).
-// * Levels are separate launches on one stream, so level l-1 is complete
-//   before level l starts: the TPU kernel's rule "always fetch the first
-//   tile of a level" (its previous write-back could still be in flight)
-//   has no counterpart.
-// * The skip count is the kernel's own: one atomic per skipped (level,
-//   tile), made by the block of query chunk 0, into a caller's int64.
-// What bounds it: bytes, as the resident sweep.  The skip saves tile and
-// parent reads only; the (L, Q, W) mask is still written in full, because
-// the epilogue reads it, and those stores are most of the bytes.
+// A tile is block_w slots wide (the tiling of win_off), and a block takes
+// the decision once for its tile, the same in every thread, before it
+// reads the tile (and once for the previous tile, whose last run it
+// stages where rows are not 16-byte aligned); a skipped tile's zeros go
+// out with the same wide stores.  On the TPU one core walked the grid in
+// order and tested each tile's prefetched parent window.  Here a block
+// holds one query chunk, so "any query" spans blocks: a level whose
+// successor is gated also marks a (W,) "any" row (bytes set to 1, no
+// atomics), and the next level tests its windows on it:
+// * narrow windows (win_w <= 8 block_w; the pyramid's are 128 slots): each
+//   block ORs the window's bytes itself, at most 8 block_w bytes from L2,
+//   and no launch is added;
+// * wide windows (the mqr-tree's are 2,048 slots at block_w 128; a
+//   Hilbert-ordered schedule's span the whole width, where a scan per tile
+//   would cost O(T * W)): one single-pass scan with decoupled look-back
+//   (`any_prefix_scan`) turns the row into an exclusive prefix, and the
+//   window test is prefix[hi] == prefix[lo] in O(1).  Per gated level that
+//   is one launch of ceil(W / 4,096) blocks reading W bytes and writing
+//   4 (W + 1): 4 blocks at W 13,534, 245 blocks and ~5 MB at W 1e6.
+// The any rows rotate over three buffers: level l marks buffer l % 3,
+// clears buffer (l+1) % 3 for level l+1 (its last reader, level l-1 or the
+// scan of level l-2, is done), and clears the scan's state for its own
+// scan.  So a call adds one memset (buffer 0) to its L sweep launches, and
+// one scan launch per gated level only for wide windows.  Levels are
+// separate launches on one stream, so level l-1 is complete before level l
+// starts: the TPU kernel's rule "always fetch the first tile of a level"
+// has no counterpart (ROADMAP C6).  The skip count is the kernel's own:
+// one atomic per skipped (level, tile), made by the block of query chunk 0,
+// into a caller's int64.  The skip saves tile and parent reads only; the
+// (L, Q, W) mask is still written in full, because the epilogue reads it.
+//
+// Measured times, against the bound and the first port: PERF.md §6.
+// Compares stay exact: no fast math, no flush to zero (ROADMAP C1).
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace {
 
-constexpr int QCHUNK = 8;
+constexpr int THREADS = 256;    // threads of a sweep or scan block
+constexpr int RUN = 16;         // consecutive slots of one thread: one 16-byte store
+constexpr int MAX_QPT = 8;      // queries a thread takes per item, at most
+constexpr int MAX_CHUNK = 256;  // queries of a block's chunk, at most
+constexpr int WIDE_WINDOW = 8;  // windows wider than this many tiles use the scan
 
 enum Mode { ROOT_ONLY = 0, OVERLAP = 1, GATED = 2 };
 
@@ -88,55 +123,399 @@ inline int level_mode(int l, int root_unconditional, int uncond_from) {
   return (l >= uncond_from) ? OVERLAP : GATED;
 }
 
-template <typename T, typename P>
-__global__ void sweep_level(const typename QueryOf<T>::type* __restrict__ queries,
-                            const T* __restrict__ mbr,        // (4, W) of level l
-                            const P* __restrict__ parent,     // (W,) of level l
-                            const uint8_t* __restrict__ prev, // (Q, W) of level l-1
-                            uint8_t* __restrict__ act,        // (Q, W) of level l
-                            long long nq, long long width, int mode) {
-  using Q = typename QueryOf<T>::type;
-  const long long q0 = (long long)blockIdx.x * QCHUNK;
-  const int nqc = (nq - q0 < QCHUNK) ? (int)(nq - q0) : QCHUNK;
-  for (long long w = (long long)blockIdx.y * blockDim.x + threadIdx.x; w < width;
-       w += (long long)gridDim.y * blockDim.x) {
-    if (mode == ROOT_ONLY) {
-      for (int k = 0; k < nqc; ++k) act[(q0 + k) * width + w] = (w == 0);
-      continue;
-    }
-    const Q lx = (Q)mbr[w];
-    const Q ly = (Q)mbr[width + w];
-    const Q hx = (Q)mbr[2 * width + w];
-    const Q hy = (Q)mbr[3 * width + w];
-    const long long pw = (mode == GATED) ? (long long)parent[w] : 0;
-    for (int k = 0; k < nqc; ++k) {
-      const Q* qr = queries + (q0 + k) * 4;
-      bool a = (lx <= qr[2]) & (qr[0] <= hx) & (ly <= qr[3]) & (qr[1] <= hy);
-      if (mode == GATED) a = a && prev[(q0 + k) * width + pw] != 0;
-      act[(q0 + k) * width + w] = a;
-    }
+__device__ __forceinline__ float lowest(float) { return -__int_as_float(0x7f800000); }
+__device__ __forceinline__ float highest(float) { return __int_as_float(0x7f800000); }
+__device__ __forceinline__ int32_t lowest(int32_t) { return INT32_MIN; }
+__device__ __forceinline__ int32_t highest(int32_t) { return INT32_MAX; }
+__device__ __forceinline__ float lo_of(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ float hi_of(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ int32_t lo_of(int32_t a, int32_t b) { return min(a, b); }
+__device__ __forceinline__ int32_t hi_of(int32_t a, int32_t b) { return max(a, b); }
+
+__device__ __forceinline__ float shfl_xor(float v, int d) {
+  return __shfl_xor_sync(0xffffffffu, v, d);
+}
+__device__ __forceinline__ int32_t shfl_xor(int32_t v, int d) {
+  return __shfl_xor_sync(0xffffffffu, v, d);
+}
+
+__device__ __forceinline__ float4 query_vec(const float* q) {
+  return make_float4(q[0], q[1], q[2], q[3]);
+}
+__device__ __forceinline__ int4 query_vec(const int32_t* q) {
+  return make_int4(q[0], q[1], q[2], q[3]);
+}
+
+// The 16 bytes at p, any alignment, from one aligned 16-byte load (two
+// where p is not aligned and `second` says bytes of the next chunk are
+// needed).  Each aligned chunk read holds at least one byte the caller
+// needs, so it lies inside the caller's allocation.
+__device__ __forceinline__ uint4 load16(const void* p, bool second) {
+  const uintptr_t at = (uintptr_t)p;
+  const int sh = (int)(at & 15);
+  const uint4* q = reinterpret_cast<const uint4*>(at - sh);
+  const uint4 lo = __ldg(q);
+  if (sh == 0) return lo;
+  const uint4 hi = second ? __ldg(q + 1) : make_uint4(0u, 0u, 0u, 0u);
+  const int ws = sh >> 2, bs = (sh & 3) * 8;  // bytes sh .. sh + 15 of lo ++ hi
+  const uint32_t w0 = ws == 0 ? lo.x : ws == 1 ? lo.y : ws == 2 ? lo.z : lo.w;
+  const uint32_t w1 = ws == 0 ? lo.y : ws == 1 ? lo.z : ws == 2 ? lo.w : hi.x;
+  const uint32_t w2 = ws == 0 ? lo.z : ws == 1 ? lo.w : ws == 2 ? hi.x : hi.y;
+  const uint32_t w3 = ws == 0 ? lo.w : ws == 1 ? hi.x : ws == 2 ? hi.y : hi.z;
+  const uint32_t w4 = ws == 0 ? hi.x : ws == 1 ? hi.y : ws == 2 ? hi.z : hi.w;
+  return make_uint4(__funnelshift_r(w0, w1, bs), __funnelshift_r(w1, w2, bs),
+                    __funnelshift_r(w2, w3, bs), __funnelshift_r(w3, w4, bs));
+}
+
+// Tile value e of 16 loaded bytes, widened (e a constant after unrolling).
+template <typename T>
+__device__ __forceinline__ typename QueryOf<T>::type value_of(uint4 u, int e) {
+  const int byte = e * (int)sizeof(T);
+  const uint32_t w = byte < 4 ? u.x : byte < 8 ? u.y : byte < 12 ? u.z : u.w;
+  if (sizeof(T) == 4) return (typename QueryOf<T>::type)__uint_as_float(w);
+  const uint32_t v = (w >> (8 * (byte & 3))) & (sizeof(T) == 2 ? 0xffffu : 0xffu);
+  return (typename QueryOf<T>::type)v;
+}
+
+// Parent slots of one 16-byte load, widened to int32 in shared memory.
+__device__ __forceinline__ void stage_parents(uint4 u, int32_t* dst, int32_t) {
+  *reinterpret_cast<int4*>(dst) = make_int4((int)u.x, (int)u.y, (int)u.z, (int)u.w);
+}
+__device__ __forceinline__ void stage_parents(uint4 u, int32_t* dst, uint16_t) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    *reinterpret_cast<int4*>(dst + 4 * i) =
+        make_int4((int)(w[2 * i] & 0xffffu), (int)(w[2 * i] >> 16),
+                  (int)(w[2 * i + 1] & 0xffffu), (int)(w[2 * i + 1] >> 16));
+}
+
+// 16 mask bits -> 16 bytes of 0 / 1, slot k in byte k.
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t m) {
+  return ((m & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+__device__ __forceinline__ uint4 mask_bytes(uint32_t m) {
+  return make_uint4(nibble_bytes(m), nibble_bytes(m >> 4), nibble_bytes(m >> 8),
+                    nibble_bytes(m >> 12));
+}
+
+// Bytes p .. p + 7 of v (0 <= p < 16; past byte 15 they are zero).
+__device__ __forceinline__ unsigned long long bytes_from(uint4 v, int p) {
+  const unsigned long long lo = ((unsigned long long)v.y << 32) | v.x;
+  const unsigned long long hi = ((unsigned long long)v.w << 32) | v.z;
+  return p == 0 ? lo : p < 8 ? (lo >> (8 * p)) | (hi << (64 - 8 * p)) : hi >> (8 * (p - 8));
+}
+
+// Bytes [p0, p1) of v (0 <= p0 < p1 <= 16, not both 0 and 16) to g + p0,
+// g 16-byte aligned.  A row's first bytes end on a 16-byte boundary and its
+// last start on one, so each goes out in at most four aligned stores of 1,
+// 2, 4 and 8 bytes whose places follow from p0 or p1 alone; a row shorter
+// than 16 bytes, byte by byte.
+__device__ __forceinline__ void store_bytes(uint8_t* g, uint4 v, int p0, int p1) {
+  if (p1 == 16) {  // [p0, 16)
+    if (p0 & 1) g[p0] = (uint8_t)bytes_from(v, p0);
+    const int p2 = (p0 + 1) & ~1, p4 = (p0 + 3) & ~3, p8 = (p0 + 7) & ~7;
+    if ((p2 & 2) && p2 < 16) *reinterpret_cast<uint16_t*>(g + p2) = (uint16_t)bytes_from(v, p2);
+    if ((p4 & 4) && p4 < 16) *reinterpret_cast<uint32_t*>(g + p4) = (uint32_t)bytes_from(v, p4);
+    if ((p8 & 8) && p8 < 16) *reinterpret_cast<unsigned long long*>(g + p8) = bytes_from(v, p8);
+  } else if (p0 == 0) {  // [0, p1)
+    if (p1 & 8) *reinterpret_cast<unsigned long long*>(g) = bytes_from(v, 0);
+    if (p1 & 4) *reinterpret_cast<uint32_t*>(g + (p1 & 8)) = (uint32_t)bytes_from(v, p1 & 8);
+    if (p1 & 2) *reinterpret_cast<uint16_t*>(g + (p1 & 12)) = (uint16_t)bytes_from(v, p1 & 12);
+    if (p1 & 1) g[p1 & 14] = (uint8_t)bytes_from(v, p1 & 14);
+  } else {
+    for (int p = p0; p < p1; ++p) g[p] = (uint8_t)bytes_from(v, p);
   }
 }
 
-inline dim3 sweep_grid(long long nq, long long width, int block_w) {
-  const long long tiles = (width + block_w - 1) / block_w;
-  return dim3((unsigned int)((nq + QCHUNK - 1) / QCHUNK),
-              (unsigned int)(tiles < 65535 ? tiles : 65535));
+// One level of a sweep.  The kernel #2 fields are null / unused for #1, #3.
+struct SweepLevel {
+  const void* queries;     // (Q, 4) float32 (float32 tiles) or int32 (grid cells)
+  const void* mbr;         // (4, W) tiles of this level
+  const void* parent;      // (W,) parent slots of this level
+  const uint8_t* prev;     // (Q, W) mask of level l-1 (gated levels)
+  uint8_t* act;            // (Q, W) mask of this level
+  long long nq, width, n_chunks;
+  int mode, tile_w, qpt;
+  // kernel #2
+  const int32_t* win_off;  // (T,) windows of this level
+  int win_w;
+  const uint8_t* any_prev; // narrow windows: level l-1's any row
+  const int32_t* prefix;   // wide windows: its exclusive prefix, (W + 1,)
+  uint8_t* any_out;        // this level's any row (its successor is gated)
+  uint8_t* any_clear;      // the any row level l+1 marks, cleared here
+  unsigned long long* scan_state;  // this level's scan state, cleared here
+  int scan_words;
+  unsigned long long* skipped;
+};
+
+// Kernel #2's rule for one tile of this level, the same in every thread:
+// statically empty, or gated with no survivor of level l-1 in its window.
+// Every thread of the block calls it.
+__device__ __forceinline__ bool tile_skipped(const SweepLevel& a, long long tile) {
+  const int off = a.win_off[tile];
+  if (off < 0) return true;
+  if (a.mode != GATED) return false;
+  const long long lo = min((long long)off, a.width);
+  const long long hi = min((long long)off + a.win_w, a.width);
+  if (a.prefix != nullptr) return a.prefix[hi] == a.prefix[lo];
+  int found = 0;
+  for (long long w = lo + threadIdx.x; w < hi; w += THREADS) found |= a.any_prev[w];
+  return !__syncthreads_or(found);
 }
 
-// Launch level l of a sweep whose tiles of that level start at `mbr_l`.
+// Block = THREADS threads on one item: a tile of tw = block_w slots and a
+// chunk of QC = rows * qpt queries.  The block copies the tile's four
+// coordinate rows and its parents into shared memory in 16-byte loads, the
+// threads that load a 16-slot run reduce it to its bounding box, and
+// thread (r, j) then owns the 16-slot window
+// [t0 + 16 r - s, t0 + 16 r - s + 16) of the queries j, j + rows, ...:
+// the box first, the slots only where the box passes, one aligned 16-byte
+// store.  s = (row + t0) & 15 puts the windows of a row on its 16-byte
+// boundaries: 0 where W is a multiple of 16 (ALIGNED); else the block also
+// stages and computes the previous tile's last run (and takes that tile's
+// skip decision), so each row goes out in aligned 16-byte chunks but for
+// a partial one at its start and one at its end.  Staged slot i is slot
+// t0 - 16 + i.
+template <typename T, typename P, bool ALIGNED, bool STREAM>
+__global__ void __launch_bounds__(THREADS, 4) sweep_level(const SweepLevel a) {
+  using Q = typename QueryOf<T>::type;
+  using QV = typename std::conditional<std::is_same<Q, float>::value, float4, int4>::type;
+  extern __shared__ uint4 smem[];
+  const int tw = a.tile_w;
+  const int tpr = tw / RUN;          // runs of a tile: threads per row
+  const int rows = THREADS / tpr;    // rows a block works on at once
+  const int qc = rows * a.qpt;       // queries of a chunk
+  const int sw = tw + 2 * RUN;       // staged: the previous run, the tile, a run of slack
+  QV* sq = reinterpret_cast<QV*>(smem);                         // (qc,) queries
+  QV* sbox = sq + qc;                                            // (tpr + 1,) run boxes
+  T* stile = reinterpret_cast<T*>(sbox + tpr + 1);               // (4, sw) coordinates
+  int32_t* spar = reinterpret_cast<int32_t*>(stile + 4 * sw);  // (sw,) parents
+  const int r = threadIdx.x % tpr, j = threadIdx.x / tpr;
+  const long long W = a.width;
+  const Q* queries = static_cast<const Q*>(a.queries);
+  const T* mbr = static_cast<const T*>(a.mbr);
+  const P* parent = static_cast<const P*>(a.parent);
+  const bool gated = a.mode == GATED;
+
+  if (STREAM && a.scan_state != nullptr && blockIdx.x == 0)
+    for (int i = threadIdx.x; i < a.scan_words; i += THREADS) a.scan_state[i] = 0ULL;
+
+  const unsigned int n_chunks = (unsigned int)a.n_chunks;  // one (tile, chunk) item a block
+  const long long tile = blockIdx.x / n_chunks, chunk = blockIdx.x - tile * n_chunks;
+  const long long t0 = tile * tw, q0 = chunk * qc;
+  const long long span = W - t0;      // slots from t0 to the row's end (> 0)
+  const int nqc = (int)min((long long)qc, a.nq - q0);
+  for (int i = threadIdx.x; i < nqc; i += THREADS) sq[i] = query_vec(queries + (q0 + i) * 4);
+  bool skip = false, skip_prev = false;  // uniform over the block
+  if (STREAM) {
+    if (a.any_clear != nullptr && chunk == 0)
+      for (long long w = t0 + threadIdx.x; w < t0 + min((long long)tw, span); w += THREADS)
+        a.any_clear[w] = 0;
+    skip = tile_skipped(a, tile);
+    if (skip && chunk == 0 && threadIdx.x == 0) atomicAdd(a.skipped, 1ULL);
+    if (!ALIGNED && tile > 0) skip_prev = tile_skipped(a, tile - 1);
+  }
+  const bool tested = a.mode != ROOT_ONLY;
+  const bool load_this = tested && !skip;
+  const bool load_prev = !ALIGNED && tested && !skip_prev && tile > 0;
+  if (load_this || load_prev) {
+    // Coordinate rows, 16 bytes a thread.  The G = 16 / PER threads that
+    // load one run's part of a row are neighbouring lanes: they reduce it
+    // to that side of the run's box (min of lx, ly, max of hx, hy) with
+    // shuffles, and every lane runs every step.
+    constexpr int PER = 16 / sizeof(T), G = RUN / PER;
+    const int per_row = (tw + RUN) / PER;  // staged slots [0, tw + 16) hold data
+    for (int base = 0; base < 4 * per_row; base += THREADS) {
+      const int i = base + threadIdx.x;
+      const int c = i / per_row, k = (i - c * per_row) * PER;
+      const long long w = t0 - RUN + k;
+      const bool load = i < 4 * per_row && w < W && (k < RUN ? load_prev : load_this);
+      Q b = c < 2 ? highest(Q()) : lowest(Q());  // the empty box: not staged, or past W
+      if (load) {
+        const T* src = mbr + c * W + w;
+        const int n = (int)min((long long)PER, W - w);  // values before the row's end
+        const uint4 u = load16(src, n * (int)sizeof(T) > 16 - (int)((uintptr_t)src & 15));
+        *reinterpret_cast<uint4*>(stile + c * sw + k) = u;
+#pragma unroll
+        for (int e = 0; e < PER; ++e)
+          if (e < n) b = c < 2 ? lo_of(b, value_of<T>(u, e)) : hi_of(b, value_of<T>(u, e));
+      }
+#pragma unroll
+      for (int d = 1; d < G; d <<= 1) {
+        const Q o = shfl_xor(b, d);
+        b = c < 2 ? lo_of(b, o) : hi_of(b, o);
+      }
+      if (i < 4 * per_row && (i - c * per_row) % G == 0)
+        reinterpret_cast<Q*>(sbox + k / RUN)[c] = b;
+    }
+    if (gated) {
+      constexpr int PPER = 16 / sizeof(P);
+      for (int i = threadIdx.x; i < (tw + RUN) / PPER; i += THREADS) {
+        const int k = i * PPER;
+        const long long w = t0 - RUN + k;
+        if (w >= W || (k < RUN ? !load_prev : !load_this)) continue;
+        const int n = (int)min((long long)PPER, W - w);
+        const P* src = parent + w;
+        stage_parents(load16(src, n * (int)sizeof(P) > 16 - (int)((uintptr_t)src & 15)), spar + k,
+                      P());
+      }
+    }
+  }
+  __syncthreads();  // sq, stile, spar and sbox are filled
+  if (j >= rows) return;  // rows * tpr may fall short of THREADS
+
+  const QV box_r = sbox[r + 1];  // this thread's run
+  QV box_u = box_r;              // with the run before it: a window of a row with s > 0
+  if (!ALIGNED) {
+    const QV b = sbox[r];
+    box_u.x = lo_of(box_u.x, b.x);
+    box_u.y = lo_of(box_u.y, b.y);
+    box_u.z = hi_of(box_u.z, b.z);
+    box_u.w = hi_of(box_u.w, b.w);
+  }
+  // Mask bits of the 16 staged slots from staged slot `at` for query qv (row
+  // q): the box first, the slots where it passes, then the parent gate on
+  // row q of level l-1, read only where a node overlaps.
+  auto test_slots = [&](int at, QV box, QV qv, uint32_t valid, long long q) -> uint32_t {
+    if (valid == 0 || !((box.x <= qv.z) & (qv.x <= box.z) & (box.y <= qv.w) & (qv.y <= box.w)))
+      return 0u;
+    const T* v = stile + at;
+    uint32_t m = 0;
+#pragma unroll 4
+    for (int k = 0; k < RUN; ++k) {
+      const Q lx = (Q)v[k], ly = (Q)v[sw + k], hx = (Q)v[2 * sw + k], hy = (Q)v[3 * sw + k];
+      m |= (uint32_t)((lx <= qv.z) & (qv.x <= hx) & (ly <= qv.w) & (qv.y <= hy)) << k;
+    }
+    m &= valid;
+    if (gated && m != 0) {
+      const uint8_t* prow = a.prev + q * W;
+      const int32_t* par = spar + at;
+      uint32_t keep = 0;
+#pragma unroll
+      for (int k = 0; k < RUN; ++k)  // independent loads: one round trip
+        if (m & (1u << k)) keep |= (uint32_t)(prow[par[k]] != 0) << k;
+      m &= keep;
+    }
+    return m;
+  };
+  // Mask bits of the slots t0 + start + k, k < 16, for query qi (row q);
+  // `start` is relative to t0 and may be negative (the previous tile).
+  auto window = [&](int start, QV box, int qi, long long q) -> uint32_t {
+    const long long room = span - start;  // window slots before the row's end
+    uint32_t valid = room >= RUN ? 0xffffu : room <= 0 ? 0u : (1u << (int)room) - 1u;
+    if (!ALIGNED && start < 0) {  // slots of the previous tile, none before the row
+      const uint32_t before = (1u << -start) - 1u;
+      valid &= t0 == 0 || skip_prev ? ~before : 0xffffu;
+    }
+    if (STREAM && skip) valid &= start < 0 ? (1u << -start) - 1u : 0u;  // a skipped tile is zero
+    if (a.mode == ROOT_ONLY) {  // only slot 0, bit -(t0 + start) of tile 0's first window
+      const long long z = -(t0 + start);
+      return z >= 0 && z < RUN ? valid & (1u << (int)z) : 0u;
+    }
+    return test_slots(RUN + start, box, sq[qi], valid, q);
+  };
+  // Store window `start`'s bytes that lie in the row: whole and aligned, or
+  // the row's first or last bytes.  Kernel #2 also marks the survivors.
+  auto put = [&](uint8_t* row, int start, uint32_t m) {
+    if (STREAM && a.any_out != nullptr)
+      for (uint32_t bits = m; bits != 0; bits &= bits - 1)
+        a.any_out[t0 + start + __ffs(bits) - 1] = 1;
+    const uint4 bytes = m != 0 ? mask_bytes(m) : make_uint4(0u, 0u, 0u, 0u);
+    const long long lo = t0 + start < 0 ? -(t0 + start) : 0;  // bytes before the row
+    const long long hi = min((long long)RUN, span - start);   // bytes before its end
+    if (lo == 0 && hi == RUN)
+      *reinterpret_cast<uint4*>(row + start) = bytes;
+    else if (lo < hi)
+      store_bytes(row + start, bytes, (int)lo, (int)hi);
+  };
+
+#pragma unroll 2  // two queries a step: their compares and gate loads can overlap
+  for (int i = 0; i < a.qpt; ++i) {
+    const int qi = j + i * rows;
+    if (qi >= nqc) break;
+    const long long q = q0 + qi;
+    uint8_t* row = a.act + q * W + t0;  // this tile's part of the row
+    const int s = ALIGNED ? 0 : (int)((uintptr_t)row & 15);
+    const int start = r * RUN - s;
+    if (start < span) put(row, start, window(start, s != 0 ? box_u : box_r, qi, q));
+    // The last tile's windows end s slots early: its last thread takes the rest.
+    if (!ALIGNED && r == tpr - 1 && span <= tw && span > tw - s)
+      put(row, tw - s, window(tw - s, box_r, qi, q));
+  }
+}
+
+// ---- launch plan, shared by the three entry points ----------------------
+
+inline int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
+  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+    n = 132;
+  if (dev >= 0 && dev < 64) cached[dev] = n;
+  return n;
+}
+
+struct Plan {
+  int qpt;
+  long long n_chunks, n_items;  // one block an item
+  bool aligned;  // W is a multiple of 16: rows start on 16-byte boundaries
+};
+
+// Queries per thread: the most that keeps a chunk <= MAX_CHUNK, halved
+// until the (tile, chunk) items are at least twice the SMs.
+inline Plan plan_sweep(long long nq, long long width, int block_w, const void* act) {
+  const int rows = THREADS / (block_w / RUN);
+  const long long n_tiles = (width + block_w - 1) / block_w;
+  const long long sms = sm_count();
+  Plan p;
+  p.aligned = width % 16 == 0 && (uintptr_t)act % 16 == 0;
+  p.qpt = MAX_CHUNK / rows < MAX_QPT ? (MAX_CHUNK / rows > 0 ? MAX_CHUNK / rows : 1) : MAX_QPT;
+  auto chunks = [&](int qpt) { return (nq + (long long)rows * qpt - 1) / ((long long)rows * qpt); };
+  while (p.qpt > 1 && n_tiles * chunks(p.qpt) < 2 * sms) p.qpt /= 2;
+  p.n_chunks = chunks(p.qpt);
+  p.n_items = n_tiles * p.n_chunks;
+  return p;
+}
+
+template <typename T, typename P, bool STREAM>
+int launch(SweepLevel a, const Plan& p, int block_w, cudaStream_t stream) {
+  a.tile_w = block_w;
+  a.qpt = p.qpt;
+  a.n_chunks = p.n_chunks;
+  // shared memory: queries, run boxes, the staged slots and their parents (< 27 KB)
+  const int rows = THREADS / (block_w / RUN);
+  const size_t staged = (size_t)block_w + 2 * RUN;  // the previous run, the tile, slack
+  const size_t smem = (size_t)rows * p.qpt * 16 + (size_t)(block_w / RUN + 1) * 16 +
+                      4 * staged * sizeof(T) + 4 * staged;
+  const unsigned int grid = (unsigned int)p.n_items;
+  if (p.aligned)
+    sweep_level<T, P, true, STREAM><<<grid, THREADS, smem, stream>>>(a);
+  else
+    sweep_level<T, P, false, STREAM><<<grid, THREADS, smem, stream>>>(a);
+  REPRO_LAUNCH_CHECK();
+  return 0;
+}
+
+// Level l of a resident sweep whose tiles of that level start at `mbr_l`.
 template <typename T, typename P>
 int launch_level(const void* queries, const T* mbr_l, const void* parent, void* act,
                  long long nq, int l, long long width, int mode, int block_w,
-                 cudaStream_t stream) {
+                 const Plan& plan, cudaStream_t stream) {
   const size_t plane = (size_t)nq * (size_t)width;  // mask bytes per level
-  const uint8_t* prev = l > 0 ? (const uint8_t*)act + (size_t)(l - 1) * plane : nullptr;
-  sweep_level<T, P><<<sweep_grid(nq, width, block_w), block_w, 0, stream>>>(
-      (const typename QueryOf<T>::type*)queries, mbr_l,
-      (const P*)parent + (size_t)l * (size_t)width, prev,
-      (uint8_t*)act + (size_t)l * plane, nq, width, mode);
-  REPRO_LAUNCH_CHECK();
-  return 0;
+  SweepLevel a{};
+  a.queries = queries;
+  a.mbr = mbr_l;
+  a.parent = (const P*)parent + (size_t)l * (size_t)width;
+  a.prev = l > 0 ? (const uint8_t*)act + (size_t)(l - 1) * plane : nullptr;
+  a.act = (uint8_t*)act + (size_t)l * plane;
+  a.nq = nq;
+  a.width = width;
+  a.mode = mode;
+  return launch<T, P, false>(a, plan, block_w, stream);
 }
 
 template <typename T, typename P>
@@ -144,10 +523,11 @@ int sweep(const void* queries, const void* mbr_cm, const void* parent, void* act
           long long nq, int levels, long long width, int root_unconditional,
           int uncond_from, int block_w, cudaStream_t stream) {
   if (nq == 0 || width == 0) return 0;
+  const Plan plan = plan_sweep(nq, width, block_w, act);
   for (int l = 0; l < levels; ++l) {
     const int rc = launch_level<T, P>(
         queries, (const T*)mbr_cm + (size_t)l * 4 * (size_t)width, parent, act, nq, l,
-        width, level_mode(l, root_unconditional, uncond_from), block_w, stream);
+        width, level_mode(l, root_unconditional, uncond_from), block_w, plan, stream);
     if (rc) return rc;
   }
   return 0;
@@ -161,33 +541,35 @@ int sweep_hier(const void* q8, const void* q16, const void* mbr8, const void* mb
                long long width, int root_unconditional, int uncond_from, int block_w,
                cudaStream_t stream) {
   if (nq == 0 || width == 0) return 0;
+  const Plan plan = plan_sweep(nq, width, block_w, act);
   for (int l = 0; l < levels; ++l) {
     const int mode = level_mode(l, root_unconditional, uncond_from);
     const int rc = l < split
         ? launch_level<uint8_t, P>(
               q8, (const uint8_t*)mbr8 + (size_t)l * 4 * (size_t)width, parent, act,
-              nq, l, width, mode, block_w, stream)
+              nq, l, width, mode, block_w, plan, stream)
         : launch_level<uint16_t, P>(
               q16, (const uint16_t*)mbr16 + (size_t)(l - split) * 4 * (size_t)width,
-              parent, act, nq, l, width, mode, block_w, stream);
+              parent, act, nq, l, width, mode, block_w, plan, stream);
     if (rc) return rc;
   }
   return 0;
 }
 
-// ---- kernel #2: the streaming sweep with the dead-window skip ----------
+// ---- kernel #2's survivor prefix (wide windows) -------------------------
 
-constexpr int SCAN_THREADS = 256;
 constexpr int SCAN_ITEMS = 16;
-constexpr long long SCAN_SEG = (long long)SCAN_THREADS * SCAN_ITEMS;  // slots per block
+constexpr long long SCAN_SEG = (long long)THREADS * SCAN_ITEMS;  // slots per partition
+constexpr unsigned long long SCAN_AGGREGATE = 1ULL << 62;
+constexpr unsigned long long SCAN_INCLUSIVE = 2ULL << 62;
 
 inline long long round_up(long long v, long long m) { return (v + m - 1) / m * m; }
 
-// Exclusive scan of one int per thread over a block of SCAN_THREADS
-// threads: returns this thread's exclusive prefix, the block's total in
-// *total.  Every thread of the block must call it.
+// Exclusive scan of one int per thread over a block of THREADS threads:
+// returns this thread's exclusive prefix, the block's total in *total.
+// Every thread of the block must call it.
 __device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[SCAN_THREADS / 32];
+  __shared__ int warp_sums[THREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int x = v;
   for (int d = 1; d < 32; d <<= 1) {
@@ -197,144 +579,109 @@ __device__ int block_exclusive_scan(int v, int* total) {
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int s = lane < SCAN_THREADS / 32 ? warp_sums[lane] : 0;
+    int s = lane < THREADS / 32 ? warp_sums[lane] : 0;
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, s, d);
       if (lane >= d) s += y;
     }
-    if (lane < SCAN_THREADS / 32) warp_sums[lane] = s;
+    if (lane < THREADS / 32) warp_sums[lane] = s;
   }
   __syncthreads();
   const int r = (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-  *total = warp_sums[SCAN_THREADS / 32 - 1];
-  __syncthreads();  // warp_sums is reused by the next call
+  *total = warp_sums[THREADS / 32 - 1];
   return r;
 }
 
-// seg[b] = number of set bytes of any[b*SCAN_SEG, (b+1)*SCAN_SEG).
-__global__ void any_segment_sums(const uint8_t* __restrict__ any, long long width,
-                                 int* __restrict__ seg) {
-  const long long base = (long long)blockIdx.x * SCAN_SEG + (long long)threadIdx.x * SCAN_ITEMS;
-  int s = 0;
-  for (int i = 0; i < SCAN_ITEMS; ++i)
-    if (base + i < width) s += any[base + i];
+// prefix[w] = number of set bytes of any[0, w), for w in [0, width], in one
+// pass.  state[0] hands out partitions in launch order; state[1 + p] is
+// partition p's count (SCAN_AGGREGATE) and then its inclusive prefix
+// (SCAN_INCLUSIVE), flag and value in one 64-bit word.  A partition adds
+// up its predecessors' words back to the first inclusive one (decoupled
+// look-back); each waits only on partitions handed out before it, which
+// are running, so the scan cannot deadlock.  state is zero at launch.
+__global__ void __launch_bounds__(THREADS) any_prefix_scan(
+    const uint8_t* __restrict__ any, long long width, int32_t* __restrict__ prefix,
+    unsigned long long* state) {
+  __shared__ long long s_part;
+  __shared__ int s_excl;
+  if (threadIdx.x == 0) s_part = (long long)atomicAdd(state, 1ULL);
+  __syncthreads();
+  const long long part = s_part;
+  const long long base = part * SCAN_SEG + (long long)threadIdx.x * SCAN_ITEMS;
+  uint32_t words[4] = {0u, 0u, 0u, 0u};
+  if (base + SCAN_ITEMS <= width) {
+    const uint4 u = *reinterpret_cast<const uint4*>(any + base);
+    words[0] = u.x;
+    words[1] = u.y;
+    words[2] = u.z;
+    words[3] = u.w;
+  } else {
+    for (int i = 0; i < SCAN_ITEMS; ++i)
+      if (base + i < width) words[i / 4] |= (uint32_t)any[base + i] << (8 * (i % 4));
+  }
+  int count = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) count += (int)((words[i] * 0x01010101u) >> 24);  // bytes are 0 / 1
   int total;
-  block_exclusive_scan(s, &total);
-  if (threadIdx.x == 0) seg[blockIdx.x] = total;
-}
-
-// In place: seg[b] = sum of seg[0, b) (one block).
-__global__ void scan_segments(int* __restrict__ seg, int n_seg) {
-  int carry = 0;
-  for (int base = 0; base < n_seg; base += SCAN_THREADS) {
-    const int i = base + threadIdx.x;
-    const int v = i < n_seg ? seg[i] : 0;
-    int total;
-    const int e = block_exclusive_scan(v, &total);
-    if (i < n_seg) seg[i] = carry + e;
-    carry += total;
-  }
-}
-
-// prefix[w] = number of set bytes of any[0, w), for w in [0, width].
-__global__ void any_prefix(const uint8_t* __restrict__ any, long long width,
-                           const int* __restrict__ seg_off, int* __restrict__ prefix) {
-  const long long base = (long long)blockIdx.x * SCAN_SEG + (long long)threadIdx.x * SCAN_ITEMS;
-  int v[SCAN_ITEMS];
-  int s = 0;
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    v[i] = base + i < width ? any[base + i] : 0;
-    s += v[i];
-  }
-  int total;
-  int run = seg_off[blockIdx.x] + block_exclusive_scan(s, &total);
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long w = base + i;
-    if (w < width) {
-      prefix[w] = run;
-      run += v[i];
-      if (w == width - 1) prefix[width] = run;
-    }
-  }
-}
-
-// One level of the streaming sweep.  Block (x, y) holds query chunk x and
-// walks tiles t = y, y + gridDim.y, ...; a tile is blockDim.x (= block_w)
-// slots wide, the tiling of win_off.
-template <typename T, typename P>
-__global__ void stream_sweep_level(const typename QueryOf<T>::type* __restrict__ queries,
-                                   const T* __restrict__ mbr,          // (4, W) of level l
-                                   const P* __restrict__ parent,       // (W,) of level l
-                                   const uint8_t* __restrict__ prev,   // (Q, W) of level l-1
-                                   uint8_t* __restrict__ act,          // (Q, W) of level l
-                                   const int32_t* __restrict__ win_off,     // (T,) of level l
-                                   const int32_t* __restrict__ prev_prefix, // (W+1,) or null
-                                   uint8_t* __restrict__ any_out,      // (W,) or null
-                                   unsigned long long* __restrict__ skipped,
-                                   long long nq, long long width, int n_tiles, int win_w,
-                                   int mode) {
-  using Q = typename QueryOf<T>::type;
-  const long long q0 = (long long)blockIdx.x * QCHUNK;
-  const int nqc = (nq - q0 < QCHUNK) ? (int)(nq - q0) : QCHUNK;
-  for (int t = blockIdx.y; t < n_tiles; t += gridDim.y) {
-    const long long w = (long long)t * blockDim.x + threadIdx.x;
-    const int off = win_off[t];
-    bool skip = off < 0;  // statically empty tile
-    if (!skip && mode == GATED) {  // dead parent window
-      const long long lo = off < width ? off : width;
-      const long long end = (long long)off + win_w;
-      skip = prev_prefix[end < width ? end : width] == prev_prefix[lo];
-    }
-    if (skip) {
-      if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(skipped, 1ULL);
-      if (w < width)
-        for (int k = 0; k < nqc; ++k) act[(q0 + k) * width + w] = 0;
-      continue;
-    }
-    if (w >= width) continue;
-    bool any = false;
-    if (mode == ROOT_ONLY) {
-      for (int k = 0; k < nqc; ++k) act[(q0 + k) * width + w] = (w == 0);
-      any = (w == 0) && nqc > 0;
-    } else {
-      const Q lx = (Q)mbr[w];
-      const Q ly = (Q)mbr[width + w];
-      const Q hx = (Q)mbr[2 * width + w];
-      const Q hy = (Q)mbr[3 * width + w];
-      const long long pw = (mode == GATED) ? (long long)parent[w] : 0;
-      for (int k = 0; k < nqc; ++k) {
-        const Q* qr = queries + (q0 + k) * 4;
-        bool a = (lx <= qr[2]) & (qr[0] <= hx) & (ly <= qr[3]) & (qr[1] <= hy);
-        if (mode == GATED) a = a && prev[(q0 + k) * width + pw] != 0;
-        act[(q0 + k) * width + w] = a;
-        any = any || a;
+  const int excl_in_block = block_exclusive_scan(count, &total);
+  if (threadIdx.x == 0) {
+    int excl = 0;
+    if (part > 0) {
+      atomicExch(state + 1 + part, SCAN_AGGREGATE | (unsigned int)total);
+      for (long long p = part - 1;; --p) {
+        unsigned long long s;
+        do {
+          s = atomicAdd(state + 1 + p, 0ULL);
+        } while ((s >> 62) == 0);
+        excl += (int)(s & 0xffffffffu);
+        if ((s >> 62) == 2) break;
       }
     }
-    if (any_out != nullptr && any) any_out[w] = 1;
+    atomicExch(state + 1 + part, SCAN_INCLUSIVE | (unsigned int)(excl + total));
+    s_excl = excl;
   }
+  __syncthreads();
+  int run = s_excl + excl_in_block;
+  int out[SCAN_ITEMS];
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    out[i] = run;
+    run += (int)((words[i / 4] >> (8 * (i % 4))) & 0xffu);
+  }
+  if (base + SCAN_ITEMS <= width) {
+    int4* dst = reinterpret_cast<int4*>(prefix + base);
+#pragma unroll
+    for (int i = 0; i < SCAN_ITEMS / 4; ++i)
+      dst[i] = make_int4(out[4 * i], out[4 * i + 1], out[4 * i + 2], out[4 * i + 3]);
+  } else {
+    for (int i = 0; i < SCAN_ITEMS; ++i)
+      if (base + i < width) prefix[base + i] = out[i];
+  }
+  if (base < width && width <= base + SCAN_ITEMS) prefix[width] = run;
 }
 
-// Scratch of one streaming sweep: the any row, its prefix and the segment
-// sums, each 16-byte aligned.
+// Scratch of one streaming sweep, each part 16-byte aligned: three any
+// rows, the prefix and the scan state (a ticket and one word a partition).
 struct StreamScratch {
-  uint8_t* any;
-  int* prefix;
-  int* seg;
-  int n_seg;
+  uint8_t* any[3];
+  int32_t* prefix;
+  unsigned long long* state;
+  int n_parts;
 };
 
 inline long long stream_workspace_bytes(long long width) {
-  const long long n_seg = (width + SCAN_SEG - 1) / SCAN_SEG;
-  return round_up(width, 16) + round_up((width + 1) * 4, 16) + round_up(n_seg * 4, 16);
+  const long long n_parts = (width + SCAN_SEG - 1) / SCAN_SEG;
+  return 3 * round_up(width, 16) + round_up((width + 1) * 4, 16) + round_up((n_parts + 1) * 8, 16);
 }
 
 inline StreamScratch stream_scratch(void* workspace, long long width) {
   char* p = (char*)workspace;
   StreamScratch s;
-  s.any = (uint8_t*)p;
-  s.prefix = (int*)(p + round_up(width, 16));
-  s.seg = (int*)(p + round_up(width, 16) + round_up((width + 1) * 4, 16));
-  s.n_seg = (int)((width + SCAN_SEG - 1) / SCAN_SEG);
+  for (int i = 0; i < 3; ++i) s.any[i] = (uint8_t*)(p + i * round_up(width, 16));
+  p += 3 * round_up(width, 16);
+  s.prefix = (int32_t*)p;
+  s.state = (unsigned long long*)(p + round_up((width + 1) * 4, 16));
+  s.n_parts = (int)((width + SCAN_SEG - 1) / SCAN_SEG);
   return s;
 }
 
@@ -346,34 +693,42 @@ int sweep_stream(const void* queries, const void* mbr_cm, const void* parent, vo
   if (nq == 0 || width == 0) return 0;
   const long long n_tiles = (width + block_w - 1) / block_w;
   const StreamScratch s = stream_scratch(workspace, width);
+  const bool wide = (long long)win_w > (long long)WIDE_WINDOW * block_w;
+  const Plan plan = plan_sweep(nq, width, block_w, act);
   const size_t plane = (size_t)nq * (size_t)width;
-  const dim3 grid((unsigned int)((nq + QCHUNK - 1) / QCHUNK),
-                  (unsigned int)(n_tiles < 65535 ? n_tiles : 65535));
+  // Only a level whose successor is gated marks its any row.
+  auto marks = [&](int l) {
+    return l + 1 < levels && level_mode(l + 1, root_unconditional, uncond_from) == GATED;
+  };
+  if (marks(0)) {
+    const cudaError_t e = cudaMemsetAsync(s.any[0], 0, (size_t)width, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   for (int l = 0; l < levels; ++l) {
     const int mode = level_mode(l, root_unconditional, uncond_from);
-    // Only a level whose successor is gated needs its any row.
-    const bool write_any =
-        l + 1 < levels && level_mode(l + 1, root_unconditional, uncond_from) == GATED;
-    if (write_any) {
-      const cudaError_t e = cudaMemsetAsync(s.any, 0, (size_t)width, stream);
-      if (e != cudaSuccess) return (int)e;
-    }
-    stream_sweep_level<T, P><<<grid, block_w, 0, stream>>>(
-        (const typename QueryOf<T>::type*)queries,
-        (const T*)mbr_cm + (size_t)l * 4 * (size_t)width,
-        (const P*)parent + (size_t)l * (size_t)width,
-        l > 0 ? (const uint8_t*)act + (size_t)(l - 1) * plane : nullptr,
-        (uint8_t*)act + (size_t)l * plane,
-        (const int32_t*)win_off + (size_t)l * (size_t)n_tiles,
-        mode == GATED ? s.prefix : nullptr, write_any ? s.any : nullptr,
-        (unsigned long long*)skipped, nq, width, (int)n_tiles, win_w, mode);
-    REPRO_LAUNCH_CHECK();
-    if (write_any) {
-      any_segment_sums<<<s.n_seg, SCAN_THREADS, 0, stream>>>(s.any, width, s.seg);
-      REPRO_LAUNCH_CHECK();
-      scan_segments<<<1, SCAN_THREADS, 0, stream>>>(s.seg, s.n_seg);
-      REPRO_LAUNCH_CHECK();
-      any_prefix<<<s.n_seg, SCAN_THREADS, 0, stream>>>(s.any, width, s.seg, s.prefix);
+    SweepLevel a{};
+    a.queries = queries;
+    a.mbr = (const T*)mbr_cm + (size_t)l * 4 * (size_t)width;
+    a.parent = (const P*)parent + (size_t)l * (size_t)width;
+    a.prev = l > 0 ? (const uint8_t*)act + (size_t)(l - 1) * plane : nullptr;
+    a.act = (uint8_t*)act + (size_t)l * plane;
+    a.nq = nq;
+    a.width = width;
+    a.mode = mode;
+    a.win_off = (const int32_t*)win_off + (size_t)l * (size_t)n_tiles;
+    a.win_w = win_w;
+    a.any_prev = mode == GATED && !wide ? s.any[(l + 2) % 3] : nullptr;
+    a.prefix = mode == GATED && wide ? s.prefix : nullptr;
+    a.any_out = marks(l) ? s.any[l % 3] : nullptr;
+    a.any_clear = marks(l + 1) ? s.any[(l + 1) % 3] : nullptr;
+    a.scan_state = marks(l) && wide ? s.state : nullptr;
+    a.scan_words = s.n_parts + 1;
+    a.skipped = (unsigned long long*)skipped;
+    const int rc = launch<T, P, true>(a, plan, block_w, stream);
+    if (rc) return rc;
+    if (marks(l) && wide) {
+      any_prefix_scan<<<s.n_parts, THREADS, 0, stream>>>(s.any[l % 3], width, s.prefix,
+                                                         s.state);
       REPRO_LAUNCH_CHECK();
     }
   }
@@ -396,6 +751,7 @@ int repro_level_sweep(const void* queries, const void* mbr_cm, const void* paren
                       int levels, long long width, int root_unconditional,
                       int uncond_from, int block_w, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (block_w % 32 || block_w < 32 || block_w > 1024) return (int)cudaErrorInvalidValue;
   if (!tile_u16 && !parent_u16)
     return sweep<float, int32_t>(queries, mbr_cm, parent, act, nq, levels, width,
                                  root_unconditional, uncond_from, block_w, s);
@@ -418,6 +774,7 @@ int repro_level_sweep_hier(const void* q8, const void* q16, const void* mbr8,
                            int block_w, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (split < 0 || split > levels) return (int)cudaErrorInvalidValue;
+  if (block_w % 32 || block_w < 32 || block_w > 1024) return (int)cudaErrorInvalidValue;
   if (parent_u16)
     return sweep_hier<uint16_t>(q8, q16, mbr8, mbr16, parent, act, nq, levels, split,
                                 width, root_unconditional, uncond_from, block_w, s);
@@ -434,8 +791,8 @@ long long repro_level_sweep_stream_workspace(long long width) {
 // tiles, each with int32 or uint16 parents); win_off: (L, T) int32 with
 // T = ceil(W / block_w), win_w as `parent_windows` gives them; skipped:
 // one int64 the count of skipped (level, tile) pairs is added to;
-// workspace: repro_level_sweep_stream_workspace(W) bytes.  Returns 0 or
-// the CUDA error of a launch.
+// workspace: repro_level_sweep_stream_workspace(W) bytes, 16-byte aligned.
+// Returns 0 or the CUDA error of a launch.
 int repro_level_sweep_stream(const void* queries, const void* mbr_cm, const void* parent,
                              void* act, const void* win_off, int win_w, void* skipped,
                              void* workspace, int tile_u16, int parent_u16, long long nq,
@@ -443,6 +800,8 @@ int repro_level_sweep_stream(const void* queries, const void* mbr_cm, const void
                              int uncond_from, int block_w, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (win_w < 1) return (int)cudaErrorInvalidValue;
+  if (block_w % 32 || block_w < 32 || block_w > 1024) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)workspace % 16) return (int)cudaErrorInvalidValue;
 #define REPRO_STREAM(T, P)                                                              \
   return sweep_stream<T, P>(queries, mbr_cm, parent, act, win_off, win_w, skipped,      \
                             workspace, nq, levels, width, root_unconditional,           \
