@@ -66,7 +66,12 @@ it and read just after):
      ``block_w`` 64, 128, 256 and 512, every tile and parent type each
      kernel takes, ``root_unconditional`` both ways and ``uncond_from``
      None, 1 and L - 1; #2's skip count against the plain rule; fails
-     unless #2 took its prefix-scan path (wide windows) at least once;
+     unless #2 took its prefix-scan path (wide windows) at least once.
+     Kernel #4 at n 1-100,000 (around 5^l and the shared-memory bound),
+     levels 1, 2, default and 20, on uniform, identical, one-point and
+     signed-zero boxes, by its bits but for zero signs (C12), and twice
+     (deterministic); kernel #6 at every pair of widths 1-4,097, K 1, 3
+     and 11, float32 and uint16, symmetric both ways, by equality;
  12. join path: ``mqr.join(rtree)`` at float32 and with the left side at
      ``precision="compact"``, the symmetric self-join ``mqr.join(mqr)``, a
      device-built pyramid over ``exponential_squares(tree_n, seed=2)``
@@ -114,8 +119,9 @@ it and read just after):
      decode step beside the plain dense decode over all blocks;
  16. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
-     #8-#10, floating reductions, within ``rtol |plain| + row_rms x RMS of
-     the row``: float32 (1e-4, 1e-4), rmsnorm (1e-5, 1e-5); bfloat16
+     #4's float32 bounds by their bits; #8-#10, floating reductions,
+     within ``rtol |plain| + row_rms x RMS of the row``: float32 (1e-4,
+     1e-4), rmsnorm (1e-5, 1e-5); bfloat16
      (2e-2, 3e-2); #8 and #9's limits must reject the plain version with
      one block of keys left out; #8 also at D 128, at S 320, 200 and 64,
      and #10 at d 2050 and on a base one element off 16-byte alignment),
@@ -127,8 +133,10 @@ it and read just after):
      for #8 the causal FLOPs at the tensor-core bf16 peak or the float32
      CUDA-core peak) and, for #8 and #10, one PyTorch library call on the
      same inputs (``scaled_dot_product_attention``, ``rms_norm``); beside
-     the rows of #1, the device time of one fill (``zero_()``) of the same
-     (L, Q, W) bytes, a practical store-rate floor printed as context;
+     the rows of #1 and #6, the device time of one fill (``zero_()``) of
+     the same mask bytes, a practical store-rate floor printed as context;
+     before #4's row, its device time by level and kernel (the profiler's
+     kernels in launch order) and its launches a level;
  17. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one call per path (region
@@ -260,6 +268,67 @@ def device_ms(fn, repeats: int = REPEATS) -> float:
     return total_us / repeats / 1e3
 
 
+def kernel_name(name: str) -> str:
+    """A profiler kernel name without namespace, template arguments,
+    parameters or return type: ``reduce_level``."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0].strip()
+    return name.split()[-1].split("::")[-1] if name else name
+
+
+def kernel_events(fn, repeats: int = REPEATS) -> list[tuple[str, float]]:
+    """Every device kernel of ``repeats`` calls of ``fn()`` after a warm-up,
+    in launch order, as (short name, device µs) from the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            sync()
+    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    return [(kernel_name(e.name), e.time_range.elapsed_us()) for e in evts]
+
+
+def build_breakdown(fn, levels: int, repeats: int = REPEATS):
+    """Kernel #4's device time by level and kernel: ``fn()`` is one
+    ``build_levels`` call of ``levels`` levels.  Each level of the build
+    ends with its reduction kernel (``reduce_*``), so the launches are
+    assigned to levels in launch order.  Returns (rows, names): rows[l]
+    maps a kernel name to (mean µs a call, launches a call) at level l."""
+    rows = [{} for _ in range(levels)]
+    names: list[str] = []
+    level = 0
+    for name, us in kernel_events(fn, repeats):
+        if name not in names:
+            names.append(name)
+        t, c = rows[level].get(name, (0.0, 0))
+        rows[level][name] = (t + us / repeats, c + 1)
+        if name.startswith("reduce"):
+            level = (level + 1) % levels
+    rows = [{k: (t, c // repeats) for k, (t, c) in r.items()} for r in rows]
+    return rows, names
+
+
+def print_breakdown(rows, names, label: str) -> None:
+    """Print :func:`build_breakdown`'s table: µs (launches) per level and
+    kernel, each level's sum, and the whole call's."""
+    print(f"  {label}: device µs (launches) by level and kernel", flush=True)
+    print("    level | " + " | ".join(names) + " | level total", flush=True)
+    total = launches = 0
+    for l, r in enumerate(rows):
+        cells = [f"{r[k][0]:.1f} ({r[k][1]})" if k in r else "-" for k in names]
+        t, c = sum(v[0] for v in r.values()), sum(v[1] for v in r.values())
+        total, launches = total + t, launches + c
+        print(f"    {l} | " + " | ".join(cells) + f" | {t:.1f} ({c})", flush=True)
+    print(f"    all levels: {total:.1f} µs in {launches} launches", flush=True)
+
+
 def wall_ms(fn, repeats: int = REPEATS) -> float:
     """Median host time of ``fn()`` ending in a synchronize, in ms."""
     times = []
@@ -317,6 +386,125 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     if b.dtype == torch.uint16:
         b = b.to(torch.int32)
     return a.shape == b.shape and a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Exact equality, float32 arrays by their bits (so -0.0 != +0.0)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return same(a, b)
+
+
+def zero_sign_only(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Entries where two float32 arrays differ only in the sign of a zero,
+    or -1 if they differ anywhere else."""
+    if not same(a, b):  # value equality: -0.0 == +0.0
+        return -1
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def edge_build_data(kind: str, n: int, seed: int) -> np.ndarray:
+    """(n, 4) float32 boxes for kernel #4's edge shapes: ``uniform`` squares,
+    ``identical`` boxes (every object in one group at every level: the most
+    contended atomics), ``points`` at one location, ``signed`` mixed-sign
+    coordinates of which ~30 % are +0.0 or -0.0."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        lo = rng.random((n, 2))
+        return np.concatenate([lo, lo + rng.random((n, 2)) * 0.01], axis=1).astype(np.float32)
+    if kind == "identical":
+        return np.tile(np.array([[0.25, 0.25, 0.5, 0.5]], np.float32), (n, 1))
+    if kind == "points":
+        return np.tile(np.array([[-3.0, 7.5, -3.0, 7.5]], np.float32), (n, 1))
+    lo = rng.uniform(-1.0, 1.0, (n, 2))
+    d = np.concatenate([lo, lo + rng.random((n, 2)) * 0.5], axis=1).astype(np.float32)
+    pick = rng.random((n, 4))
+    d[pick < 0.15] = 0.0
+    d[(pick >= 0.15) & (pick < 0.3)] = -0.0
+    return d
+
+
+EDGE_BUILD_N = (1, 2, 5, 6, 24, 25, 26, 3125, 3126, 4097, 100_000)
+EDGE_BUILD_KINDS = ("uniform", "identical", "points", "signed")
+
+
+def edge_builds(ops, dev, seed: int):
+    """Kernel #4 against its plain version at every edge shape: n around
+    5^l and the shared-memory bound, levels 1, 2, default and 20, every
+    data kind.  group_of, parent and n_real must be equal and mbr_cm equal
+    by its bits, but for zeros whose sign the plain version leaves to the
+    order its atomics land in (ROADMAP C12; counted); a second kernel call
+    must give the same bits.  Returns (calls, entries differing only in a
+    zero's sign, failures)."""
+    from repro_torch.core import bulk
+
+    calls, zero_signs, bad = 0, 0, []
+    for kind in EDGE_BUILD_KINDS:
+        for n in EDGE_BUILD_N:
+            obj = torch.from_numpy(edge_build_data(kind, n, seed + n)).to(dev)
+            for levels in sorted({1, 2, bulk.default_levels(n), 20}):
+                got = ops.build_levels(obj, levels=levels)
+                again = ops.build_levels(obj, levels=levels)
+                want = ops.build_levels_torch(obj, levels=levels)
+                calls += 1
+                where = f"{kind}, n {n}, L {levels}"
+                if not all(same_bits(a, b) for a, b in zip(got, again)):
+                    bad.append(f"#4 not deterministic at {where}")
+                ints = all(same(got[i], want[i]) for i in (0, 2, 3))
+                zs = zero_sign_only(got[1], want[1])
+                if not ints or zs < 0:
+                    bad.append(f"#4 at {where}")
+                else:
+                    zero_signs += zs
+    return calls, zero_signs, bad
+
+
+EDGE_PAIR_W = (1, 15, 16, 17, 127, 128, 129, 4097)
+EDGE_PAIR_K = (1, 3, 11)
+
+
+def edge_pair_side(k_levels: int, width: int, u16: bool, rng):
+    """(K, 4, W) tiles and (K, W) int32 parents of a synthetic schedule:
+    boxes that shrink with depth, ~10 % empty slots, random parents."""
+    c = rng.random((k_levels, 2, width))
+    half = rng.random((k_levels, 2, width)) * (0.5 / 2.0 ** np.arange(k_levels))[:, None, None]
+    cm = np.concatenate([c - half, c + half], axis=1).astype(np.float32)
+    empty = rng.random((k_levels, width)) < 0.1
+    cm[:, :2][np.broadcast_to(empty[:, None], (k_levels, 2, width))] = np.inf
+    cm[:, 2:][np.broadcast_to(empty[:, None], (k_levels, 2, width))] = -np.inf
+    parent = rng.integers(0, width, (k_levels, width), dtype=np.int32)
+    if u16:
+        cells = np.clip(np.nan_to_num(cm, posinf=1.0, neginf=0.0) * 65535.0, 0, 65535)
+        cm = np.rint(cells).astype(np.int32)
+    return cm, parent
+
+
+def edge_pairs(ops, dev, seed: int):
+    """Kernel #6 against its plain version, by equality, at every pair of
+    edge widths, K 1, 3 and 11, float32 and uint16 tiles; the symmetric
+    sweep at every width.  Returns (calls, failures)."""
+    rng = np.random.default_rng(seed)
+    calls, bad = 0, []
+
+    def put(cm, parent, u16):
+        t = torch.from_numpy(cm).to(dev)
+        return (t.to(torch.uint16) if u16 else t), torch.from_numpy(parent).to(dev)
+
+    for k_levels in EDGE_PAIR_K:
+        for u16 in (False, True):
+            sides = {w: put(*edge_pair_side(k_levels, w, u16, rng), u16) for w in EDGE_PAIR_W}
+            for wa in EDGE_PAIR_W:
+                for wb in EDGE_PAIR_W:
+                    for sym in ((False, True) if wa == wb else (False,)):
+                        a = sides[wa]
+                        b = a if sym else sides[wb]
+                        got = ops.pair_sweep(*a, *b, symmetric=sym)
+                        want = ops.pair_sweep_torch(*a, *b, symmetric=sym)
+                        calls += 1
+                        if not same(got, want):
+                            bad.append(f"#6 {'u16' if u16 else 'f32'} K {k_levels}, "
+                                       f"{wa} x {wb}{', symmetric' if sym else ''}")
+    return calls, bad
 
 
 class Checks:
@@ -462,8 +650,8 @@ def run(args, second) -> int:
     def results():
         plain = ops.device_schedule(data, levels=sched.levels, engine="torch", device=dev)
         for f in ("mbr_cm", "parent", "n_real", "obj_mbr", "obj_level", "obj_slot", "obj_id"):
-            checks.expect(same(getattr(sched, f), getattr(plain, f)),
-                          f"device build == plain build: {f}")
+            checks.expect(same_bits(getattr(sched, f), getattr(plain, f)),
+                          f"device build == plain build: {f} (by its bits)")
         qplain = ops.quantize_schedule(plain, engine="torch")
         out["qplain"] = qplain
         for f in ("mbr_q", "parent_q", "origin", "inv_cell", "confirm_mbr"):
@@ -810,6 +998,15 @@ def run(args, second) -> int:
         check_live("live pyramid, overflow merge", ixs, steps["merge"], queries, points)
         sync()
         paths["live pyramid"] = _lib.counters.snapshot()
+        log = live._updates
+        rows = torch.from_numpy(log.mbr_table[log.base_gids].astype(np.float32)).to(dev)
+        got = ops.build_levels(rows, levels=log.base.schedule.levels)
+        want = ops.build_levels_torch(rows, levels=log.base.schedule.levels)
+        checks.expect(all(same_bits(a, b) for a, b in zip(got, want))
+                      and same_bits(got[1], log.base.schedule.mbr_cm),
+                      f"live pyramid: kernel #4 over the last merge's {rows.shape[0]} rows == "
+                      f"plain version by bits and == the live base schedule")
+        del got, want, rows
         print(f"  launches {paths['live pyramid']}", flush=True)
         expect_launched("live pyramid", ("build_levels", "quantize_cm", "level_sweep_f32",
                                          "level_sweep_u16"))
@@ -1067,9 +1264,27 @@ def run(args, second) -> int:
                                    f"on the prefix scan; {time.perf_counter() - t:.1f} s)")
         checks.expect(total_wide > 0, f"edge shapes: #2's prefix-scan path ran ({total_wide} "
                                       f"calls)")
+        t = time.perf_counter()
+        calls, zero_signs, bad = edge_builds(ops, dev, args.seed)
+        for b in bad[:5]:
+            print(f"    differs: {b}", flush=True)
+        checks.expect(not bad, f"edge shapes of #4: {calls - len(bad)} of {calls} builds (n "
+                               f"{min(EDGE_BUILD_N)}-{max(EDGE_BUILD_N)}, L 1, 2, default and "
+                               f"20; {', '.join(EDGE_BUILD_KINDS)} boxes) == plain version, "
+                               f"float32 by its bits but for {zero_signs} zero bounds whose "
+                               f"sign the plain version leaves to its atomics (C12); "
+                               f"deterministic ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        calls, bad = edge_pairs(ops, dev, args.seed)
+        for b in bad[:5]:
+            print(f"    differs: {b}", flush=True)
+        checks.expect(not bad, f"edge shapes of #6: {calls - len(bad)} of {calls} sweeps (Wa, "
+                               f"Wb in {EDGE_PAIR_W}, K {EDGE_PAIR_K}, float32 and uint16, "
+                               f"symmetric both ways) == plain version "
+                               f"({time.perf_counter() - t:.1f} s)")
         print(f"  edge shapes: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    checks.phase("edge shapes of kernels #1-#3", edge_shapes)
+    checks.phase("edge shapes of kernels #1-#4 and #6", edge_shapes)
 
     # -- join path: kernel #6 on the trees, a device pyramid, a live side --
     from repro_torch.index.join import lower_join
@@ -1357,11 +1572,12 @@ def run(args, second) -> int:
         rows = torch.from_numpy(log.mbr_table[log.base_gids].astype(np.float32)).to(dev)
         got = ops.build_levels(rows, levels=base.levels)
         want = ops.build_levels_torch(rows, levels=base.levels)
-        checks.expect(all(same(a, b) for a, b in zip(got, want))
-                      and same(got[1], base.mbr_cm) and same(got[2], base.parent),
+        checks.expect(all(same_bits(a, b) for a, b in zip(got, want))
+                      and same_bits(got[1], base.mbr_cm) and same(got[2], base.parent),
                       f"moving: kernel #4 over the last merge's {rows.shape[0]} rows == plain "
-                      f"version (max_abs_err {max(max_abs_err(a, b) for a, b in zip(got, want))})"
-                      f" and == the live base schedule")
+                      f"version by bits (max_abs_err "
+                      f"{max(max_abs_err(a, b) for a, b in zip(got, want))}) and == the live "
+                      f"base schedule")
         return sweep, k, sym
 
     def moving_path():
@@ -1576,12 +1792,13 @@ def run(args, second) -> int:
 
     def kernel_row(name, source, replaces, kernel_fn, plain_fn, nbytes, ops_count,
                    launches, tol=None, mutant=None, peak_ops=PEAK_OPS_PER_S, library_fn=None,
-                   fill=False):
+                   fill=False, bits=False):
         """Hold ``kernel_fn()`` against ``plain_fn()`` and time both, beside the
         bound at ``peak_ops`` and ``library_fn``'s time where there is one.
         ``fill`` also prints the device time of one fill of the kernel's
         output (``zero_()``): a practical store-rate floor, context only.
-        With ``tol`` None the two must be equal; a floating reduction, which
+        With ``tol`` None the two must be equal (``bits``: float32 arrays
+        by their bits, so -0.0 != +0.0); a floating reduction, which
         cannot be bit-equal, passes ``tol = (rtol, row_rms)`` and must lie
         within :func:`worst_over_limit`'s limit, and ``mutant = (what, fn)``,
         the plain version with one block of keys left out, must not."""
@@ -1591,8 +1808,10 @@ def run(args, second) -> int:
         want = want if isinstance(want, tuple) else (want,)
         err = max(max_abs_err(a, b) for a, b in zip(got, want))
         if tol is None:
-            ok = len(got) == len(want) and all(same(a, b) for a, b in zip(got, want))
-            checks.expect(ok, f"{name} kernel == plain version on the card (max_abs_err {err})")
+            eq = same_bits if bits else same
+            ok = len(got) == len(want) and all(eq(a, b) for a, b in zip(got, want))
+            checks.expect(ok, f"{name} kernel == plain version on the card"
+                              f"{' by bits' if bits else ''} (max_abs_err {err})")
         else:
             (g,), (w,) = got, want
             worst = worst_over_limit(g, w, *tol)
@@ -1669,6 +1888,11 @@ def run(args, second) -> int:
         pyr = paths.get("pyramid", {})
         extras = paths.get("pyramid extras", {})
         tree = paths.get("tree", {})
+        rows, names = build_breakdown(lambda: ops.build_levels(obj, levels=L), L)
+        print_breakdown(rows, names, f"build_levels at n {W}, L {L}")
+        per_level = [sum(c for _, c in r.values()) for r in rows]
+        print(f"  build_levels: {sum(per_level)} launches a call, at most {max(per_level)} a "
+              f"level", flush=True)
         kernel_row(
             "build_levels", "src/repro_torch/kernels/csrc/build_levels.cu",
             "src/repro/kernels/build.py:215",
@@ -1677,7 +1901,7 @@ def run(args, second) -> int:
             # read the MBRs; write group_of, mbr_cm, parent (24 B/slot) and n_real
             nbytes=obj.numel() * 4 + L * W * (4 + 16 + 4) + L * 4,
             # per level and object: centroids, quadrant, key, 4 min/max, count
-            ops_count=L * W * 16, launches=pyr.get("build_levels", 0),
+            ops_count=L * W * 16, launches=pyr.get("build_levels", 0), bits=True,
         )
         kernel_row(
             "quantize_cm", "src/repro_torch/kernels/csrc/quantize.cu",
@@ -1751,7 +1975,7 @@ def run(args, second) -> int:
                 functools.partial(ops.pair_sweep_torch, *sweep, symmetric=sym),
                 # the (K, Wa, Wb) mask written once; tiles and parents read once
                 nbytes=k * wa * wb + k * (wa + wb) * (4 * sweep[0].element_size() + 4),
-                ops_count=tested * 8, launches=launches,
+                ops_count=tested * 8, launches=launches, fill=True,
             )
 
         for name, label in (("pair_sweep_f32", "mqr x rtree float32"),

@@ -82,10 +82,10 @@
 // * wide windows (the mqr-tree's are 2,048 slots at block_w 128; a
 //   Hilbert-ordered schedule's span the whole width, where a scan per tile
 //   would cost O(T * W)): one single-pass scan with decoupled look-back
-//   (`any_prefix_scan`) turns the row into an exclusive prefix, and the
-//   window test is prefix[hi] == prefix[lo] in O(1).  Per gated level that
-//   is one launch of ceil(W / 4,096) blocks reading W bytes and writing
-//   4 (W + 1): 4 blocks at W 13,534, 245 blocks and ~5 MB at W 1e6.
+//   (`repro_flag_prefix_scan`, common.cuh) turns the row into an exclusive
+//   prefix, and the window test is prefix[hi] == prefix[lo] in O(1).  Per
+//   gated level that is one launch of ceil(W / 4,096) blocks reading W
+//   bytes and writing 4 (W + 1): 4 blocks at W 13,534, 245 blocks and ~5 MB at W 1e6.
 // The any rows rotate over three buffers: level l marks buffer l % 3,
 // clears buffer (l+1) % 3 for level l+1 (its last reader, level l-1 or the
 // scan of level l-2, is done), and clears the scan's state for its own
@@ -100,13 +100,13 @@
 //
 // Measured times, against the bound and the first port: PERF.md §6.
 // Compares stay exact: no fast math, no flush to zero (ROADMAP C1).
-#include "common.cuh"
+#include "mask_io.cuh"
 
 #include <type_traits>
 
 namespace {
 
-constexpr int THREADS = 256;    // threads of a sweep or scan block
+constexpr int THREADS = 256;    // threads of a sweep block
 constexpr int RUN = 16;         // consecutive slots of one thread: one 16-byte store
 constexpr int MAX_QPT = 8;      // queries a thread takes per item, at most
 constexpr int MAX_CHUNK = 256;  // queries of a block's chunk, at most
@@ -114,118 +114,9 @@ constexpr int WIDE_WINDOW = 8;  // windows wider than this many tiles use the sc
 
 enum Mode { ROOT_ONLY = 0, OVERLAP = 1, GATED = 2 };
 
-template <typename T> struct QueryOf { using type = float; };
-template <> struct QueryOf<uint16_t> { using type = int32_t; };
-template <> struct QueryOf<uint8_t> { using type = int32_t; };
-
 inline int level_mode(int l, int root_unconditional, int uncond_from) {
   if (l == 0) return root_unconditional ? ROOT_ONLY : OVERLAP;
   return (l >= uncond_from) ? OVERLAP : GATED;
-}
-
-__device__ __forceinline__ float lowest(float) { return -__int_as_float(0x7f800000); }
-__device__ __forceinline__ float highest(float) { return __int_as_float(0x7f800000); }
-__device__ __forceinline__ int32_t lowest(int32_t) { return INT32_MIN; }
-__device__ __forceinline__ int32_t highest(int32_t) { return INT32_MAX; }
-__device__ __forceinline__ float lo_of(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ float hi_of(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ int32_t lo_of(int32_t a, int32_t b) { return min(a, b); }
-__device__ __forceinline__ int32_t hi_of(int32_t a, int32_t b) { return max(a, b); }
-
-__device__ __forceinline__ float shfl_xor(float v, int d) {
-  return __shfl_xor_sync(0xffffffffu, v, d);
-}
-__device__ __forceinline__ int32_t shfl_xor(int32_t v, int d) {
-  return __shfl_xor_sync(0xffffffffu, v, d);
-}
-
-__device__ __forceinline__ float4 query_vec(const float* q) {
-  return make_float4(q[0], q[1], q[2], q[3]);
-}
-__device__ __forceinline__ int4 query_vec(const int32_t* q) {
-  return make_int4(q[0], q[1], q[2], q[3]);
-}
-
-// The 16 bytes at p, any alignment, from one aligned 16-byte load (two
-// where p is not aligned and `second` says bytes of the next chunk are
-// needed).  Each aligned chunk read holds at least one byte the caller
-// needs, so it lies inside the caller's allocation.
-__device__ __forceinline__ uint4 load16(const void* p, bool second) {
-  const uintptr_t at = (uintptr_t)p;
-  const int sh = (int)(at & 15);
-  const uint4* q = reinterpret_cast<const uint4*>(at - sh);
-  const uint4 lo = __ldg(q);
-  if (sh == 0) return lo;
-  const uint4 hi = second ? __ldg(q + 1) : make_uint4(0u, 0u, 0u, 0u);
-  const int ws = sh >> 2, bs = (sh & 3) * 8;  // bytes sh .. sh + 15 of lo ++ hi
-  const uint32_t w0 = ws == 0 ? lo.x : ws == 1 ? lo.y : ws == 2 ? lo.z : lo.w;
-  const uint32_t w1 = ws == 0 ? lo.y : ws == 1 ? lo.z : ws == 2 ? lo.w : hi.x;
-  const uint32_t w2 = ws == 0 ? lo.z : ws == 1 ? lo.w : ws == 2 ? hi.x : hi.y;
-  const uint32_t w3 = ws == 0 ? lo.w : ws == 1 ? hi.x : ws == 2 ? hi.y : hi.z;
-  const uint32_t w4 = ws == 0 ? hi.x : ws == 1 ? hi.y : ws == 2 ? hi.z : hi.w;
-  return make_uint4(__funnelshift_r(w0, w1, bs), __funnelshift_r(w1, w2, bs),
-                    __funnelshift_r(w2, w3, bs), __funnelshift_r(w3, w4, bs));
-}
-
-// Tile value e of 16 loaded bytes, widened (e a constant after unrolling).
-template <typename T>
-__device__ __forceinline__ typename QueryOf<T>::type value_of(uint4 u, int e) {
-  const int byte = e * (int)sizeof(T);
-  const uint32_t w = byte < 4 ? u.x : byte < 8 ? u.y : byte < 12 ? u.z : u.w;
-  if (sizeof(T) == 4) return (typename QueryOf<T>::type)__uint_as_float(w);
-  const uint32_t v = (w >> (8 * (byte & 3))) & (sizeof(T) == 2 ? 0xffffu : 0xffu);
-  return (typename QueryOf<T>::type)v;
-}
-
-// Parent slots of one 16-byte load, widened to int32 in shared memory.
-__device__ __forceinline__ void stage_parents(uint4 u, int32_t* dst, int32_t) {
-  *reinterpret_cast<int4*>(dst) = make_int4((int)u.x, (int)u.y, (int)u.z, (int)u.w);
-}
-__device__ __forceinline__ void stage_parents(uint4 u, int32_t* dst, uint16_t) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    *reinterpret_cast<int4*>(dst + 4 * i) =
-        make_int4((int)(w[2 * i] & 0xffffu), (int)(w[2 * i] >> 16),
-                  (int)(w[2 * i + 1] & 0xffffu), (int)(w[2 * i + 1] >> 16));
-}
-
-// 16 mask bits -> 16 bytes of 0 / 1, slot k in byte k.
-__device__ __forceinline__ uint32_t nibble_bytes(uint32_t m) {
-  return ((m & 0xfu) * 0x00204081u) & 0x01010101u;
-}
-__device__ __forceinline__ uint4 mask_bytes(uint32_t m) {
-  return make_uint4(nibble_bytes(m), nibble_bytes(m >> 4), nibble_bytes(m >> 8),
-                    nibble_bytes(m >> 12));
-}
-
-// Bytes p .. p + 7 of v (0 <= p < 16; past byte 15 they are zero).
-__device__ __forceinline__ unsigned long long bytes_from(uint4 v, int p) {
-  const unsigned long long lo = ((unsigned long long)v.y << 32) | v.x;
-  const unsigned long long hi = ((unsigned long long)v.w << 32) | v.z;
-  return p == 0 ? lo : p < 8 ? (lo >> (8 * p)) | (hi << (64 - 8 * p)) : hi >> (8 * (p - 8));
-}
-
-// Bytes [p0, p1) of v (0 <= p0 < p1 <= 16, not both 0 and 16) to g + p0,
-// g 16-byte aligned.  A row's first bytes end on a 16-byte boundary and its
-// last start on one, so each goes out in at most four aligned stores of 1,
-// 2, 4 and 8 bytes whose places follow from p0 or p1 alone; a row shorter
-// than 16 bytes, byte by byte.
-__device__ __forceinline__ void store_bytes(uint8_t* g, uint4 v, int p0, int p1) {
-  if (p1 == 16) {  // [p0, 16)
-    if (p0 & 1) g[p0] = (uint8_t)bytes_from(v, p0);
-    const int p2 = (p0 + 1) & ~1, p4 = (p0 + 3) & ~3, p8 = (p0 + 7) & ~7;
-    if ((p2 & 2) && p2 < 16) *reinterpret_cast<uint16_t*>(g + p2) = (uint16_t)bytes_from(v, p2);
-    if ((p4 & 4) && p4 < 16) *reinterpret_cast<uint32_t*>(g + p4) = (uint32_t)bytes_from(v, p4);
-    if ((p8 & 8) && p8 < 16) *reinterpret_cast<unsigned long long*>(g + p8) = bytes_from(v, p8);
-  } else if (p0 == 0) {  // [0, p1)
-    if (p1 & 8) *reinterpret_cast<unsigned long long*>(g) = bytes_from(v, 0);
-    if (p1 & 4) *reinterpret_cast<uint32_t*>(g + (p1 & 8)) = (uint32_t)bytes_from(v, p1 & 8);
-    if (p1 & 2) *reinterpret_cast<uint16_t*>(g + (p1 & 12)) = (uint16_t)bytes_from(v, p1 & 12);
-    if (p1 & 1) g[p1 & 14] = (uint8_t)bytes_from(v, p1 & 14);
-  } else {
-    for (int p = p0; p < p1; ++p) g[p] = (uint8_t)bytes_from(v, p);
-  }
 }
 
 // One level of a sweep.  The kernel #2 fields are null / unused for #1, #3.
@@ -447,18 +338,6 @@ __global__ void __launch_bounds__(THREADS, 4) sweep_level(const SweepLevel a) {
 
 // ---- launch plan, shared by the three entry points ----------------------
 
-inline int sm_count() {
-  static int cached[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 132;
-  if (dev >= 0 && dev < 64 && cached[dev] > 0) return cached[dev];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
-    n = 132;
-  if (dev >= 0 && dev < 64) cached[dev] = n;
-  return n;
-}
-
 struct Plan {
   int qpt;
   long long n_chunks, n_items;  // one block an item
@@ -470,7 +349,7 @@ struct Plan {
 inline Plan plan_sweep(long long nq, long long width, int block_w, const void* act) {
   const int rows = THREADS / (block_w / RUN);
   const long long n_tiles = (width + block_w - 1) / block_w;
-  const long long sms = sm_count();
+  const long long sms = repro_sm_count();
   Plan p;
   p.aligned = width % 16 == 0 && (uintptr_t)act % 16 == 0;
   p.qpt = MAX_CHUNK / rows < MAX_QPT ? (MAX_CHUNK / rows > 0 ? MAX_CHUNK / rows : 1) : MAX_QPT;
@@ -556,110 +435,6 @@ int sweep_hier(const void* q8, const void* q16, const void* mbr8, const void* mb
   return 0;
 }
 
-// ---- kernel #2's survivor prefix (wide windows) -------------------------
-
-constexpr int SCAN_ITEMS = 16;
-constexpr long long SCAN_SEG = (long long)THREADS * SCAN_ITEMS;  // slots per partition
-constexpr unsigned long long SCAN_AGGREGATE = 1ULL << 62;
-constexpr unsigned long long SCAN_INCLUSIVE = 2ULL << 62;
-
-inline long long round_up(long long v, long long m) { return (v + m - 1) / m * m; }
-
-// Exclusive scan of one int per thread over a block of THREADS threads:
-// returns this thread's exclusive prefix, the block's total in *total.
-// Every thread of the block must call it.
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < THREADS / 32 ? warp_sums[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, d);
-      if (lane >= d) s += y;
-    }
-    if (lane < THREADS / 32) warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const int r = (warp > 0 ? warp_sums[warp - 1] : 0) + x - v;
-  *total = warp_sums[THREADS / 32 - 1];
-  return r;
-}
-
-// prefix[w] = number of set bytes of any[0, w), for w in [0, width], in one
-// pass.  state[0] hands out partitions in launch order; state[1 + p] is
-// partition p's count (SCAN_AGGREGATE) and then its inclusive prefix
-// (SCAN_INCLUSIVE), flag and value in one 64-bit word.  A partition adds
-// up its predecessors' words back to the first inclusive one (decoupled
-// look-back); each waits only on partitions handed out before it, which
-// are running, so the scan cannot deadlock.  state is zero at launch.
-__global__ void __launch_bounds__(THREADS) any_prefix_scan(
-    const uint8_t* __restrict__ any, long long width, int32_t* __restrict__ prefix,
-    unsigned long long* state) {
-  __shared__ long long s_part;
-  __shared__ int s_excl;
-  if (threadIdx.x == 0) s_part = (long long)atomicAdd(state, 1ULL);
-  __syncthreads();
-  const long long part = s_part;
-  const long long base = part * SCAN_SEG + (long long)threadIdx.x * SCAN_ITEMS;
-  uint32_t words[4] = {0u, 0u, 0u, 0u};
-  if (base + SCAN_ITEMS <= width) {
-    const uint4 u = *reinterpret_cast<const uint4*>(any + base);
-    words[0] = u.x;
-    words[1] = u.y;
-    words[2] = u.z;
-    words[3] = u.w;
-  } else {
-    for (int i = 0; i < SCAN_ITEMS; ++i)
-      if (base + i < width) words[i / 4] |= (uint32_t)any[base + i] << (8 * (i % 4));
-  }
-  int count = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) count += (int)((words[i] * 0x01010101u) >> 24);  // bytes are 0 / 1
-  int total;
-  const int excl_in_block = block_exclusive_scan(count, &total);
-  if (threadIdx.x == 0) {
-    int excl = 0;
-    if (part > 0) {
-      atomicExch(state + 1 + part, SCAN_AGGREGATE | (unsigned int)total);
-      for (long long p = part - 1;; --p) {
-        unsigned long long s;
-        do {
-          s = atomicAdd(state + 1 + p, 0ULL);
-        } while ((s >> 62) == 0);
-        excl += (int)(s & 0xffffffffu);
-        if ((s >> 62) == 2) break;
-      }
-    }
-    atomicExch(state + 1 + part, SCAN_INCLUSIVE | (unsigned int)(excl + total));
-    s_excl = excl;
-  }
-  __syncthreads();
-  int run = s_excl + excl_in_block;
-  int out[SCAN_ITEMS];
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    out[i] = run;
-    run += (int)((words[i / 4] >> (8 * (i % 4))) & 0xffu);
-  }
-  if (base + SCAN_ITEMS <= width) {
-    int4* dst = reinterpret_cast<int4*>(prefix + base);
-#pragma unroll
-    for (int i = 0; i < SCAN_ITEMS / 4; ++i)
-      dst[i] = make_int4(out[4 * i], out[4 * i + 1], out[4 * i + 2], out[4 * i + 3]);
-  } else {
-    for (int i = 0; i < SCAN_ITEMS; ++i)
-      if (base + i < width) prefix[base + i] = out[i];
-  }
-  if (base < width && width <= base + SCAN_ITEMS) prefix[width] = run;
-}
-
 // Scratch of one streaming sweep, each part 16-byte aligned: three any
 // rows, the prefix and the scan state (a ticket and one word a partition).
 struct StreamScratch {
@@ -670,18 +445,19 @@ struct StreamScratch {
 };
 
 inline long long stream_workspace_bytes(long long width) {
-  const long long n_parts = (width + SCAN_SEG - 1) / SCAN_SEG;
-  return 3 * round_up(width, 16) + round_up((width + 1) * 4, 16) + round_up((n_parts + 1) * 8, 16);
+  const long long n_parts = repro_scan_parts(width);
+  return 3 * repro_round_up(width, 16) + repro_round_up((width + 1) * 4, 16) +
+         repro_round_up((n_parts + 1) * 8, 16);
 }
 
 inline StreamScratch stream_scratch(void* workspace, long long width) {
   char* p = (char*)workspace;
   StreamScratch s;
-  for (int i = 0; i < 3; ++i) s.any[i] = (uint8_t*)(p + i * round_up(width, 16));
-  p += 3 * round_up(width, 16);
+  for (int i = 0; i < 3; ++i) s.any[i] = (uint8_t*)(p + i * repro_round_up(width, 16));
+  p += 3 * repro_round_up(width, 16);
   s.prefix = (int32_t*)p;
-  s.state = (unsigned long long*)(p + round_up((width + 1) * 4, 16));
-  s.n_parts = (int)((width + SCAN_SEG - 1) / SCAN_SEG);
+  s.state = (unsigned long long*)(p + repro_round_up((width + 1) * 4, 16));
+  s.n_parts = (int)repro_scan_parts(width);
   return s;
 }
 
@@ -727,8 +503,8 @@ int sweep_stream(const void* queries, const void* mbr_cm, const void* parent, vo
     const int rc = launch<T, P, true>(a, plan, block_w, stream);
     if (rc) return rc;
     if (marks(l) && wide) {
-      any_prefix_scan<<<s.n_parts, THREADS, 0, stream>>>(s.any[l % 3], width, s.prefix,
-                                                         s.state);
+      repro_flag_prefix_scan<<<s.n_parts, REPRO_SCAN_THREADS, 0, stream>>>(
+          s.any[l % 3], width, s.prefix, s.state);
       REPRO_LAUNCH_CHECK();
     }
   }

@@ -110,3 +110,50 @@ def test_device_schedule_rejects_bad_input():
         ops.device_schedule(np.zeros((3, 4)), engine="pallas", device="cpu")
     with pytest.raises(TypeError):
         build.build_levels(torch.zeros((3, 4), dtype=torch.float64), levels=2)
+
+
+def _level_keys(data, group_of, mbr_cm, l):
+    """Level l's keys as the reference forms them, gid*5 + the quadrant code
+    of an object's centroid about its group's MBR centroid for multi-member
+    groups of level l-1 and gid*5 for singletons, and as the CUDA kernel
+    does, gid*5 + the code for every object (float32 arithmetic)."""
+    g = group_of[l - 1].astype(np.int64)
+    counts = np.bincount(g, minlength=data.shape[0])
+    half = np.float32(0.5)
+    cx, cy = (data[:, 0] + data[:, 2]) * half, (data[:, 1] + data[:, 3]) * half
+    gb = mbr_cm[l - 1][:, g]
+    gcx, gcy = (gb[0] + gb[2]) * half, (gb[1] + gb[3]) * half
+    quad = np.asarray(jbulk.quad_code(*(jnp.asarray(v) for v in (cx, cy, gcx, gcy))))
+    return np.where(counts[g] > 1, g * 5 + quad, g * 5), g * 5 + quad
+
+
+KEY_SPACE_SIZES = (1, 4, 6, 24, 26, 124, 126, 624, 626)
+
+
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("n", KEY_SPACE_SIZES)
+@pytest.mark.parametrize("kind", conftest.DATASET_KINDS + ("duplicates",))
+def test_level_key_space_bounds(kind, n, deep):
+    """The bounds the device build sizes each level by, held on the JAX
+    build: at level l, n_real[l] <= min(n, 5^l) groups, every key lies
+    below K_l = min(5n, 5^l) (so a level's presence bytes and scan cover
+    K_l keys, not 5n), and the keys' dense ranks are level l's group ids,
+    for the reference's keys and for the kernel's, which give a singleton
+    its quadrant code (always EQ: its group MBR is its own box) instead of
+    0 and so need no member counts.  n runs around 5^k; ``deep`` builds 20
+    levels, where 5^l passes int32."""
+    if kind == "duplicates":  # every object one box: one group at every level
+        data = np.tile(_data("uniform_squares", 1), (n, 1))
+    else:
+        data = _data(kind, n)
+    levels = 20 if deep else jbulk.default_levels(n)
+    group_of, mbr_cm, _, n_real = (np.asarray(a) for a in
+                                   jbuild.build_levels_jnp(jnp.asarray(data), levels=levels))
+    assert n_real[0] == 1
+    for l in range(1, levels):
+        assert n_real[l] <= min(n, 5 ** l), (l, n_real[l])
+        for keys in _level_keys(data, group_of, mbr_cm, l):
+            assert 0 <= keys.min() and keys.max() < min(5 * n, 5 ** l), (l, keys.max())
+            ranks = np.unique(keys, return_inverse=True)[1].reshape(-1)
+            assert np.array_equal(ranks, group_of[l]), l
+            assert n_real[l] == np.unique(keys).size

@@ -127,13 +127,51 @@ def _t(a):
     return torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("block", [32, 64])
-@pytest.mark.parametrize("symmetric", [False, True])
-@pytest.mark.parametrize("tiles", ["f32", "u16"])
-def test_pair_sweep_matches_pallas_kernel(tiles, symmetric, block):
+def _ragged_inputs(tiles: str, symmetric: bool, widths):
+    """(a_cm, a_parent, b_cm, b_parent) numpy arrays of two synthetic
+    3-level schedules of widths (Wa, Wb), neither a multiple of 16: boxes
+    that shrink with depth, some empty slots, random parents."""
+    rng = np.random.default_rng(conftest.derived_seed(__name__, f"{tiles}{widths}"))
+
+    def side(w):
+        c = rng.random((3, 2, w))
+        half = rng.random((3, 2, w)) * np.array([0.5, 0.25, 0.125])[:, None, None]
+        cm = np.concatenate([c - half, c + half], axis=1).astype(np.float32)
+        empty = np.broadcast_to((rng.random((3, w)) < 0.1)[:, None], (3, 2, w))
+        cm[:, :2][empty], cm[:, 2:][empty] = np.inf, -np.inf
+        if tiles == "u16":
+            cm = np.rint(np.clip(np.nan_to_num(cm, posinf=1.0, neginf=0.0), 0, 1) * 65535)
+            cm = cm.astype(np.uint16)
+        return cm, rng.integers(0, w, (3, w), dtype=np.int32)
+
+    a_cm, a_par = side(widths[0])
+    b_cm, b_par = (a_cm, a_par) if symmetric else side(widths[1])
+    return a_cm, a_par, b_cm, b_par
+
+
+# (tiles, symmetric, block, widths): the two JAX schedules of _sweep_inputs
+# (widths None) at two block sizes, and synthetic widths that are not
+# multiples of 16 (the card's wide mask stores shift such rows).
+PAIR_SWEEP_CASES = [(t, s, b, None) for t in ("f32", "u16") for s in (False, True)
+                    for b in (32, 64)] + [
+    ("f32", False, 32, (1, 129)), ("u16", False, 64, (129, 1)),
+    ("f32", False, 64, (15, 17)), ("u16", False, 32, (17, 15)),
+    ("u16", False, 32, (129, 17)), ("f32", True, 32, (17, 17)),
+    ("u16", True, 64, (15, 15)), ("f32", True, 64, (129, 129))]
+
+
+@pytest.mark.parametrize(
+    "tiles, symmetric, block, widths", PAIR_SWEEP_CASES,
+    ids=[f"{t}-{s}-{b}" + (f"-{w[0]}x{w[1]}" if w else "")
+         for t, s, b, w in PAIR_SWEEP_CASES])
+def test_pair_sweep_matches_pallas_kernel(tiles, symmetric, block, widths):
     """Every level of the port's mask equals the Pallas kernel's, at two
-    of its block sizes (the mask cannot depend on the tile shape)."""
-    a_cm, a_par, b_cm, b_par = _sweep_inputs(tiles, symmetric)
+    of its block sizes (the mask cannot depend on the tile shape), and at
+    widths that are not multiples of 16."""
+    if widths is None:
+        a_cm, a_par, b_cm, b_par = _sweep_inputs(tiles, symmetric)
+    else:
+        a_cm, a_par, b_cm, b_par = _ragged_inputs(tiles, symmetric, widths)
     want = np.asarray(jjoin_scan.pair_sweep(
         a_cm, a_par, b_cm, b_par, block_a=block, block_b=block, interpret=True,
         symmetric=symmetric))
