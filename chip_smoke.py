@@ -65,8 +65,17 @@ it and read just after):
      Hilbert-ordered copies of the wider ones, at Q 1, 9, 33 and 257,
      ``block_w`` 64, 128, 256 and 512, every tile and parent type each
      kernel takes, ``root_unconditional`` both ways and ``uncond_from``
-     None, 1 and L - 1; #2's skip count against the plain rule; fails
-     unless #2 took its prefix-scan path (wide windows) at least once.
+     None, 1 and L - 1, #3 with ``n_real`` None, the schedule's and the
+     tight one of the plain mask; #2's skip count against the plain rule;
+     fails unless #2 took its prefix-scan path (wide windows) at least once.
+     #3 also at 1 and 20 levels, and on the mqr-tree twice back to back, on
+     two streams at once and with one query after them; all of #3's calls
+     but those through the wrapper with ``n_real`` None write into an
+     output filled with 0xFF first, so a byte read before it was stored
+     shows.  Kernel #7 at N 1,
+     15, 16, 17, 127, 128, 129, 4,097, 13,534 and 14,237 × Q 1, 8, 9, 16,
+     17, 33, 64, 255, 256 and 257, both layouts, every ``block_n`` it
+     accepts, with +inf, NaN and subnormal rows and queries, by equality.
      Kernel #4 at n 1-100,000 (around 5^l and the shared-memory bound),
      levels 1, 2, default and 20, on uniform, identical, one-point and
      signed-zero boxes, by its bits but for zero signs (C12), and twice
@@ -127,14 +136,19 @@ it and read just after):
      and #10 at d 2050 and on a base one element off 16-byte alignment),
      timed on the device (the profiler's kernel time, mean of 7 calls
      after warm-up; one call's CUDA-event window, which also holds the
-     host's time to launch, printed beside it), beside
+     host's time to launch, printed beside it; a row's ``timed_by`` says,
+     for each of its times, ``"events"`` where every trace lost
+     activities and the median event window stands in), beside
      the least time the card needs for the same bytes and operations (for
      the streaming sweep, the tile and parent bytes of the tiles it read;
      for #8 the causal FLOPs at the tensor-core bf16 peak or the float32
      CUDA-core peak) and, for #8 and #10, one PyTorch library call on the
-     same inputs (``scaled_dot_product_attention``, ``rms_norm``); beside
-     the rows of #1 and #6, the device time of one fill (``zero_()``) of
-     the same mask bytes, a practical store-rate floor printed as context;
+     same inputs (``scaled_dot_product_attention``, ``rms_norm``); #7 on
+     the pyramid's widest level and #3 on the mqr-tree also at the
+     autotuner's 16-query probe shape, and #3's CUDA launches a call;
+     beside the rows of #1, #3, #6 and #7, the device time of one fill
+     (``zero_()``) of the same mask bytes, a practical store-rate floor
+     printed as context;
      before #4's row, its device time by level and kernel (the profiler's
      kernels in launch order) and its launches a level;
  17. end-to-end times of builds, region and point batches (first call,
@@ -238,34 +252,59 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, repeats: int = REPEATS) -> float:
-    """Mean device time of ``fn()`` in ms: every kernel, copy and fill it
+TRACE_ATTEMPTS = 4  # traces of one measurement, until none lost device events
+
+
+def complete(counts, repeats: int) -> bool:
+    """Whether a trace of ``repeats`` calls holds every call's device
+    activities: each kernel name a multiple of ``repeats`` times.  The
+    profiler sometimes drops activities (seen on the H100 for the port's
+    kernels), which would make a mean per call too small."""
+    return bool(counts) and all(c % repeats == 0 for c in counts)
+
+
+def device_timing(fn, repeats: int = REPEATS) -> tuple[float, str]:
+    """Mean device time of ``fn()`` in ms, and how it was timed
+    (``"profiler"`` or ``"events"``): every kernel, copy and fill it
     launched, from the profiler's trace of ``repeats`` calls after a
-    warm-up.  An event window around one call also holds the host's time to
-    reach the launch (the wrapper's checks and allocation), which for a
-    kernel of tens of microseconds is as long as the kernel.  Falls back to
-    :func:`time_ms` if the profiler sees no device time."""
+    warm-up, traced again (up to TRACE_ATTEMPTS times) while the trace
+    lost activities.  An event window around one call also holds the
+    host's time to reach the launch (the wrapper's checks and allocation),
+    which for a kernel of tens of microseconds is as long as the kernel.
+    Falls back to :func:`time_ms` if the profiler sees no device time, or
+    lost activities in every trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(repeats):
-                fn()
-            sync()
-        events = prof.key_averages()
+    for _ in range(TRACE_ATTEMPTS):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(repeats):
+                    fn()
+                sync()
+            events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if complete([e.count for e in events], repeats):
+            break
+        print("  (the profiler lost device activities; tracing again)", flush=True)
+    else:
+        print("  (every trace lost device activities; timing with CUDA events)", flush=True)
+        return time_ms(fn, repeats), "events"
     total_us = 0.0
     for evt in events:
-        if evt.device_type == DeviceType.CUDA:
-            total_us += (getattr(evt, "self_device_time_total", None)
-                         or getattr(evt, "self_cuda_time_total", 0))
+        total_us += (getattr(evt, "self_device_time_total", None)
+                     or getattr(evt, "self_cuda_time_total", 0))
     if total_us <= 0:
         print("  (the profiler saw no device time; timing with CUDA events)", flush=True)
-        return time_ms(fn, repeats)
-    return total_us / repeats / 1e3
+        return time_ms(fn, repeats), "events"
+    return total_us / repeats / 1e3, "profiler"
+
+
+def device_ms(fn, repeats: int = REPEATS) -> float:
+    """The time of :func:`device_timing` alone."""
+    return device_timing(fn, repeats)[0]
 
 
 def kernel_name(name: str) -> str:
@@ -278,21 +317,34 @@ def kernel_name(name: str) -> str:
 
 def kernel_events(fn, repeats: int = REPEATS) -> list[tuple[str, float]]:
     """Every device kernel of ``repeats`` calls of ``fn()`` after a warm-up,
-    in launch order, as (short name, device µs) from the profiler."""
+    in launch order, as (short name, device µs) from the profiler (traced
+    again while the trace lost activities, as in :func:`device_ms`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(repeats):
-                fn()
-            sync()
-    evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    for _ in range(TRACE_ATTEMPTS):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(repeats):
+                    fn()
+                sync()
+        evts = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        names = [kernel_name(e.name) for e in evts]
+        if complete([names.count(n) for n in set(names)], repeats):
+            break
+        print("  (the profiler lost device activities; tracing again)", flush=True)
     return [(kernel_name(e.name), e.time_range.elapsed_us()) for e in evts]
+
+
+def launches_a_call(fn) -> list[str]:
+    """The device activities (kernels, memsets) of one call of ``fn()``, by
+    short name in launch order, from the profiler."""
+    events = kernel_events(fn)
+    return [name for name, _ in events[:len(events) // REPEATS]]
 
 
 def build_breakdown(fn, levels: int, repeats: int = REPEATS):
@@ -505,6 +557,165 @@ def edge_pairs(ops, dev, seed: int):
                             bad.append(f"#6 {'u16' if u16 else 'f32'} K {k_levels}, "
                                        f"{wa} x {wb}{', symmetric' if sym else ''}")
     return calls, bad
+
+
+EDGE_SCAN_N = (1, 15, 16, 17, 127, 128, 129, 4097, 13_534, 14_237)
+EDGE_SCAN_Q = (1, 8, 9, 16, 17, 33, 64, 255, 256, 257)  # tiles 1,024, 512 and 256
+EDGE_SCAN_BLOCKS = tuple(range(32, 1025, 32))  # every block_n mbr_scan accepts
+
+
+def edge_scan_data(n: int, nq: int, rng):
+    """(n, 4) MBRs and (nq, 4) queries of kernel #7's edge shapes: small
+    boxes in the unit square, every 7th MBR the +inf sentinel the
+    reference pads with, every 11th with a NaN coordinate, every 13th with
+    subnormal corners; queries sized for a few hits, every 5th the whole
+    domain, every 6th a point, every 9th of subnormal extent (ROADMAP C1)
+    and the 5th (-inf, -inf, inf, inf), which the sentinels overlap."""
+    inf = np.float32(np.inf)
+    lo = rng.random((n, 2), dtype=np.float32)
+    m = np.concatenate([lo, lo + np.float32(0.05) * rng.random((n, 2), dtype=np.float32)],
+                       axis=1)
+    m[::7] = [inf, inf, -inf, -inf]
+    m[5::11, 1] = np.nan
+    m[3::13] = np.array([0.0, 0.0, 1e-45, 1e-45], np.float32)
+    c = rng.random((nq, 2), dtype=np.float32)
+    q = np.concatenate([c - np.float32(0.03), c + np.float32(0.03)], axis=1)
+    q[::5] = [-1.0, -1.0, 2.0, 2.0]
+    q[2::6] = np.concatenate([c[2::6], c[2::6]], axis=1)
+    q[1::9] = np.array([0.0, -1.0, 0.0, -1e-45], np.float32)
+    q[4:5] = [-inf, -inf, inf, inf]
+    return m, q
+
+
+def edge_scans(ops, dev, seed: int):
+    """Kernel #7 against its plain version, by equality, at every edge
+    width and query count, in both layouts (row-major (N, 4), and
+    coordinate-major (4, N) read in place) at every accepted ``block_n``,
+    and once on a row-major base 4 bytes off 16-byte alignment.  Returns
+    (calls, failures)."""
+    rng = np.random.default_rng(seed)
+    calls, bad = 0, []
+    for n in EDGE_SCAN_N:
+        for nq in EDGE_SCAN_Q:
+            m_np, q_np = edge_scan_data(n, nq, rng)
+            m, q = torch.from_numpy(m_np).to(dev), torch.from_numpy(q_np).to(dev)
+            cm = m.T.contiguous()
+            buf = torch.empty(4 * n + 1, dtype=torch.float32, device=dev)
+            buf[1:] = m.reshape(-1)
+            want = ops.mbr_scan_torch(m, q)
+            runs = [("row-major, base off alignment", 512, ops.mbr_scan(buf[1:].view(n, 4), q))]
+            for bn in EDGE_SCAN_BLOCKS:
+                runs.append(("row-major", bn, ops.mbr_scan(m, q, block_n=bn)))
+                runs.append(("coordinate-major", bn, ops.mbr_scan_cm(cm, q, block_n=bn)))
+            for layout, bn, got in runs:
+                calls += 1
+                if not same(got, want):
+                    bad.append(f"#7 {layout}, N {n}, Q {nq}, block_n {bn}")
+    return calls, bad
+
+
+def tight_n_real(act: torch.Tensor) -> torch.Tensor:
+    """(L,) int32: one past each level's last slot that is active for any
+    query of the (L, Q, W) mask, 0 where none is: the least ``n_real`` that
+    kernel #3 may be given for this mask (it stores zero past ``n_real``
+    without computing those slots).  Real slots past it can overlap a query
+    and be cut by their parent gate, so this tests the edge of the skip
+    where a schedule's padding, which never overlaps, would not."""
+    width = act.shape[2]
+    idx = torch.arange(1, width + 1, dtype=torch.int32, device=act.device)
+    return torch.where(act.any(dim=1), idx, 0).amax(dim=1).to(torch.int32)
+
+
+EDGE_HIER_LEVELS = (1, 20)
+
+
+def hier_poisoned(q8, q16, mbr8, mbr16, parent, *, split: int, block_w: int = 128,
+                  root_unconditional: bool = True, uncond_from=None, n_real=None):
+    """Kernel #3 into an output filled with 0xFF before the launch (on the
+    current stream): a mask byte the kernel read before storing it (a
+    level's ``prev`` read ahead of the item that stores it) or never stored
+    then differs from the plain version, where an output recycled from an
+    identical call would hide it."""
+    from repro_torch.kernels.pyramid_scan import _level_sweep_hier_into
+
+    act = torch.full((split + mbr16.shape[0], q16.shape[0], mbr16.shape[2]), 0xFF,
+                     dtype=torch.uint8, device=mbr16.device)
+    _level_sweep_hier_into(act, q8, q16, mbr8, mbr16, parent, split=split, block_w=block_w,
+                           root_unconditional=root_unconditional, uncond_from=uncond_from,
+                           n_real=n_real)
+    return act.view(torch.bool)
+
+
+def edge_hier_levels(ops, dev, seed: int):
+    """Kernel #3 against its plain version, by equality, on device-built
+    pyramids of 1 level (split 1: uint8 tiles only) and 20 levels (split
+    19), widths 17 and 4,097, Q 1, 9 and 257, ``block_w`` 64, 128 and 512,
+    ``root_unconditional`` both ways, both parent types, with ``n_real``
+    None, the schedule's and the tight one of the plain mask, each into an
+    output filled with 0xFF (:func:`hier_poisoned`).  Returns (calls,
+    failures)."""
+    from repro_torch.core import datasets
+    from repro_torch.kernels.pyramid_scan import _quantize_queries
+
+    calls, bad = 0, []
+    for width in (17, 4097):
+        d = datasets.uniform_squares(width, seed=seed + width)
+        q_all = datasets.region_queries(d, 257, seed=seed).astype(np.float32)
+        q_all[::7] = np.concatenate([d[:, :2].min(axis=0) - 1.0, d[:, 2:].max(axis=0) + 1.0])
+        q_all = torch.from_numpy(q_all).to(dev)
+        for levels in EDGE_HIER_LEVELS:
+            s = ops.device_schedule(d, levels=levels, device=dev)
+            quant = ops.quantize_schedule(s, upper8=True, split=1 if levels == 1 else None)
+            sp = quant.split
+            for nq in (1, 9, 257):
+                q = q_all[:nq]
+                hier = (_quantize_queries(q, quant.origin, quant.inv_cell8, quant.cells8),
+                        _quantize_queries(q, quant.origin, quant.inv_cell, quant.cells),
+                        quant.mbr_q8, quant.mbr_q[sp:])
+                for root in (False, True):
+                    want = ops.level_sweep_hier_torch(*hier, quant.parent_q, split=sp,
+                                                      root_unconditional=root)
+                    n_reals = (("None", None), ("the schedule's", s.n_real),
+                               ("tight", tight_n_real(want)))
+                    for bw in (64, 128, 512):
+                        for parent in (quant.parent_q, quant.parent_q.to(torch.int32)):
+                            for label, n_real in n_reals:
+                                got = hier_poisoned(*hier, parent, split=sp, block_w=bw,
+                                                    root_unconditional=root, n_real=n_real)
+                                calls += 1
+                                if not same(got, want):
+                                    bad.append(f"#3 L {levels}, W {width}, Q {nq}, block_w "
+                                               f"{bw}, root {root}, {parent.dtype} parents, "
+                                               f"n_real {label}")
+    return calls, bad
+
+
+def hier_streams(ops, hier, parent, split: int, n_real, root: bool):
+    """Kernel #3's calls must not see each other's flags: two calls back to
+    back on one stream, one on a second stream beside one on the first,
+    and a one-query call after them, each into an output filled with 0xFF
+    (:func:`hier_poisoned`) and against the plain version.  Returns the
+    failures."""
+    kw = dict(split=split, root_unconditional=root, n_real=n_real)
+    want = ops.level_sweep_hier_torch(*hier, parent, split=split, root_unconditional=root)
+    got = [("first of two on one stream", hier_poisoned(*hier, parent, **kw)),
+           ("second of two on one stream", hier_poisoned(*hier, parent, **kw))]
+    first, second = torch.cuda.current_stream(), torch.cuda.Stream()
+    second.wait_stream(first)
+    with torch.cuda.stream(second):
+        beside = hier_poisoned(*hier, parent, **kw)
+    got.append(("on the first stream beside one on a second",
+                hier_poisoned(*hier, parent, **kw)))
+    first.wait_stream(second)
+    got.append(("on a second stream", beside))
+    one = (hier[0][:1], hier[1][:1], *hier[2:])
+    small = hier_poisoned(*one, parent, **kw)
+    sync()
+    bad = [what for what, g in got if not same(g, want)]
+    if not same(small, ops.level_sweep_hier_torch(*one, parent, split=split,
+                                                  root_unconditional=root)):
+        bad.append("one query after larger calls")
+    return bad
 
 
 class Checks:
@@ -1193,6 +1404,7 @@ def run(args, second) -> int:
                     want = {"f32": ops.level_sweep_torch(q, s.mbr_cm, p32, **kw),
                             "u16": ops.level_sweep_torch(qq16, quant.mbr_q, p16, **kw),
                             "hier": ops.level_sweep_hier_torch(*hier, p16, split=sp, **kw)}
+                    tight = tight_n_real(want["hier"])
                     gated = levels > 1 and (uncond is None or uncond > 1)
                     for bw in EDGE_BLOCKS:
                         where = f"{label}, Q {nq}, block_w {bw}, root {root}, uncond {uncond}"
@@ -1205,8 +1417,16 @@ def run(args, second) -> int:
                                 qq16, quant.mbr_q, p16_32, block_w=bw, **kw), "u16"),
                             ("#3 u16 parents", ops.level_sweep_hier(
                                 *hier, p16, split=sp, block_w=bw, **kw), "hier"),
-                            ("#3 i32 parents", ops.level_sweep_hier(
+                            ("#3 i32 parents, 0xFF output", hier_poisoned(
                                 *hier, p16_32, split=sp, block_w=bw, **kw), "hier"),
+                            ("#3 u16 parents, the schedule's n_real, 0xFF output",
+                             hier_poisoned(*hier, p16, split=sp, block_w=bw, n_real=s.n_real,
+                                           **kw), "hier"),
+                            ("#3 i32 parents, the schedule's n_real, 0xFF output",
+                             hier_poisoned(*hier, p16_32, split=sp, block_w=bw,
+                                           n_real=s.n_real, **kw), "hier"),
+                            ("#3 u16 parents, the tight n_real, 0xFF output", hier_poisoned(
+                                *hier, p16, split=sp, block_w=bw, n_real=tight, **kw), "hier"),
                         ):
                             calls += 1
                             if not same(got, want[key]):
@@ -1265,6 +1485,41 @@ def run(args, second) -> int:
         checks.expect(total_wide > 0, f"edge shapes: #2's prefix-scan path ran ({total_wide} "
                                       f"calls)")
         t = time.perf_counter()
+        calls, bad = edge_hier_levels(ops, dev, args.seed)
+        for b in bad[:5]:
+            print(f"    differs: {b}", flush=True)
+        checks.expect(not bad, f"edge shapes of #3 at L {EDGE_HIER_LEVELS}: {calls - len(bad)} "
+                               f"of {calls} kernel calls == plain version "
+                               f"({time.perf_counter() - t:.1f} s)")
+        if "mqr" in trees:
+            t = time.perf_counter()
+            s = trees["mqr"]["index"].schedule
+            quant = trees["mqr"]["index"].artifacts.quantized8
+            q = edge_queries(tree_data)
+            hier = (_quantize_queries(q, quant.origin, quant.inv_cell8, quant.cells8),
+                    _quantize_queries(q, quant.origin, quant.inv_cell, quant.cells),
+                    quant.mbr_q8, quant.mbr_q[quant.split:])
+            bad = []
+            for parent in (quant.parent_q, quant.parent_q.to(torch.int32)):
+                for n_real in (None, s.n_real):
+                    bad += [f"{what} ({parent.dtype} parents, n_real "
+                            f"{'None' if n_real is None else 'given'})"
+                            for what in hier_streams(ops, hier, parent, quant.split, n_real,
+                                                     s.root_unconditional)]
+            for b in bad[:5]:
+                print(f"    differs: {b}", flush=True)
+            checks.expect(not bad, f"#3 on the mqr-tree (Q {q.shape[0]}): calls back to back, "
+                                   f"on two streams and one query after them == plain version "
+                                   f"({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
+        calls, bad = edge_scans(ops, dev, args.seed)
+        for b in bad[:5]:
+            print(f"    differs: {b}", flush=True)
+        checks.expect(not bad, f"edge shapes of #7: {calls - len(bad)} of {calls} scans (N in "
+                               f"{EDGE_SCAN_N}, Q in {EDGE_SCAN_Q}, both layouts, block_n "
+                               f"32-1024; +inf, NaN and subnormal rows) == plain version "
+                               f"({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
         calls, zero_signs, bad = edge_builds(ops, dev, args.seed)
         for b in bad[:5]:
             print(f"    differs: {b}", flush=True)
@@ -1284,7 +1539,7 @@ def run(args, second) -> int:
                                f"({time.perf_counter() - t:.1f} s)")
         print(f"  edge shapes: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    checks.phase("edge shapes of kernels #1-#4 and #6", edge_shapes)
+    checks.phase("edge shapes of kernels #1-#4, #6 and #7", edge_shapes)
 
     # -- join path: kernel #6 on the trees, a device pyramid, a live side --
     from repro_torch.index.join import lower_join
@@ -1825,15 +2080,18 @@ def run(args, second) -> int:
                 checks.expect(bad > 1.0, f"{name}: that limit rejects the plain version "
                                          f"{what} (worst error / limit {bad:.3g})")
         del got, want
-        ms = device_ms(kernel_fn)
+        ms, timed_by = device_timing(kernel_fn)
         window_ms = time_ms(kernel_fn)
-        plain_ms = device_ms(plain_fn)
-        library_ms = device_ms(library_fn) if library_fn is not None else None
+        plain_ms, plain_by = device_timing(plain_fn)
+        timed_by = {"ms": timed_by, "plain_ms": plain_by}
+        library_ms = None
+        if library_fn is not None:
+            library_ms, timed_by["library_ms"] = device_timing(library_fn)
         b_ms, b_by = bound_ms(nbytes, ops_count, peak_ops)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=library_ms,
+            bound_by=b_by, library_ms=library_ms, timed_by=timed_by,
         ))
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         peak = f" at {peak_ops / 1e12:g} TFLOP/s" if b_by == "operations" else ""
@@ -1882,6 +2140,8 @@ def run(args, second) -> int:
               flush=True)
 
     def kernel_phase():
+        from repro_torch.kernels.autotune import PROBE_QUERIES
+
         L, _, W = sched.mbr_cm.shape
         nq = q_dev.shape[0]
         obj = sched.obj_mbr
@@ -1933,31 +2193,43 @@ def run(args, second) -> int:
             ops_count=L * nq * W * 8, launches=pyr.get("level_sweep_u16", 0),
             fill=True,
         )
-        # #3 at the pyramid's full width: uint8 tiles for L - 1 levels, int32 parents
+        # #3 at the pyramid's full width: uint8 tiles for L - 1 levels, int32
+        # parents, the schedule's n_real (as pyramid_scan_compact8 passes it)
         q8 = idx.artifacts.quantized8
         qq8 = _quantize_queries(q_dev, q8.origin, q8.inv_cell8, q8.cells8)
         sp = q8.split
+
+        def hier_pyramid():
+            return ops.level_sweep_hier(qq8, qq, q8.mbr_q8, q8.mbr_q[sp:], q8.parent_q,
+                                        split=sp, root_unconditional=False,
+                                        n_real=sched.n_real)
+
         kernel_row(
             "level_sweep_hier", sweep_src, "src/repro/kernels/pyramid_scan.py:617",
-            lambda: ops.level_sweep_hier(qq8, qq, q8.mbr_q8, q8.mbr_q[sp:], q8.parent_q,
-                                         split=sp, root_unconditional=False),
+            hier_pyramid,
             lambda: ops.level_sweep_hier_torch(qq8, qq, q8.mbr_q8, q8.mbr_q[sp:],
                                                q8.parent_q, split=sp,
                                                root_unconditional=False),
             nbytes=nq * 16 + sweep_bytes(nq, L, W, 0, q8.parent_q.element_size(), False)
             + sp * W * 4 + (L - sp) * W * 8,
-            ops_count=L * nq * W * 8, launches=extras.get("level_sweep_hier", 0),
+            ops_count=L * nq * W * 8, launches=extras.get("level_sweep_hier", 0), fill=True,
         )
-        # #7 on one level of the pyramid (the widest), read in place
+        print(f"  level_sweep_hier: CUDA launches a call {launches_a_call(hier_pyramid)}",
+              flush=True)
+        # #7 on one level of the pyramid (the widest), read in place, at the
+        # batch's queries and at the autotuner's probe (PROBE_QUERIES), where
+        # most of its launches on the path run (C10)
         lvl = L - 1
-        kernel_row(
-            "mbr_scan", "src/repro_torch/kernels/csrc/mbr_scan.cu",
-            "src/repro/kernels/mbr_scan.py:60",
-            lambda: ops.mbr_scan_cm(sched.mbr_cm[lvl], q_dev),
-            lambda: ops.mbr_scan_torch(sched.mbr_cm[lvl].T, q_dev),
-            nbytes=nq * 16 + W * 16 + nq * W,
-            ops_count=nq * W * 8, launches=extras.get("mbr_scan", 0),
-        )
+        for name, qn in (("mbr_scan", q_dev), ("mbr_scan_probe", q_dev[:PROBE_QUERIES])):
+            m = qn.shape[0]
+            kernel_row(
+                name, "src/repro_torch/kernels/csrc/mbr_scan.cu",
+                "src/repro/kernels/mbr_scan.py:60",
+                functools.partial(ops.mbr_scan_cm, sched.mbr_cm[lvl], qn),
+                functools.partial(ops.mbr_scan_torch, sched.mbr_cm[lvl].T, qn),
+                nbytes=m * 16 + W * 16 + m * W,
+                ops_count=m * W * 8, launches=extras.get("mbr_scan", 0), fill=True,
+            )
         # #2 on the pyramid at float32 and compact, with the windows of its path
         for name, precision in (("level_sweep_stream_f32", "float32"),
                                 ("level_sweep_stream_u16", "compact")):
@@ -2010,17 +2282,23 @@ def run(args, second) -> int:
             ops_count=tl * nq * tw * 8, launches=tree.get("level_sweep_u16p", 0),
             fill=True,
         )
+        # #3 on the mqr-tree at the batch's queries and at the autotuner's
+        # probe, with the schedule's n_real as the path passes it
         ts8 = t8.split
-        kernel_row(
-            "level_sweep_hier_u16p", sweep_src, "src/repro/kernels/pyramid_scan.py:617",
-            lambda: ops.level_sweep_hier(tqq8, tqq, t8.mbr_q8, t8.mbr_q[ts8:], t8.parent_q,
-                                         split=ts8),
-            lambda: ops.level_sweep_hier_torch(tqq8, tqq, t8.mbr_q8, t8.mbr_q[ts8:],
-                                               t8.parent_q, split=ts8),
-            nbytes=nq * 16 + sweep_bytes(nq, tl, tw, 0, 2, True)
-            + (ts8 - 1) * tw * 4 + (tl - ts8) * tw * 8,
-            ops_count=tl * nq * tw * 8, launches=tree.get("level_sweep_hier_u16p", 0),
-        )
+        for name, m in (("level_sweep_hier_u16p", nq), ("level_sweep_hier_u16p_probe",
+                                                        PROBE_QUERIES)):
+            hier = (tqq8[:m], tqq[:m], t8.mbr_q8, t8.mbr_q[ts8:], t8.parent_q)
+            run_hier = functools.partial(ops.level_sweep_hier, *hier, split=ts8,
+                                         n_real=ts.n_real)
+            kernel_row(
+                name, sweep_src, "src/repro/kernels/pyramid_scan.py:617", run_hier,
+                functools.partial(ops.level_sweep_hier_torch, *hier, split=ts8),
+                nbytes=m * 16 + sweep_bytes(m, tl, tw, 0, 2, True)
+                + (ts8 - 1) * tw * 4 + (tl - ts8) * tw * 8,
+                ops_count=tl * m * tw * 8, launches=tree.get("level_sweep_hier_u16p", 0),
+                fill=True,
+            )
+            print(f"  {name}: CUDA launches a call {launches_a_call(run_hier)}", flush=True)
 
     checks.phase("kernels vs plain versions", kernel_phase)
 

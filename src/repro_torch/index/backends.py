@@ -30,6 +30,7 @@ from repro_torch.kernels.autotune import (
     PROBE_QUERIES,
     TileConfig,
     candidates,
+    distinct_plans,
     shape_key,
     tune,
 )
@@ -201,7 +202,8 @@ class CudaBackend:
         cfg = self._tuned.get(key)
         if cfg is None:
             probe = queries[:PROBE_QUERIES]
-            cands = candidates(width, nq, precision=self.precision, stream=self.stream)
+            cands = distinct_plans(candidates(width, nq, precision=self.precision,
+                                              stream=self.stream))
             dev = self.schedule.device
             sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else None
             cfg, _ = tune(lambda c: lambda: self._run(probe, c), cands, sync=sync)

@@ -50,8 +50,9 @@ _SIGNATURES = {
     "repro_error_string": (ctypes.c_char_p, [_I]),
     "repro_level_sweep": (_I, [_P, _P, _P, _P, _I, _I, _LL, _I, _LL, _I, _I,
                                _I, _P]),
-    "repro_level_sweep_hier": (_I, [_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _LL,
-                                    _I, _I, _I, _P]),
+    "repro_level_sweep_hier_scratch": (_LL, [_LL, _LL, _I, _I]),
+    "repro_level_sweep_hier": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                                    _LL, _I, _I, _I, _P]),
     "repro_level_sweep_stream_workspace": (_LL, [_LL]),
     "repro_level_sweep_stream": (_I, [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _LL, _I,
                                       _LL, _I, _I, _I, _P]),

@@ -23,6 +23,11 @@ candidate that raises.  On the card that would hide a kernel that fails to
 launch, so this ``tune`` skips only a ``ValueError`` (what the wrappers'
 own argument checks raise before a launch, e.g. a tile shape they refuse);
 a launch error (``RuntimeError``) or any other exception propagates.
+
+A second one: the ``cuda`` backend times :func:`distinct_plans` of the
+grid, one per-level plan per ``query_block``, because the port's
+``mbr_scan`` picks its own tile and that plan's ``block_w`` changes
+nothing.  ``candidates`` stays equal to the reference's (ROADMAP C10).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ __all__ = [
     "PROBE_QUERIES",
     "shape_key",
     "candidates",
+    "distinct_plans",
     "tune",
 ]
 
@@ -96,6 +102,22 @@ def candidates(width: int, n_queries: int, *, precision: str = "float32",
     default = TileConfig()
     if default not in out:
         out.insert(0, default)
+    return out
+
+
+def distinct_plans(cands):
+    """``cands`` without the per-level plans (``levels_in_grid=False``) that
+    differ from an earlier one only in ``block_w``.  The port's
+    ``mbr_scan`` picks its tile from the query count, so those run the
+    same kernels; the first of them stands for all.  ``candidates`` itself
+    stays equal to the reference's."""
+    seen, out = set(), []
+    for c in cands:
+        if not c.levels_in_grid:
+            if c.query_block in seen:
+                continue
+            seen.add(c.query_block)
+        out.append(c)
     return out
 
 

@@ -41,8 +41,9 @@ def _scan(mbrs: torch.Tensor, n: int, cstride: int, estride: int,
 def mbr_scan(mbrs: torch.Tensor, queries: torch.Tensor, *,
              block_n: int = 512) -> torch.Tensor:
     """(N, 4) float32 MBRs x (Q, 4) float32 queries -> (Q, N) bool overlap
-    mask (closed boundaries).  ``block_n`` is the kernel's thread-block
-    width over MBRs (a multiple of 32, at most 1024)."""
+    mask (closed boundaries).  ``block_n`` (a multiple of 32, at most 1024)
+    is checked and kept for the callers' tiling; the kernel picks its tile
+    width from the query count."""
     _lib.require(mbrs, "mbrs", torch.float32)
     _lib.require_block(block_n, "block_n")
     if mbrs.dim() != 2 or mbrs.shape[1] != 4:

@@ -356,8 +356,11 @@ def _check_hier_args(q8, q16, mbr8, mbr16, parent, split):
 def level_sweep_hier_torch(q8: torch.Tensor, q16: torch.Tensor, mbr8: torch.Tensor,
                            mbr16: torch.Tensor, parent: torch.Tensor, *, split: int,
                            root_unconditional: bool = True,
-                           uncond_from: int | None = None) -> torch.Tensor:
-    """Plain version of the hierarchical sweep: (L, Q, W) bool mask."""
+                           uncond_from: int | None = None,
+                           n_real: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the hierarchical sweep: (L, Q, W) bool mask.
+    ``n_real`` is taken and ignored: the slots past it are padding, whose
+    tiles never overlap a query, so the mask is zero there either way."""
     levels, width = split + mbr16.shape[0], mbr16.shape[2]
 
     def ov_of(l):
@@ -374,17 +377,28 @@ def level_sweep_hier_torch(q8: torch.Tensor, q16: torch.Tensor, mbr8: torch.Tens
 def level_sweep_hier(q8: torch.Tensor, q16: torch.Tensor, mbr8: torch.Tensor,
                      mbr16: torch.Tensor, parent: torch.Tensor, *, split: int,
                      block_w: int = 128, root_unconditional: bool = True,
-                     uncond_from: int | None = None) -> torch.Tensor:
+                     uncond_from: int | None = None,
+                     n_real: torch.Tensor | None = None) -> torch.Tensor:
     """Hierarchical two-grid sweep; returns the (L, Q, W) bool mask.
 
     Levels ``< split`` test ``mbr8`` (split, 4, W) uint8 tiles against the
     coarse int32 queries ``q8``; levels ``>= split`` test ``mbr16``
     (L - split, 4, W) uint16 tiles against the fine queries ``q16``.
     ``parent`` is (L, W) int32 or uint16; ``uncond_from`` and ``block_w``
-    as in :func:`level_sweep`.
+    as in :func:`level_sweep`.  ``n_real`` (L,) int32, a schedule's real
+    slots a level: on the card the slots at or past ``n_real[l]`` of a
+    tested level are stored zero without being computed, and the tiles
+    wholly past it are not read, so the mask there must be zero for every
+    query, as it is where those slots are a schedule's padding
+    (never-overlap tiles).  On the card, levels of a few waves of blocks
+    (the trees') are swept in one launch (and one memset of its flags),
+    wider ones (the pyramid's) one launch a level.
     """
     levels, width = _check_hier_args(q8, q16, mbr8, mbr16, parent, split)
     _lib.require_block(block_w, "block_w")
+    if n_real is not None:
+        _lib.require(n_real, "n_real", torch.int32, (levels,))
+        _lib.require_device({"n_real": n_real}, mbr8.device)
     if mbr8.device.type == "cpu":
         return level_sweep_hier_torch(
             q8, q16, mbr8, mbr16, parent, split=split,
@@ -392,20 +406,40 @@ def level_sweep_hier(q8: torch.Tensor, q16: torch.Tensor, mbr8: torch.Tensor,
         )
     if mbr8.device.type != "cuda":
         raise ValueError(f"level_sweep_hier runs on cuda or cpu, not {mbr8.device}")
-    nq = q16.shape[0]
+    act = torch.empty((levels, q16.shape[0], width), dtype=torch.uint8, device=mbr8.device)
+    _level_sweep_hier_into(act, q8, q16, mbr8, mbr16, parent, split=split, block_w=block_w,
+                           root_unconditional=root_unconditional, uncond_from=uncond_from,
+                           n_real=n_real)
+    return act.view(torch.bool)
+
+
+def _level_sweep_hier_into(act: torch.Tensor, q8: torch.Tensor, q16: torch.Tensor,
+                           mbr8: torch.Tensor, mbr16: torch.Tensor, parent: torch.Tensor, *,
+                           split: int, block_w: int, root_unconditional: bool,
+                           uncond_from: int | None, n_real: torch.Tensor | None) -> None:
+    """Kernel #3 into ``act``, an (L, Q, W) uint8 tensor on the card, the
+    other arguments as :func:`level_sweep_hier` checks them.  The kernel
+    stores every byte of ``act`` and reads none before it is stored, so
+    what ``act`` held does not matter (``chip_smoke.py`` fills it with
+    0xFF to show that)."""
+    levels, nq, width = act.shape
+    if act.dtype != torch.uint8 or not act.is_contiguous() or act.device != mbr8.device:
+        raise ValueError("act must be a contiguous uint8 tensor on the tiles' device")
     uncond = levels if uncond_from is None else uncond_from
     parent_u16 = parent.dtype == torch.uint16
-    act = torch.empty((levels, nq, width), dtype=torch.uint8, device=mbr8.device)
-    rc = _lib.load().repro_level_sweep_hier(
+    lib = _lib.load()
+    scratch = torch.empty((lib.repro_level_sweep_hier_scratch(nq, width, levels, block_w),),
+                          dtype=torch.uint8, device=mbr8.device)
+    rc = lib.repro_level_sweep_hier(
         q8.data_ptr(), q16.data_ptr(), mbr8.data_ptr(), mbr16.data_ptr(),
-        parent.data_ptr(), act.data_ptr(), int(parent_u16), nq, levels, split,
-        width, int(root_unconditional), uncond, block_w, _lib.stream_of(mbr8),
+        parent.data_ptr(), act.data_ptr(), None if n_real is None else n_real.data_ptr(),
+        scratch.data_ptr(), int(parent_u16), nq, levels, split, width,
+        int(root_unconditional), uncond, block_w, _lib.stream_of(mbr8),
     )
     _lib.check(rc, "level_sweep_hier")
     _lib.counters.add("level_sweep_hier", levels)
     if parent_u16:
         _lib.counters.add("level_sweep_hier_u16p", levels)
-    return act.view(torch.bool)
 
 
 def _quantize_queries(queries: torch.Tensor, origin: torch.Tensor,
@@ -569,7 +603,8 @@ def pyramid_scan_compact8(qsched: QuantizedSchedule, queries: torch.Tensor, *,
         fn = level_sweep_hier if engine == "kernel" else level_sweep_hier_torch
         kw = {"block_w": block_w} if engine == "kernel" else {}
         act = fn(qq8, qq16, qsched.mbr_q8, qsched.mbr_q[split:], qsched.parent_q,
-                 split=split, root_unconditional=base.root_unconditional, **kw)
+                 split=split, root_unconditional=base.root_unconditional,
+                 n_real=base.n_real, **kw)
     return _hits_epilogue(
         act, queries, qsched.confirm_mbr, base.obj_level, base.obj_slot,
         base.obj_id, base.n_objects,

@@ -189,3 +189,21 @@ def test_backend_option_errors():
     assert torch.equal(got.hits, want.hits)
     assert torch.equal(got.visits_per_level, want.visits_per_level)
     assert streamed._backend.stream and not resident._backend.stream
+
+
+@pytest.mark.parametrize("width,nq", SHAPES)
+def test_distinct_plans_keep_one_per_level_plan_per_query_block(width, nq):
+    """The port's per-level plan does not depend on ``block_w`` (its
+    ``mbr_scan`` picks its own tile), so the backend times one per
+    ``query_block``: the first, in the reference's order; every fused
+    candidate stays."""
+    cands = autotune.candidates(width, nq)
+    got = autotune.distinct_plans(cands)
+    per_level = [c for c in cands if not c.levels_in_grid]
+    firsts = {}
+    for c in per_level:
+        firsts.setdefault(c.query_block, c)
+    assert got == [c for c in cands if c.levels_in_grid or firsts[c.query_block] == c]
+    assert sorted((c.query_block or 0) for c in got if not c.levels_in_grid) == \
+        sorted((qb or 0) for qb in firsts)
+    assert len(cands) - len(got) == len(per_level) - len(firsts)

@@ -7,6 +7,8 @@
   the JAX ``level_sweep_hier`` mask (interpret mode) on compact8 schedules
   carried across with ``repro_torch.convert``, with and without flat levels
   (``uncond_from``), with uint16 and int32 parents.
+* the JAX hierarchical mask is zero at and past each level's ``n_real``,
+  the rule by which the CUDA kernel skips padding tiles;
 * ``pyramid_scan_compact8`` gives the JAX hits and per-level visits,
   including the ``split == 0`` case that sweeps as plain compact.
 * ``mbr_scan`` (plain version ``mbr_scan_torch``) gives the JAX ``mbr_scan``
@@ -141,6 +143,35 @@ def test_level_sweep_hier_matches_jax(structure, kind, uncond, parent32):
     assert np.array_equal(_np(got), want)
 
 
+@pytest.mark.parametrize("uncond", [None, "last"])
+@pytest.mark.parametrize("kind", conftest.DATASET_KINDS)
+@pytest.mark.parametrize("structure", STRUCTURES)
+def test_level_sweep_hier_is_zero_past_n_real(structure, kind, uncond):
+    """The rule kernel #3 skips tiles by: in the JAX hierarchical mask
+    (interpret mode), every slot at or past a level's ``n_real`` is zero,
+    for region queries and for queries over the whole domain (which every
+    real node overlaps), so a tile past ``n_real`` may store zeros unread."""
+    js = _jax_schedule(structure, kind)
+    jq = jquant.quantize_schedule(js, engine="jnp", upper8=True)
+    qs = _queries(structure, kind).copy()
+    data = np.asarray(_data(structure, kind), np.float32)
+    qs[::3] = np.concatenate([data[:, :2].min(axis=0) - 1.0, data[:, 2:].max(axis=0) + 1.0])
+    qs = jnp.asarray(qs)
+    q8 = jscan._quantize_queries(qs, jnp.asarray(jq.origin), jnp.asarray(jq.inv_cell8),
+                                 jq.cells8)
+    q16 = jscan._quantize_queries(qs, jnp.asarray(jq.origin), jnp.asarray(jq.inv_cell),
+                                  jq.cells)
+    mask = np.asarray(jscan.level_sweep_hier(
+        q8, q16, jnp.asarray(jq.mbr_q8), jnp.asarray(jq.mbr_q[jq.split:]),
+        jnp.asarray(jq.parent_q), split=jq.split, root_unconditional=js.root_unconditional,
+        interpret=True, uncond_from=None if uncond is None else js.levels - 1))
+    n_real = np.asarray(js.n_real)
+    assert n_real.shape == (js.levels,) and (n_real <= js.width).all()
+    for l in range(js.levels):
+        assert not mask[l, :, n_real[l]:].any(), l
+    assert mask.any()  # the whole-domain queries reach real nodes
+
+
 @pytest.mark.parametrize("kind", conftest.DATASET_KINDS)
 @pytest.mark.parametrize("structure", STRUCTURES)
 def test_pyramid_scan_compact8_matches_jax(structure, kind):
@@ -197,11 +228,27 @@ def test_level_sweep_hier_rejects_bad_args():
         ops.level_sweep_hier(*args[:4], q.parent_q.to(torch.int64), split=q.split)
 
 
-@pytest.mark.parametrize("kind", conftest.DATASET_KINDS)
-def test_mbr_scan_matches_jax(kind):
-    mbrs = np.asarray(_data("pyramid", kind), np.float32).copy()
-    mbrs[::7] = NEVER_MBR  # sentinel rows never overlap
-    qs = _queries("pyramid", kind)
+# (kind, N, Q): each dataset at the pyramid's size with 10 queries, and
+# the card's edge widths and query counts (not multiples of 16) on uniform
+# squares, with NaN rows and whole-domain queries.
+MBR_SCAN_CASES = ([(kind, None, None) for kind in conftest.DATASET_KINDS]
+                  + [("uniform_squares", n, nq) for n in (1, 15, 17, 129) for nq in (1, 9, 17)])
+MBR_SCAN_IDS = [kind if n is None else f"{kind}-N{n}-Q{nq}" for kind, n, nq in MBR_SCAN_CASES]
+
+
+@pytest.mark.parametrize("kind,n,nq", MBR_SCAN_CASES, ids=MBR_SCAN_IDS)
+def test_mbr_scan_matches_jax(kind, n, nq):
+    if n is None:
+        mbrs = np.asarray(_data("pyramid", kind), np.float32).copy()
+        qs = _queries("pyramid", kind)
+        mbrs[::7] = NEVER_MBR  # sentinel rows never overlap
+    else:
+        mbrs = np.asarray(conftest.mbr_dataset(__name__, kind, n), np.float32).copy()
+        qs = conftest.dataset_queries(__name__, kind, n, nq).copy()
+        qs[::5] = np.concatenate([mbrs[:, :2].min(axis=0) - 1.0,
+                                  mbrs[:, 2:].max(axis=0) + 1.0])
+        mbrs[6::7] = NEVER_MBR
+        mbrs[5::11, 1] = np.nan  # a NaN coordinate never passes its compare
     want = np.asarray(jmbr.mbr_scan(jnp.asarray(mbrs), jnp.asarray(qs), interpret=True))
     tm, tq = torch.from_numpy(mbrs), torch.from_numpy(qs)
     for got in (ops.mbr_scan(tm, tq), ops.mbr_scan_torch(tm, tq),

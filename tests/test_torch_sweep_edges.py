@@ -15,7 +15,7 @@ the shapes:
   mask, every tile and parent type #2 takes, and its skip count against the
   rule of ROADMAP C6 transcribed in numpy over the JAX mask;
 * ``level_sweep_hier_torch`` against the JAX ``level_sweep_hier``, with
-  uint16 and int32 parents;
+  uint16 and int32 parents, and the wrapper with and without ``n_real``;
 
 each at ``root_unconditional`` False and True and ``uncond_from`` None, 1
 and L - 1 (spread over the shapes so the suite's time barely moves).  The
@@ -110,7 +110,7 @@ def _inputs(width, nq):
             jax_hier=(jqq8, jqq, jnp.asarray(jq.mbr_q8), jnp.asarray(jq.mbr_q[jq.split:]),
                       jnp.asarray(jq.parent_q)),
             f32=(tq, s.mbr_cm), u16=(qq, q.mbr_q), parents=(s.parent, q.parent_q),
-            hier=(qq8, qq, q.mbr_q8, q.mbr_q[q.split:]), split=q.split,
+            hier=(qq8, qq, q.mbr_q8, q.mbr_q[q.split:]), split=q.split, n_real=s.n_real,
         )
     return _CACHE[key]
 
@@ -194,5 +194,8 @@ def test_level_sweep_hier_edges_match_jax(shape, mode):
     for parent in (p16, p16.to(torch.int32)):
         got = ops.level_sweep_hier_torch(*inp["hier"], parent, split=split, **kw)
         assert np.array_equal(_np(got), want), parent.dtype
-        assert torch.equal(ops.level_sweep_hier(*inp["hier"], parent, split=split,
-                                                block_w=block_w, **kw), got)
+        # the wrapper, with the schedule's n_real (which lets the kernel skip
+        # padding tiles) and without it
+        for n_real in (None, inp["n_real"]):
+            assert torch.equal(ops.level_sweep_hier(*inp["hier"], parent, split=split,
+                                                    block_w=block_w, n_real=n_real, **kw), got)
