@@ -20,17 +20,20 @@ it and read just after):
      hits are printed), counts agree, and a small index on the card agrees
      with the numpy oracle on the CPU;
   4. pyramid extras: ``precision="compact8"`` (uint8 upper tiles, int32
-     parents), ``per_level_region_search`` (one ``mbr_scan`` launch per
-     level) and a default-configured backend (``autotune="auto"``, whose
-     tuned tiling is printed); hits and visits equal the fused float32 path,
-     compact8 visits equal the plain hierarchical sweep;
+     parents; its build must launch ``quantize_cm`` once, both tile forms
+     in one pass, and run no plain quantizer), ``per_level_region_search``
+     (one ``mbr_scan`` launch per level) and a default-configured backend
+     (``autotune="auto"``, whose tuned tiling is printed); hits and visits
+     equal the fused float32 path, compact8 visits equal the plain
+     hierarchical sweep;
   5. tree path: ``SpatialIndex.build(uniform_squares(tree_n))`` with the
      port's defaults (the paper's mqr-tree) and ``structure="rtree"`` over
      the same data, each answering region, point and count batches at
      float32, compact and compact8 (tree schedules: root visited
      unconditionally, object-MBR gate, uint16 parents); fails unless the
      sweeps, the hierarchical sweep, the quantizer and a uint16-parent
-     sweep launched;
+     sweep launched, and unless each compact and compact8 build launched
+     the quantizer once and ran no plain quantizer;
   6. tree results: hits and visits equal the plain path at each precision,
      hits equal the host pointer-search oracle (visits too at float32),
      compact hits equal float32 hits, and each tree schedule equals the
@@ -80,7 +83,13 @@ it and read just after):
      levels 1, 2, default and 20, on uniform, identical, one-point and
      signed-zero boxes, by its bits but for zero signs (C12), and twice
      (deterministic); kernel #6 at every pair of widths 1-4,097, K 1, 3
-     and 11, float32 and uint16, symmetric both ways, by equality;
+     and 11, float32 and uint16, symmetric both ways, by equality; kernel
+     #5 at L 1, 2, 11 and 20 × W 1-100,000 (7, 9, 13,534 and 14,237
+     among them), ``n_real`` None and given (0, 1, W and inside an
+     8-element group), uint16 alone and with the uint8 tiles at splits
+     0 to L, garbage past ``n_real``, +inf, -inf and ±1e30 inside it,
+     bases off alignment and level slices, into outputs filled with 0x00
+     and 0xFF, bit for bit;
  12. join path: ``mqr.join(rtree)`` at float32 and with the left side at
      ``precision="compact"``, the symmetric self-join ``mqr.join(mqr)``, a
      device-built pyramid over ``exponential_squares(tree_n, seed=2)``
@@ -141,14 +150,17 @@ it and read just after):
      activities and the median event window stands in), beside
      the least time the card needs for the same bytes and operations (for
      the streaming sweep, the tile and parent bytes of the tiles it read;
-     for #8 the causal FLOPs at the tensor-core bf16 peak or the float32
-     CUDA-core peak) and, for #8 and #10, one PyTorch library call on the
-     same inputs (``scaled_dot_product_attention``, ``rms_norm``); #7 on
-     the pyramid's widest level and #3 on the mqr-tree also at the
-     autotuner's 16-query probe shape, and #3's CUDA launches a call;
-     beside the rows of #1, #3, #6 and #7, the device time of one fill
-     (``zero_()``) of the same mask bytes, a practical store-rate floor
-     printed as context;
+     for #5, the real slots read and every output byte written, with the
+     dense bound, every slot read, printed beside it; for #8 the causal
+     FLOPs at the tensor-core bf16 peak or the float32 CUDA-core peak)
+     and, for #8 and #10, one PyTorch library call on the same inputs
+     (``scaled_dot_product_attention``, ``rms_norm``); #5 on the pyramid
+     (uint16, and uint16 + uint8 as compact8 builds it) and on the
+     mqr-tree; #7 on the pyramid's widest level and #3 on the mqr-tree
+     also at the autotuner's 16-query probe shape, and #3's CUDA launches
+     a call; beside the rows of #1, #3, #5, #6 and #7, the device time of
+     one fill (``zero_()``) of the same output bytes, a practical
+     store-rate floor printed as context;
      before #4's row, its device time by level and kernel (the profiler's
      kernels in launch order) and its launches a level;
  17. end-to-end times of builds, region and point batches (first call,
@@ -167,6 +179,7 @@ phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -718,6 +731,142 @@ def hier_streams(ops, hier, parent, split: int, n_real, root: bool):
     return bad
 
 
+EDGE_QUANT_W = (1, 7, 8, 9, 17, 129, 4097, 13_534, 14_237, 99_999, 100_000)
+EDGE_QUANT_L = (1, 2, 11, 20)
+
+
+def edge_quant_grid(levels: int, width: int, rng):
+    """Kernel #5's edge inputs: (L, 4, W) float32 tiles of a synthetic
+    schedule, its (L,) int32 ``n_real`` and the same tiles with garbage
+    past ``n_real``.  Level 0 is full, level 1 empty, level 2 holds one
+    slot, the others a random count (boundaries inside 8-element groups).
+    Below ``n_real``: small boxes over [-0.2, 1.2] (past the grid on both
+    sides), every 17th coordinate -inf, every 19th 1e30, every 23rd -1e30
+    and every 13th slot empty (lo +inf, a live deletion); past it
+    ``NEVER_MBR``, or NaN, ±inf and finite garbage in the poisoned copy."""
+    inf = np.float32(np.inf)
+    c = rng.uniform(-0.2, 1.2, (levels, 2, width))
+    half = rng.random((levels, 2, width)) * 0.05
+    cm = np.concatenate([c - half, c + half], axis=1).astype(np.float32)
+    flat = cm.reshape(-1)
+    flat[::17], flat[5::19], flat[7::23] = -inf, 1e30, -1e30
+    cm[:, :2, ::13] = inf
+    n_real = rng.integers(0, width + 1, levels).astype(np.int32)
+    n_real[0] = width
+    n_real[1:2] = 0
+    n_real[2:3] = min(width, 1)
+    pad = np.broadcast_to((np.arange(width)[None, :] >= n_real[:, None])[:, None, :], cm.shape)
+    garbage = rng.choice(np.array([np.nan, inf, -inf, 0.5, -3.0, 1e30], np.float32), cm.shape)
+    never = np.broadcast_to(np.array([inf, inf, -inf, -inf], np.float32)[None, :, None],
+                            cm.shape)
+    poisoned = cm.copy()
+    cm[pad] = never[pad]
+    poisoned[pad] = garbage[pad]
+    return cm, n_real, poisoned
+
+
+def quant_poisoned(mbr_cm, origin, inv_cell, *, fill: int, offset: int, n_real, split,
+                   inv_cell8):
+    """Kernel #5 into outputs filled with the byte ``fill`` before the
+    launch, each ``offset`` elements into a larger buffer (1: off
+    alignment, the kernel's element-by-element stores).  An element the
+    kernel never stored keeps the fill, so of two calls, with fills 0x00
+    and 0xFF, one differs from the plain version.  Returns the outputs as
+    ``ops.quantize_cm`` does."""
+    from repro_torch.core.flat import CELLS
+    from repro_torch.kernels.quantize import _quantize_cm_into
+
+    levels, _, width = mbr_cm.shape
+    dev, n = mbr_cm.device, mbr_cm.numel()
+    raw16 = torch.full((2 * (n + offset),), fill, dtype=torch.uint8, device=dev)
+    out16 = raw16.view(torch.uint16)[offset:offset + n].view(levels, 4, width)
+    out8 = None
+    if split is not None:
+        raw8 = torch.full((split * 4 * width + offset,), fill, dtype=torch.uint8, device=dev)
+        out8 = raw8[offset:].view(split, 4, width)
+    _quantize_cm_into(out16, out8, mbr_cm, origin, inv_cell, cells=CELLS, n_real=n_real,
+                      split=split, inv_cell8=inv_cell8)
+    return out16 if split is None else (out16, out8)
+
+
+def edge_quantize(ops, dev, seed: int):
+    """Kernel #5 against its plain version, bit for bit, at L 1, 2, 11 and
+    20 × W 1-100,000 (:func:`edge_quant_grid`; the widest grids take the
+    kernel's 4-groups-a-thread form, the others its 1-group form): without and with
+    ``n_real``, uint16 alone and with the uint8 tiles at splits 0, 1, L/2,
+    L - 1 and L, the poisoned tiles (garbage past ``n_real`` must not reach
+    the output), an input base 4 bytes off 16-byte alignment (the
+    element-by-element loads), and the slices ``[:k]`` and ``[L - k:]``
+    with their ``n_real``.  Each case three times: through the wrapper,
+    and into outputs filled with 0x00 and with 0xFF, the second off
+    alignment (:func:`quant_poisoned`).  Returns (calls, failures)."""
+    from repro_torch.core.flat import CELLS, CELLS8
+
+    rng = np.random.default_rng(seed)
+    origin = torch.tensor([-0.01, 0.02, -0.01, 0.02], dtype=torch.float32, device=dev)
+    inv = torch.full((4,), CELLS / 1.03, dtype=torch.float32, device=dev)
+    inv8 = torch.full((4,), CELLS8 / 1.03, dtype=torch.float32, device=dev)
+    calls, bad = 0, []
+    for levels in EDGE_QUANT_L:
+        for width in EDGE_QUANT_W:
+            cm_np, nr_np, poisoned_np = edge_quant_grid(levels, width, rng)
+            cm, poisoned = (torch.from_numpy(x).to(dev) for x in (cm_np, poisoned_np))
+            n_real = torch.from_numpy(nr_np).to(dev)
+            buf = torch.empty(cm.numel() + 1, dtype=torch.float32, device=dev)
+            buf[1:] = cm.reshape(-1)
+            shifted = buf[1:].view(levels, 4, width)
+            k = max(1, levels // 2)
+            last = levels - 1
+            cases = [("dense", cm, cm, None, None), ("n_real", cm, cm, n_real, None)]
+            cases += [(f"n_real, split {sp}", cm, cm, n_real, sp)
+                      for sp in sorted({0, 1, levels // 2, last, levels})]
+            cases += [
+                ("dense, split L - 1", cm, cm, None, last),
+                ("poisoned padding, n_real, split L - 1", poisoned, cm, n_real, last),
+                ("input base off alignment, n_real, split L - 1", shifted, cm, n_real, last),
+                (f"levels [:{k}], n_real, split {k}", cm[:k], cm[:k], n_real[:k], k),
+                (f"levels [{levels - k}:], n_real", cm[levels - k:], cm[levels - k:],
+                 n_real[levels - k:], None),
+            ]
+            for label, x, clean, nr, sp in cases:
+                kw = dict(n_real=nr, split=sp, inv_cell8=None if sp is None else inv8)
+                want = ops.quantize_cm_torch(clean, origin, inv, **kw)
+                want = want if isinstance(want, tuple) else (want,)
+                for how, got in (
+                        ("wrapper", ops.quantize_cm(x, origin, inv, **kw)),
+                        ("outputs filled 0x00", quant_poisoned(x, origin, inv, fill=0x00,
+                                                               offset=0, **kw)),
+                        ("outputs filled 0xFF, off alignment",
+                         quant_poisoned(x, origin, inv, fill=0xFF, offset=1, **kw))):
+                    got = got if isinstance(got, tuple) else (got,)
+                    calls += 1
+                    if not (len(got) == len(want) and all(map(same, got, want))):
+                        bad.append(f"#5 L {levels}, W {width}, {label}, {how}")
+    return calls, bad
+
+
+@contextlib.contextmanager
+def plain_quantizer_calls():
+    """Counts the calls of the plain quantizer (``quantize_cm_torch``,
+    looked up through its module, as ``quantize_schedule`` and
+    ``quantize_cm`` call it) made while the block runs: yields a list that
+    grows by one a call."""
+    from repro_torch.kernels import quantize
+
+    calls = []
+    plain = quantize.quantize_cm_torch
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return plain(*args, **kwargs)
+
+    quantize.quantize_cm_torch = counted
+    try:
+        yield calls
+    finally:
+        quantize.quantize_cm_torch = plain
+
+
 class Checks:
     """Collects failed checks; a phase that raises counts as failed."""
 
@@ -915,9 +1064,14 @@ def run(args, second) -> int:
         sync()
         _lib.counters.reset()
         t = time.perf_counter()
-        ix8 = idx.with_backend("cuda", precision="compact8", **FIXED)
+        with plain_quantizer_calls() as plain_q:
+            ix8 = idx.with_backend("cuda", precision="compact8", **FIXED)
         sync()
         out["quantize8_ms"] = (time.perf_counter() - t) * 1e3
+        n_q = _lib.counters.snapshot().get("quantize_cm", 0)
+        checks.expect(n_q == 1 and not plain_q,
+                      f"the compact8 build launched quantize_cm once ({n_q}) and ran no plain "
+                      f"quantizer ({len(plain_q)} calls)")
         out["compact8"] = drive(ix8, queries, points)
         t = time.perf_counter()
         hits, visits, n_launches = ops.per_level_region_search(sched, q_dev)
@@ -984,8 +1138,16 @@ def run(args, second) -> int:
             tr = dict(index=tix, host_build_s=host_s,
                       lower_ms=(time.perf_counter() - t) * 1e3)
             for precision in PRECISIONS:
-                ix = tix if precision == "float32" else tix.with_backend(
-                    "cuda", precision=precision)
+                before = _lib.counters.snapshot().get("quantize_cm", 0)
+                with plain_quantizer_calls() as plain_q:
+                    ix = tix if precision == "float32" else tix.with_backend(
+                        "cuda", precision=precision)
+                n_q = _lib.counters.snapshot().get("quantize_cm", 0) - before
+                if precision != "float32":
+                    checks.expect(n_q == 1 and not plain_q,
+                                  f"the {structure} {precision} build launched quantize_cm "
+                                  f"once ({n_q}) and ran no plain quantizer "
+                                  f"({len(plain_q)} calls)")
                 tr[precision] = drive(ix, tree_queries, tree_points)
             trees[structure] = tr
             print(f"  {structure}: host build {host_s:.1f} s, schedule L {s.levels} "
@@ -1530,6 +1692,15 @@ def run(args, second) -> int:
                                f"sign the plain version leaves to its atomics (C12); "
                                f"deterministic ({time.perf_counter() - t:.1f} s)")
         t = time.perf_counter()
+        calls, bad = edge_quantize(ops, dev, args.seed)
+        for b in bad[:5]:
+            print(f"    differs: {b}", flush=True)
+        checks.expect(not bad, f"edge shapes of #5: {calls - len(bad)} of {calls} calls (L in "
+                               f"{EDGE_QUANT_L}, W in {EDGE_QUANT_W}; n_real None and given, "
+                               f"uint8 tiles at splits 0-L, poisoned padding, bases off "
+                               f"alignment, level slices; outputs filled 0x00 and 0xFF) == "
+                               f"plain version, bit for bit ({time.perf_counter() - t:.1f} s)")
+        t = time.perf_counter()
         calls, bad = edge_pairs(ops, dev, args.seed)
         for b in bad[:5]:
             print(f"    differs: {b}", flush=True)
@@ -1539,7 +1710,7 @@ def run(args, second) -> int:
                                f"({time.perf_counter() - t:.1f} s)")
         print(f"  edge shapes: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-    checks.phase("edge shapes of kernels #1-#4, #6 and #7", edge_shapes)
+    checks.phase("edge shapes of kernels #1-#7", edge_shapes)
 
     # -- join path: kernel #6 on the trees, a device pyramid, a live side --
     from repro_torch.index.join import lower_join
@@ -2099,11 +2270,13 @@ def run(args, second) -> int:
               f"window (plain {plain_ms:.4f} ms, library {lib}, bound {b_ms:.4f} ms by "
               f"{b_by}{peak}; {launches} launches on its path)", flush=True)
         if fill:
-            out_mask = kernel_fn()
-            fill_ms = device_ms(out_mask.zero_)
-            print(f"  {name}: one fill of the same {tuple(out_mask.shape)} bytes "
+            outs = kernel_fn()
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            fill_ms = device_ms(lambda: [o.view(torch.uint8).zero_() for o in outs])
+            shapes = ", ".join(str(tuple(o.shape)) for o in outs)
+            print(f"  {name}: one fill of the same {shapes} bytes "
                   f"(zero_()) {fill_ms:.4f} ms on the device (context only)", flush=True)
-            del out_mask
+            del outs
 
     sweep_src = "src/repro_torch/kernels/csrc/level_sweep.cu"
 
@@ -2139,6 +2312,31 @@ def run(args, second) -> int:
               f"{int((win_off < 0).sum())} of them statically empty (win_w {win_w})",
               flush=True)
 
+    def quant_row(name, s, q, split, launches):
+        """Kernel #5 as its path calls it, with the schedule's ``n_real``
+        (and with ``split``, the uint8 tiles of the compact8 form): its
+        bound counts the real slots read and every output byte written; the
+        dense bound, every slot read, is printed beside it."""
+        levels, _, width = s.mbr_cm.shape
+        kw = dict(n_real=s.n_real)
+        if split:
+            kw.update(split=split, inv_cell8=q.inv_cell8)
+        real = int(s.n_real.sum())
+        coarse = int(s.n_real[:split].sum()) if split else 0
+        written = levels * 4 * width * 2 + (split or 0) * 4 * width
+        kernel_row(
+            name, "src/repro_torch/kernels/csrc/quantize.cu",
+            "src/repro/kernels/quantize.py:133",
+            functools.partial(ops.quantize_cm, s.mbr_cm, q.origin, q.inv_cell, **kw),
+            functools.partial(ops.quantize_cm_torch, s.mbr_cm, q.origin, q.inv_cell, **kw),
+            nbytes=real * 16 + written + levels * 4 + 48,
+            ops_count=(real + coarse) * 4 * 6, launches=launches, fill=True,
+        )
+        dense_ms, _ = bound_ms(levels * 4 * width * 4 + written, 0)
+        print(f"  {name}: (L, 4, W) = ({levels}, 4, {width}), split {split or 0}, "
+              f"{real} of {levels * width} slots real; dense bound (every slot read) "
+              f"{dense_ms:.4f} ms", flush=True)
+
     def kernel_phase():
         from repro_torch.kernels.autotune import PROBE_QUERIES
 
@@ -2163,14 +2361,9 @@ def run(args, second) -> int:
             # per level and object: centroids, quadrant, key, 4 min/max, count
             ops_count=L * W * 16, launches=pyr.get("build_levels", 0), bits=True,
         )
-        kernel_row(
-            "quantize_cm", "src/repro_torch/kernels/csrc/quantize.cu",
-            "src/repro/kernels/quantize.py:133",
-            lambda: ops.quantize_cm(sched.mbr_cm, qsched.origin, qsched.inv_cell),
-            lambda: ops.quantize_cm_torch(sched.mbr_cm, qsched.origin, qsched.inv_cell),
-            nbytes=sched.mbr_cm.numel() * (4 + 2) + 32,
-            ops_count=sched.mbr_cm.numel() * 6, launches=pyr.get("quantize_cm", 0),
-        )
+        quant_row("quantize_cm", sched, qsched, None, pyr.get("quantize_cm", 0))
+        quant_row("quantize_cm_u8", sched, idx.artifacts.quantized8,
+                  idx.artifacts.quantized8.split, extras.get("quantize_cm", 0))
         kernel_row(
             "level_sweep_f32", sweep_src, "src/repro/kernels/pyramid_scan.py:498",
             lambda: ops.level_sweep(q_dev, sched.mbr_cm, sched.parent,
@@ -2270,6 +2463,7 @@ def run(args, second) -> int:
         ts = trees["mqr"]["index"].schedule
         t16 = trees["mqr"]["index"].artifacts.quantized
         t8 = trees["mqr"]["index"].artifacts.quantized8
+        quant_row("quantize_cm_tree", ts, t16, None, tree.get("quantize_cm", 0))
         tl, _, tw = ts.mbr_cm.shape
         tq = torch.from_numpy(tree_queries).to(dev)
         tqq = _quantize_queries(tq, t16.origin, t16.inv_cell, t16.cells)

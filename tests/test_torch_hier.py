@@ -102,6 +102,42 @@ def test_quantize_schedule_upper8_matches_jax(structure, kind, split):
         assert q.streamed_bytes == jq.streamed_bytes
 
 
+def _assert_upper8_matches(q, jq):
+    assert q.split == jq.split and (q.mbr_q8 is None) == (jq.mbr_q8 is None)
+    for f in ("mbr_q8", "mbr_q", "inv_cell8"):
+        want = getattr(jq, f)
+        if want is not None:
+            want, got = np.asarray(want), _np(getattr(q, f))
+            assert got.shape == want.shape and np.array_equal(got, want), f
+    assert q.streamed_bytes == jq.streamed_bytes
+
+
+@pytest.mark.parametrize("split", ["L-1", "L"])
+@pytest.mark.parametrize("structure", STRUCTURES)
+def test_quantize_schedule_upper8_matches_jax_at_deep_splits(structure, split):
+    """The uint8 tiles come from the same launch as the uint16 ones on the
+    card; on the CPU both engines still give JAX's ``mbr_q8`` and ``mbr_q``
+    at split L - 1 and L (every level coarse)."""
+    js = _jax_schedule(structure, "uniform_squares")
+    k = js.levels - 1 if split == "L-1" else js.levels
+    jq = jquant.quantize_schedule(js, engine="jnp", upper8=True, split=k)
+    for engine in ("kernel", "torch"):
+        q = ops.quantize_schedule(_carry(js), engine=engine, upper8=True, split=k)
+        assert q.mbr_q8.dtype == torch.uint8 and q.mbr_q8.shape[0] == k
+        _assert_upper8_matches(q, jq)
+
+
+@pytest.mark.parametrize("split", [None, 1])
+def test_quantize_schedule_upper8_matches_jax_at_one_level(split):
+    """L = 1: split 0 by default (no coarse tiles), or 1 = L when asked."""
+    data = np.asarray(_data("pyramid", "uniform_squares")[:50], np.float32)
+    js = jflat.pyramid_schedule(jbulk.build_pyramid(jnp.asarray(data), levels=1), data)
+    jq = jquant.quantize_schedule(js, engine="jnp", upper8=True, split=split)
+    for engine in ("kernel", "torch"):
+        _assert_upper8_matches(
+            ops.quantize_schedule(_carry(js), engine=engine, upper8=True, split=split), jq)
+
+
 def test_quantize_schedule_without_upper8_has_no_coarse_tiles():
     js = _jax_schedule("mqr", "uniform_squares")
     q = ops.quantize_schedule(_carry(js), split=2)
