@@ -116,7 +116,28 @@ it and read just after):
      region queries by its deepest groups, so there the hits must cover the
      brute force), and the baseline's join pairs equal the live path's per
      object slot; prints ticks/s, merges and pair tests;
- 15. mqr-KV and attention kernels, at llama3.2-1B's widths (d_model 2048,
+ 15. durability and serving ladder, on the pyramid of phase 2 (n
+     objects) in a temporary directory: ``save`` then ``load`` onto the
+     card of the float32 index, its compact twin and a live copy
+     mid-buffer (200 inserts, 520 deletes): hits and visits equal the
+     saved index's, and no ``build_levels`` or ``quantize_cm`` launches
+     during a load; snapshot bytes, save and load ms.  The ``serve``
+     backend: a Q batch, the same batch again wholly from the LRU, the
+     batch on a cache-less server and a pristine compact8 server, each
+     equal to the ``cuda`` backend and dispatched on ``cuda`` only with no
+     failure; 16-query batches with ``FaultPlan`` failures on ``cuda``
+     (the ``torch`` rung answers) and on ``cuda`` and ``torch`` (``host``),
+     ``fail_from_launch`` (a degrade mid-run) and ``reset_health``, every
+     answer equal to the ``cuda`` rung's and the ledger equal to what was
+     injected; each rung's ms; a ``serve`` join mqr ⋈ R-tree healthy and
+     with ``cuda`` failing, pairs equal.  Then a compact ``DurableIndex``
+     (capacity 4,096) runs 200 ops of ``mutation_workload`` (merges at its
+     flush ops), killed post-append, mid-merge and by a torn write, each
+     recovered onto the card: the op count, the live ids, the base schedule (bit for bit)
+     and the uint16 tiles equal an un-killed run of the same ops, and Q
+     hits equal a brute force over the live ids; WAL appends/s with and
+     without fsync, recover ms and ops replayed;
+ 16. mqr-KV and attention kernels, at llama3.2-1B's widths (d_model 2048,
      32 heads, 8 kv heads, head dim 64; mqr block 128, top-K 64, 6 levels),
      random inputs from the seed: ``ops.rmsnorm`` on (prefill, 2048) and
      ``ops.flash_attention`` on (32, prefill, 64), each in float32 and
@@ -135,7 +156,7 @@ it and read just after):
      search must prune for every head; prints the fraction of blocks
      attended and the ms of index build, selection and attention per
      decode step beside the plain dense decode over all blocks;
- 16. each kernel against its plain version at its path's shapes (exact
+ 17. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
      within ``rtol |plain| + row_rms x RMS of the row``: float32 (1e-4,
@@ -163,7 +184,7 @@ it and read just after):
      store-rate floor printed as context;
      before #4's row, its device time by level and kernel (the profiler's
      kernels in launch order) and its launches a level;
- 17. end-to-end times of builds, region and point batches (first call,
+ 18. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one call per path (region
      batches per path and precision, two joins, a k-NN call, a moving tick
@@ -185,8 +206,10 @@ import functools
 import json
 import multiprocessing
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -2049,6 +2072,288 @@ def run(args, second) -> int:
 
     checks.phase("moving-object workload", moving_path)
 
+    # -- durability and the serving ladder: snapshots, serve, faults, WAL --
+    dur_out = {}
+
+    def timed(fn):
+        """``fn()`` and its host window ending in a synchronize, in ms."""
+        sync()
+        t = time.perf_counter()
+        r = fn()
+        sync()
+        return r, (time.perf_counter() - t) * 1e3
+
+    def no_rebuild(launched, what):
+        built = {k: launched.get(k, 0) for k in ("build_levels", "quantize_cm")}
+        checks.expect(not any(built.values()),
+                      f"{what}: load launched no build or quantize kernel ({built})")
+
+    def snapshots(tmp):
+        """save + load of a pristine float32, a pristine compact and a live
+        (mid-buffer) index of the pyramid path onto the card."""
+        rng = np.random.default_rng(args.seed + 11)
+        live = idx.extend(datasets.uniform_squares(200, seed=args.seed + 12))
+        live.delete(np.concatenate([rng.choice(args.n, 500, replace=False),
+                                    np.arange(args.n, args.n + 20)]))
+        cases = (("float32", idx, {}, out["float32"]["region"]),
+                 ("compact", out["compact"]["index"], {"precision": "compact"},
+                  out["compact"]["region"]),
+                 ("live float32", live, {}, live.region(q_dev)))
+        rows = {}
+        for label, ix, opts, ref in cases:
+            path = tmp / label.replace(" ", "_")
+            _, save_ms = timed(lambda: ix.save(path))
+            nbytes = sum(f.stat().st_size for f in path.iterdir())
+            _lib.counters.reset()
+            back, load_ms = timed(lambda: SpatialIndex.load(path, **FIXED, **opts))
+            no_rebuild(_lib.counters.snapshot(), f"snapshot {label}")
+            res = back.region(q_dev)
+            checks.expect(same(res.hits, ref.hits) and same(res.visits_per_level,
+                                                            ref.visits_per_level),
+                          f"snapshot {label}: loaded hits and visits == the saved index's")
+            checks.expect(back.n_objects == ix.n_objects and back.id_space == ix.id_space,
+                          f"snapshot {label}: live objects and id space == the saved index's")
+            rows[label] = dict(bytes=nbytes, save_ms=save_ms, load_ms=load_ms)
+            print(f"  snapshot {label}: {nbytes:,} bytes, save {save_ms:.1f} ms, load "
+                  f"{load_ms:.1f} ms (host time: npz, fsync, copies)  [{card}]", flush=True)
+            del back, res
+            shutil.rmtree(path)
+        dur_out["snapshots"] = rows
+
+    def serve_healthy():
+        """The serve backend over the pyramid: a Q batch, the same batch
+        from the cache, and a pristine compact8 server."""
+        sv = idx.with_backend("serve", cache_size=2 * args.queries)
+        server = sv._backend.server
+        ref = out["float32"]["region"]
+        r1, ms1 = timed(lambda: sv.region(q_dev))
+        r2, ms2 = timed(lambda: sv.region(q_dev))
+        for what, r in (("first", r1), ("cached", r2)):
+            checks.expect(same(r.hits, ref.hits) and same(r.visits_per_level,
+                                                          ref.visits_per_level),
+                          f"serve {what} batch: hits and visits == the cuda backend's")
+        st = sv.stats
+        distinct = len({q.tobytes() for q in queries})
+        checks.expect(st.rung_dispatches == {"cuda": 1} and server.stats.cache_hits
+                      == distinct and st.launch_failures == st.retries
+                      == st.degraded_batches == 0,
+                      f"serve: one batch on cuda, the second wholly from the cache, no "
+                      f"failure ({st.rung_dispatches}, cache hits {server.stats.cache_hits}, "
+                      f"failures {st.launch_failures}, retries {st.retries})")
+        # the same first batch on a server with no cache: the cache's share
+        sv0 = idx.with_backend("serve", cache_size=0)
+        r0, ms0 = timed(lambda: sv0.region(q_dev))
+        checks.expect(same(r0.hits, ref.hits) and sv0.stats.rung_dispatches == {"cuda": 1},
+                      "serve, no cache: hits == the cuda backend's, on cuda")
+        del sv0, r0
+        sv8 = idx.with_backend("serve", precision="compact8", cache_size=0)
+        r8, ms8 = timed(lambda: sv8.region(q_dev))
+        ref8 = out["compact8"]["region"]
+        checks.expect(same(r8.hits, ref8.hits) and same(r8.visits_per_level,
+                                                        ref8.visits_per_level)
+                      and sv8.stats.rung_dispatches == {"cuda": 1}
+                      and sv8.stats.launch_failures == 0,
+                      "serve compact8: hits and visits == the cuda backend's, on cuda")
+        dur_out["serve"] = dict(first_ms=ms1, cached_ms=ms2, no_cache_ms=ms0, compact8_ms=ms8,
+                                cache_bytes=server.cache_bytes, cache_rows=len(server._cache))
+        print(f"  serve Q {args.queries} (host windows): first batch {ms1:.2f} ms, same batch "
+              f"from the cache {ms2:.2f} ms, first batch with no cache {ms0:.2f} ms; cache "
+              f"{len(server._cache)} rows = {server.cache_bytes:,} bytes on the card; compact8 "
+              f"{ms8:.2f} ms  [{card}]", flush=True)
+        del sv, sv8, r1, r2, r8
+
+    def serve_forced():
+        """16-query batches with injected failures: the torch and host rungs
+        answer as the cuda rung, and the ledger counts what was injected."""
+        from repro_torch.ft import FaultPlan
+
+        qa, qb = q_dev[:16], q_dev[16:32]
+        want = {id(q): idx.region(q) for q in (qa, qb)}
+
+        def served(plan):
+            s = idx.with_backend("serve", cache_size=0, backoff=0.0)
+            s.bind_fault_plan(plan)
+            return s
+
+        def run(s, q):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                r, ms = timed(lambda: s.region(q))
+            w = want[id(q)]
+            return same(r.hits, w.hits) and same(r.visits_per_level, w.visits_per_level), ms
+
+        rung_ms = {}
+        healthy = served(None)
+        ok, _ = run(healthy, qa)
+        ok2, rung_ms["cuda"] = run(healthy, qb)
+        checks.expect(ok and ok2 and healthy.stats.rung_dispatches == {"cuda": 2},
+                      "serve, healthy 16-query batches: on cuda, == the cuda backend")
+        for rungs, answered, fails in ((("cuda",), "torch", 3), (("cuda", "torch"), "host", 6)):
+            plan = FaultPlan(fail_launches=fails, fail_rungs=rungs)
+            s = served(plan)
+            ok, first_ms = run(s, qa)
+            ok2, rung_ms[answered] = run(s, qb)  # the sticky floor: straight to the rung
+            st = s.stats
+            checks.expect(ok and ok2 and st.rung_dispatches == {answered: 2}
+                          and st.launch_failures == plan.launch_failures == fails
+                          and st.retries == fails - len(rungs) and st.degraded_batches == 2,
+                          f"serve, {rungs} failing: the {answered} rung answers == the cuda "
+                          f"rung; failures {st.launch_failures} (injected "
+                          f"{plan.launch_failures}), retries {st.retries}, degraded "
+                          f"{st.degraded_batches}, {st.rung_dispatches}")
+            rung_ms[f"{answered} first"] = first_ms
+        plan = FaultPlan(fail_launches=3, fail_rungs=("cuda",), fail_from_launch=2)
+        s = served(plan)
+        oks = [run(s, q)[0] for q in (qa, qb, qa)]
+        mid = dict(s.stats.rung_dispatches)
+        s._backend.server.reset_health()
+        oks.append(run(s, qb)[0])
+        checks.expect(all(oks) and mid == {"cuda": 2, "torch": 1}
+                      and s.stats.rung_dispatches == {"cuda": 3, "torch": 1}
+                      and s.stats.launch_failures == plan.launch_failures == 3,
+                      f"serve, fail_from_launch=2: two batches on cuda, the third degraded "
+                      f"to torch ({mid}), reset_health back to cuda "
+                      f"({s.stats.rung_dispatches}); every answer == the cuda rung")
+        dur_out["rung_ms"] = rung_ms
+        print("  serve, 16-query batch by rung (host windows): " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in rung_ms.items())
+            + f" (host rung: numpy on the host, its first batch copies the arrays)  [{card}]",
+            flush=True)
+        mqr, rtree = trees["mqr"]["index"], trees["rtree"]["index"]
+        want_pairs = mqr.join(rtree).pairs
+        for plan, answered in ((None, "cuda"),
+                               (FaultPlan(fail_launches=1, fail_rungs=("cuda",)), "torch")):
+            left = mqr.with_backend("serve")
+            left.bind_fault_plan(plan)
+            res, ms = timed(lambda: left.join(rtree))
+            checks.expect(same(res.pairs, want_pairs)
+                          and left.stats.rung_dispatches == {answered: 1}
+                          and left.stats.launch_failures == (0 if plan is None else 1),
+                          f"serve join mqr x rtree on the {answered} rung: pairs == the cuda "
+                          f"backend's ({ms:.1f} ms)")
+            del res
+        del want_pairs
+
+    def run_mutations(d, ops_, upto=None):
+        """The workload's ops on a DurableIndex or a SpatialIndex; deletes
+        take the lowest live ids."""
+        def lowest(k):
+            log = getattr(d, "index", d)._updates
+            lids = (np.nonzero(log.alive)[0] if log is not None
+                    else np.arange(getattr(d, "index", d).n_objects))
+            return lids[:min(k, lids.size)]
+
+        merged = []
+        for i, (op, arg) in enumerate(ops_[:upto]):
+            before = d.stats.flushes
+            if op == "insert":
+                d.insert(arg)
+            elif op == "delete":
+                d.delete(lowest(arg))
+            else:
+                d.flush()
+            if d.stats.flushes > before:
+                merged.append(i)
+        return merged
+
+    def durability(tmp):
+        from repro_torch.checkpoint import DurableIndex, mutation_workload
+        from repro_torch.ft import FaultPlan, KillPoint
+        from repro_torch.update import WriteAheadLog
+
+        n_ops = 200
+        base, ops_ = mutation_workload(n_ops, seed=args.seed, base_n=args.n)
+        opts = dict(structure="pyramid", build="device", precision="compact",
+                    capacity=4_096, **FIXED)
+        clean = SpatialIndex.build(base, **opts)
+        merged = run_mutations(clean, ops_)
+        checks.expect(len(merged) >= 2, f"the workload merged at least twice ({merged})")
+        kills = ((n_ops // 3, "post-append", False), (merged[len(merged) // 2], "mid-merge",
+                                                       False), (n_ops - 7, "post-append", True))
+        recovered = []
+        for k, site, torn in kills:
+            root = tmp / f"d{k}{site}{int(torn)}"
+            plan = FaultPlan(kill_at_op=k, kill_site=site, torn_write=torn)
+            d = DurableIndex.create(base, root, fault_plan=plan, **opts)
+            try:
+                run_mutations(d, ops_)
+                killed = False
+            except KillPoint:
+                killed = True
+            d.close()
+            del d
+            r, rec_ms = timed(lambda: DurableIndex.recover(root))
+            expect = k if torn else k + 1
+            checks.expect(killed and r.ops_total == expect and r.recovered_ops == expect
+                          and r.recovered_torn == torn,
+                          f"kill at op {k} ({site}{', torn write' if torn else ''}): recovered "
+                          f"{r.ops_total} ops (replayed {r.recovered_ops}, torn "
+                          f"{r.recovered_torn}) in {rec_ms:.1f} ms")
+            recovered.append((r, expect, rec_ms, f"op {k} {site}{' torn' if torn else ''}"))
+        # the clean run's state at each surviving prefix, compared in order
+        ref = SpatialIndex.build(base, **opts)
+        done = 0
+        for r, expect, rec_ms, label in sorted(recovered, key=lambda x: x[1]):
+            run_mutations(ref, ops_[done:expect])
+            done = expect
+            a, b = r.index, ref
+            log_a, log_b = a._updates, b._updates
+            checks.expect(np.array_equal(log_a.alive, log_b.alive)
+                          and np.array_equal(log_a.mbr_table, log_b.mbr_table),
+                          f"recovered ({label}): live ids and object table == the un-killed run")
+            sa, sb = a.schedule, b.schedule
+            checks.expect(all(same_bits(getattr(sa, f), getattr(sb, f)) for f in (
+                "mbr_cm", "obj_mbr")) and all(same(getattr(sa, f), getattr(sb, f)) for f in (
+                    "parent", "n_real", "obj_level", "obj_slot", "obj_id")),
+                f"recovered ({label}): base schedule == the un-killed run's, bit for bit")
+            ra, rb = a.region(q_dev), b.region(q_dev)
+            checks.expect(same(a.artifacts.quantized.mbr_q, b.artifacts.quantized.mbr_q),
+                          f"recovered ({label}): quantized tiles == the un-killed run's")
+            checks.expect(np.array_equal(ra.hits.cpu().numpy(), brute_live(log_a, queries))
+                          and same(ra.hits, rb.hits)
+                          and same(ra.visits_per_level, rb.visits_per_level),
+                          f"recovered ({label}): Q {args.queries} hits == brute force over the "
+                          f"live ids and == the un-killed run, visits too")
+            dur_out.setdefault("recover_ms", {})[label] = rec_ms
+            dur_out.setdefault("replayed", {})[label] = r.recovered_ops
+            r.close()
+        del recovered, ref, clean
+        rates = {}
+        for sync_, count in ((True, 200), (False, 2_000)):
+            rows = datasets.uniform_squares(4, seed=1)
+            with WriteAheadLog(tmp / f"bench{int(sync_)}.log", sync=sync_) as w:
+                t = time.perf_counter()
+                for _ in range(count):
+                    w.append("insert", rows)
+                rates[sync_] = count / (time.perf_counter() - t)
+        dur_out["wal_appends_per_s"] = {"sync": rates[True], "no_sync": rates[False]}
+        print(f"  WAL appends/s (host; 4-row inserts): sync=True {rates[True]:.0f}, "
+              f"sync=False {rates[False]:.0f}; recover ms "
+              f"{ {k: round(v, 1) for k, v in dur_out['recover_ms'].items()} }, ops replayed "
+              f"{dur_out['replayed']}  [{card}]", flush=True)
+
+    def durability_path():
+        sync()
+        t_phase = time.perf_counter()
+        _lib.counters.reset()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            checks.phase("  snapshots", lambda: snapshots(tmp))
+            checks.phase("  serve backend, healthy", serve_healthy)
+            checks.phase("  serve backend, forced rungs", serve_forced)
+            checks.phase("  durability: create, kill, recover", lambda: durability(tmp))
+        sync()
+        torch.cuda.empty_cache()
+        paths["durability"] = _lib.counters.snapshot()
+        dur_out["phase_s"] = time.perf_counter() - t_phase
+        print(f"  launches {paths['durability']}; the phase took {dur_out['phase_s']:.1f} s",
+              flush=True)
+        expect_launched("durability", ("build_levels", "quantize_cm", "level_sweep_f32",
+                                       "level_sweep_u16", "level_sweep_hier",
+                                       "pair_sweep_f32"))
+
+    checks.phase("durability and serving ladder", durability_path)
+
     # -- mqr-KV block selection and the attention and norm kernels (#8-#10) --
     # llama3.2-1B's widths (src/repro/configs/llama32_1b.py) and its mqr-KV
     # settings (src/repro/models/transformer.py: mqr_block, mqr_topk,
@@ -2758,6 +3063,7 @@ def run(args, second) -> int:
         knn={label: {f: r.get(f) for f in ("rounds", "first_ms", "ms")}
              for label, r in knn_out.items()},
         moving={f: v for f, v in moving_out.items() if f not in ("workload", "sweep_args")},
+        durability=dur_out,
         attention={f: attn_out.get(f) for f in (
             "selected_frac", "survivor_frac", "build_ms", "select_ms", "attend_ms",
             "attend_all_ms", "dense_plain_ms", "sparse_vs_dense")},

@@ -8,14 +8,26 @@ Counterpart of ``repro.index.api`` for the slices ported so far:
     cnt = idx.count(queries)         # hits per query
     nn  = idx.knn(points, k)         # KNNResult(ids, dists, visits)
     jr  = idx.join(other)            # JoinResult(pairs, pair_visits)
+    idx.save(path); SpatialIndex.load(path)   # versioned snapshots
 
 Structures: ``mqr`` (the default, the paper's pointer tree, built on the
 host), ``rtree`` (Guttman baseline) and ``pyramid`` (bulk fixed point,
-``build="device"`` on the card).  Everything runs on the CUDA card unless
+``build="device"`` on the card).  Backends: ``cuda`` (the hand-written
+kernels), ``torch`` (their plain versions on the index's device),
+``host`` (the numpy / pointer oracle) and ``serve`` (the batching
+:class:`repro_torch.launch.spatial_serve.SpatialServer`, whose degradation
+ladder walks cuda → torch → host).  Everything runs on the CUDA card unless
 ``device="cpu"`` is passed (then each kernel's plain PyTorch version
 runs); without a card and without that request, building raises.  Results
-are torch tensors on the backend's device.  Options the port does not
-have yet raise ``NotImplementedError`` naming ROADMAP.md.
+are torch tensors on the backend's device.
+
+Durability: :meth:`SpatialIndex.save` / :meth:`SpatialIndex.load` write
+and read the JAX package's snapshot format (:mod:`repro_torch.checkpoint`),
+so a snapshot saved by either package loads in the other; a
+:class:`repro_torch.ft.FaultPlan` (``fault_plan=``) threads through the
+update log and the serving ladder.  The façade's spans
+(``index.region``/``insert``/``delete``/``flush``/``join``/``knn``) go to
+:mod:`repro_torch.obs.trace`.
 
 Online mutation (DESIGN.md §8): :meth:`SpatialIndex.insert` /
 :meth:`delete` / :meth:`flush` route through :mod:`repro_torch.update` —
@@ -45,6 +57,7 @@ from repro_torch.core.flat import (
 )
 from repro_torch.core.metrics import compute_metrics
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.update import BufferFullError, MergePolicy, UpdateLog, as_policy
 from repro_torch.update.engine import LiveEngine
 from repro_torch.update.oracle import live_tree
@@ -61,10 +74,6 @@ _UPDATE_OPTS = ("capacity", "merge", "admission", "fault_plan")
 
 # Admission policies for mutations that cannot be buffered.
 ADMISSION_MODES = ("merge", "shed")
-
-
-def _roadmap(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; see ROADMAP.md")
 
 
 class InvalidQueryError(ValueError):
@@ -169,7 +178,20 @@ class KNNResult:
 @dataclasses.dataclass
 class AccessStats:
     """The paper's disk-access accounting, accumulated over the lifetime
-    of a :class:`SpatialIndex`."""
+    of a :class:`SpatialIndex`, with the durability and degradation
+    ledger of the JAX package's ``AccessStats``.
+
+    ``launches`` counts the hand-written kernels' launches on the card
+    (one per level per sweep chunk, K per join; 0 on the ``torch`` and
+    ``host`` backends and rungs), not the TPU kernel's one launch per
+    16-query block, so comparisons with the reference leave it out.
+    Not here yet: the serving front end's ``shed_queries`` and
+    ``queued_queries`` (they come with ``serve/``), and the byte and tile
+    ledger ``bytes_streamed``, ``mask_bytes``, ``tiles_fetched`` and
+    ``launch_reports`` (they come with ``obs/counters`` derived for the
+    card).  ``tiles_skipped`` is the streaming sweep's own count, made on
+    the device (ROADMAP C6).
+    """
 
     queries: int = 0
     node_accesses: int = 0
@@ -181,8 +203,14 @@ class AccessStats:
     inserts: int = 0
     deletes: int = 0
     flushes: int = 0         # merges (manual, policy, or overflow)
-    shed_mutations: int = 0  # objects dropped by admission="shed"
     delta_accesses: int = 0  # node_accesses spent on delta-buffer levels
+    # durability / degradation ledger
+    launch_failures: int = 0   # rung dispatch attempts that raised
+    retries: int = 0           # same-rung retries after a failure
+    degraded_batches: int = 0  # batches answered below the top rung
+    shed_mutations: int = 0    # objects dropped by admission="shed"
+    queued_mutations: int = 0  # objects parked by DurableIndex queueing
+    rung_dispatches: dict = dataclasses.field(default_factory=dict)
     # (level, tile) pairs the streaming sweep (stream=True) skipped, as the
     # kernel counted them on the device
     tiles_skipped: int = 0
@@ -191,6 +219,50 @@ class AccessStats:
         self.queries += int(n_queries)
         self.node_accesses += int(accesses)
         self.launches += int(launches)
+
+    def absorb_health(self, health: Optional[dict]) -> None:
+        """Fold one :meth:`SpatialServer.drain_health` delta into the
+        ledger (no-op for backends without a degradation ladder)."""
+        if not health:
+            return
+        self.retries += int(health.get("retries", 0))
+        self.degraded_batches += int(health.get("degraded_batches", 0))
+        self.launch_failures += sum(int(v) for v in health.get("rung_failures", {}).values())
+        for rung, n in health.get("rung_dispatches", {}).items():
+            if n:
+                self.rung_dispatches[rung] = self.rung_dispatches.get(rung, 0) + int(n)
+
+    def to_dict(self) -> dict:
+        """Flat snapshot of every counter (``rung_dispatches`` stays a
+        nested dict) — the form for metrics export and for windowed deltas
+        via :meth:`diff`."""
+        out = dataclasses.asdict(self)
+        out["rung_dispatches"] = dict(self.rung_dispatches)
+        return out
+
+    def diff(self, prev) -> dict:
+        """Counter deltas since ``prev`` (an :class:`AccessStats` or a
+        previous :meth:`to_dict` snapshot).  Zero rung entries are
+        dropped."""
+        prev_d = prev.to_dict() if isinstance(prev, AccessStats) else dict(prev)
+        out = {}
+        for k, v in self.to_dict().items():
+            if isinstance(v, dict):
+                pv = prev_d.get(k) or {}
+                d = {r: n - pv.get(r, 0) for r, n in v.items()}
+                out[k] = {r: n for r, n in d.items() if n}
+            else:
+                out[k] = v - prev_d.get(k, 0)
+        return out
+
+    @property
+    def degraded(self) -> bool:
+        """True once any batch was answered below the top rung."""
+        return self.degraded_batches > 0
+
+    @property
+    def accesses_per_query(self) -> float:
+        return self.node_accesses / max(self.queries, 1)
 
 
 def _reject_opts(structure: str, **opts) -> None:
@@ -223,7 +295,8 @@ class BuildArtifacts:
         # the user's options, so a merge or extend() can re-run the same build
         self.build_opts = dict(levels=levels, max_entries=max_entries, build=build,
                                order=order)
-        self.pointer_tree = None
+        self._pointer_tree = None
+        self._pointer_pending = False  # restored: the tree is rebuilt on first use
         self._flat: Optional[FlatTree] = None
         self._schedule: Optional[LevelSchedule] = None
         self._quantized: Optional[QuantizedSchedule] = None
@@ -233,10 +306,10 @@ class BuildArtifacts:
         self.tuned: dict = {}
         if structure == "mqr":
             _reject_opts(structure, levels=levels, max_entries=max_entries, build=build)
-            self.pointer_tree = mqrtree.build(self.mbrs)
+            self._pointer_tree = mqrtree.build(self.mbrs)
         elif structure == "rtree":
             _reject_opts(structure, levels=levels, build=build)
-            self.pointer_tree = rtree.build(
+            self._pointer_tree = rtree.build(
                 self.mbrs,
                 max_entries=rtree.DEFAULT_M if max_entries is None else max_entries,
             )
@@ -255,6 +328,50 @@ class BuildArtifacts:
                 self._schedule = pyramid_schedule(bulk.build_pyramid(obj, levels), obj)
             if order == "hilbert":
                 self._schedule = ops.hilbert_permute(self._schedule)
+
+    @classmethod
+    def restore(cls, structure: str, mbrs, build_opts: Optional[dict],
+                schedule: LevelSchedule, quantized: Optional[QuantizedSchedule] = None,
+                ) -> "BuildArtifacts":
+        """Rehydrate artifacts from a snapshot: the saved schedule (and the
+        uint16 tile form, when it was saved) is installed as it is, on its
+        own device — no build and no quantization runs, so a restore
+        launches neither kernel #4 nor #5.  The host pointer tree of an
+        mqr or R-tree (the ``host`` backend and pointer k-NN need it) is
+        rebuilt from the object table on first use; the reference rebuilds
+        it at once, with the same deterministic build."""
+        if structure not in STRUCTURES:
+            raise ValueError(f"unknown structure {structure!r}; expected one of {STRUCTURES}")
+        self = cls.__new__(cls)
+        self.structure = structure
+        self.device = schedule.device
+        self.mbrs = np.asarray(mbrs, np.float64).reshape(-1, 4)
+        self.n_objects = self.mbrs.shape[0]
+        self.build_opts = dict(levels=None, max_entries=None, build=None, order=None)
+        self.build_opts.update(build_opts or {})
+        # the saved schedule was captured after any slot ordering
+        self.order = self.build_opts.get("order")
+        self._pointer_tree = None
+        self._pointer_pending = structure != "pyramid"
+        self._flat = None
+        self._schedule = schedule
+        self._quantized = quantized
+        self._quantized8 = None
+        self.tuned = {}
+        return self
+
+    @property
+    def pointer_tree(self):
+        """The host pointer tree (mqr and rtree; None for the pyramid)."""
+        if self._pointer_pending:
+            self._pointer_pending = False
+            if self.structure == "mqr":
+                self._pointer_tree = mqrtree.build(self.mbrs)
+            else:
+                me = self.build_opts.get("max_entries")
+                self._pointer_tree = rtree.build(
+                    self.mbrs, max_entries=rtree.DEFAULT_M if me is None else me)
+        return self._pointer_tree
 
     @property
     def flat(self) -> FlatTree:
@@ -315,6 +432,7 @@ class SpatialIndex:
         self._live_engine = None
         self._backend_base_epoch = 0   # base epoch self._backend was built at
         self._admission = "merge"      # what to do with unbufferable batches
+        self._fault_plan = None        # repro_torch.ft.FaultPlan, threaded everywhere
 
     @property
     def _updates(self):
@@ -335,7 +453,11 @@ class SpatialIndex:
         structure: ``mqr`` (the paper's pointer tree) | ``rtree`` (Guttman
             baseline) | ``pyramid`` (bulk bottom-up fixed point).
         backend:   ``cuda`` (fused sweep; plain versions on the CPU) |
-            ``host`` (pointer search / numpy oracle).
+            ``torch`` (the plain sweep on the index's device) | ``host``
+            (pointer search / numpy oracle) | ``serve`` (the batching
+            server: LRU cache, dedupe, the cuda → torch → host ladder;
+            options ``query_block``, ``cache_size``, ``block_w``,
+            ``precision``, ``ladder``, ``max_retries``, ``backoff``).
         opts: build options (``levels`` and ``build="host"|"device"`` for
             the pyramid — ``"device"`` runs the build kernel and emits the
             schedule directly; ``max_entries`` for the rtree;
@@ -350,14 +472,13 @@ class SpatialIndex:
             they compact; ``admission`` says what happens to a batch the
             buffer cannot absorb: ``"merge"`` (fold it into a compaction;
             ``BufferFullError`` when the policy has ``auto=False``) or
-            ``"shed"`` (drop it, counted in ``stats.shed_mutations``).
-            ``fault_plan`` is not ported yet and raises.
+            ``"shed"`` (drop it, counted in ``stats.shed_mutations``);
+            ``fault_plan`` — a :class:`repro_torch.ft.FaultPlan` threaded
+            through the update log and the serving ladder.
         backend_opts: an explicit dict of backend-only options; a key also
             given in ``opts`` raises ``TypeError``.
         """
         update_opts = {k: opts.pop(k) for k in list(opts) if k in _UPDATE_OPTS}
-        if update_opts.get("fault_plan") is not None:
-            raise _roadmap("option 'fault_plan' (fault injection, ft/failures.py)")
         build_opts = {k: v for k, v in opts.items() if k in _BUILD_OPTS}
         routed = {k: v for k, v in opts.items() if k not in _BUILD_OPTS}
         for k, v in (backend_opts or {}).items():
@@ -376,8 +497,11 @@ class SpatialIndex:
         if admission is not None:
             if admission not in ADMISSION_MODES:
                 raise ValueError(
-                    f"unknown admission {admission!r}; expected one of {ADMISSION_MODES}")
+                    f"unknown admission {admission!r}; expected one of {ADMISSION_MODES} "
+                    f"(queueing lives in repro_torch.checkpoint.DurableIndex)")
             idx._admission = admission
+        if update_opts.get("fault_plan") is not None:
+            idx.bind_fault_plan(update_opts["fault_plan"])
         return idx
 
     def with_backend(self, backend: str, **backend_opts) -> "SpatialIndex":
@@ -391,6 +515,8 @@ class SpatialIndex:
         new._updates_cell = self._updates_cell
         if self._updates is not None:
             new._backend_base_epoch = self._updates.base_epoch
+        if self._fault_plan is not None:
+            new.bind_fault_plan(self._fault_plan)
         return new
 
     def extend(self, new_mbrs, *, flush: str = "auto") -> "SpatialIndex":
@@ -469,6 +595,57 @@ class SpatialIndex:
     def schedule(self) -> LevelSchedule:
         return self.artifacts.schedule
 
+    # -- durability / fault injection ----------------------------------
+    def bind_fault_plan(self, plan) -> None:
+        """Thread a :class:`repro_torch.ft.FaultPlan` (or ``None`` to
+        detach) through every layer that honours injection hooks: the
+        update log (mid-merge kills, slow merges) and the serving ladder
+        (forced launch failures)."""
+        self._fault_plan = plan
+        if self._updates is not None:
+            self._updates.fault_plan = plan
+        if hasattr(self._backend, "bind_fault_plan"):
+            self._backend.bind_fault_plan(plan)
+        if self._live_engine is not None:
+            self._live_engine.bind_fault_plan(plan)
+
+    def _drain_health(self, source) -> None:
+        drain = getattr(source, "drain_health", None)
+        if drain is not None:
+            self.stats.absorb_health(drain())
+
+    def save(self, path) -> None:
+        """Write a versioned snapshot of the full index state — object
+        table, level schedule (and the uint16 tiles when they were made),
+        delta buffer, tombstones, id space and merge policy — atomically
+        (tmp + rename), in the JAX package's format.  Arrays are copied to
+        the host; :meth:`load` restores the same hits and visits."""
+        from repro_torch.checkpoint.spatial import save_index
+
+        save_index(self, path)
+
+    @classmethod
+    def load(cls, path, *, backend: str = "cuda", device=None, **backend_opts
+             ) -> "SpatialIndex":
+        """Restore an index saved by :meth:`save` (by either package) onto
+        ``backend`` and ``device`` (the card when None).  The saved
+        schedule is installed as it is: no build or quantization runs."""
+        from repro_torch.checkpoint.spatial import load_index
+
+        return load_index(path, backend=backend, device=device, **backend_opts)
+
+    def metrics(self, *, tenant: Optional[str] = None):
+        """Snapshot :attr:`stats` into a
+        :class:`repro_torch.obs.MetricsRegistry` (render with
+        ``.to_prometheus()`` or ``.to_json()``); ``tenant`` adds a label to
+        every sample."""
+        from repro_torch.obs import metrics as _obs_metrics
+
+        reg = _obs_metrics.MetricsRegistry()
+        labels = {"tenant": tenant} if tenant else None
+        _obs_metrics.stats_into(reg, self.stats, labels=labels)
+        return reg
+
     # -- live updates --------------------------------------------------
     def _ensure_log(self) -> UpdateLog:
         if self._updates is None:
@@ -482,12 +659,16 @@ class SpatialIndex:
                                                     **build_opts),
             )
             self._backend_base_epoch = self._updates.base_epoch
+        if self._fault_plan is not None:
+            self._updates.fault_plan = self._fault_plan
         return self._updates
 
     def _live(self) -> LiveEngine:
         if self._live_engine is None or self._live_engine.log is not self._updates:
             self._live_engine = LiveEngine(self._updates, self.spec.name,
                                            self._backend_opts)
+            if self._fault_plan is not None:
+                self._live_engine.bind_fault_plan(self._fault_plan)
         return self._live_engine
 
     def _current_backend(self):
@@ -512,6 +693,10 @@ class SpatialIndex:
         n = new_mbrs.shape[0]
         if n == 0:  # no-op: leave pristine state and epochs untouched
             return np.zeros((0,), np.int64)
+        with _obs_trace.span("index.insert", n=n):
+            return self._insert(new_mbrs, n)
+
+    def _insert(self, new_mbrs: np.ndarray, n: int) -> np.ndarray:
         log = self._ensure_log()
         if n > log.capacity:
             # Never bufferable: folds straight into one merge, regardless
@@ -549,13 +734,14 @@ class SpatialIndex:
         ids = np.asarray(ids, np.int64).reshape(-1)
         if ids.size == 0:  # no-op: leave pristine state and epochs untouched
             return
-        log = self._ensure_log()
-        gids = log.delete(ids)
-        self.stats.deletes += int(gids.shape[0])
-        if log.n_live > 0 and log.policy.should_flush(
-                fill=log.fill, tombstone_ratio=log.tombstone_ratio):
-            log.flush()
-            self.stats.flushes += 1
+        with _obs_trace.span("index.delete", n=ids.size):
+            log = self._ensure_log()
+            gids = log.delete(ids)
+            self.stats.deletes += int(gids.shape[0])
+            if log.n_live > 0 and log.policy.should_flush(
+                    fill=log.fill, tombstone_ratio=log.tombstone_ratio):
+                log.flush()
+                self.stats.flushes += 1
 
     def flush(self) -> bool:
         """Merge buffer + tombstones into a fresh base build now.
@@ -565,9 +751,10 @@ class SpatialIndex:
         """
         if self._updates is None:
             return False
-        if self._updates.flush():
-            self.stats.flushes += 1
-            return True
+        with _obs_trace.span("index.flush"):
+            if self._updates.flush():
+                self.stats.flushes += 1
+                return True
         return False
 
     def live_metrics(self):
@@ -590,9 +777,12 @@ class SpatialIndex:
         None)."""
         if self._updates is None:
             hits, visits, launches, skipped = self._backend.region(q)
+            self._drain_health(self._backend)
             return hits, visits, launches, None, skipped
-        hits, visits, launches = self._live().region(
+        live = self._live()
+        hits, visits, launches = live.region(
             q, base_region=lambda qs: self._current_backend().region(qs)[:3])
+        self._drain_health(live)
         return hits, visits, launches, self._updates.base.schedule.levels, None
 
     def _account(self, n_queries: int, visits, launches: int, base_levels, skipped) -> None:
@@ -613,7 +803,9 @@ class SpatialIndex:
     def region(self, queries) -> RegionResult:
         """Batched region search over (Q, 4) query rectangles."""
         q = self._queries(queries, 4)
-        hits, visits, launches, base_levels, skipped = self._region_raw(q)
+        with _obs_trace.span("index.region", backend=self.spec.name,
+                             structure=self.structure, queries=q.shape[0]):
+            hits, visits, launches, base_levels, skipped = self._region_raw(q)
         self._account(q.shape[0], visits, launches, base_levels, skipped)
         return RegionResult(hits=hits, visits_per_level=visits, base_levels=base_levels)
 
@@ -640,7 +832,9 @@ class SpatialIndex:
         """
         from .join import join_impl
 
-        result, launches = join_impl(self, other, predicate)
+        with _obs_trace.span("index.join", backend=self.spec.name,
+                             other_backend=other.spec.name, predicate=predicate):
+            result, launches = join_impl(self, other, predicate)
         visits = result.pair_visits.tolist()
         self.stats.joins += 1
         self.stats.record(1, sum(visits), launches)
@@ -652,8 +846,8 @@ class SpatialIndex:
 
         Host backend: exact branch-and-bound over the pointer tree (brute
         force for the pyramid, which has no pointer form, and for a live
-        index).  ``cuda`` backend: expanding-radius region rounds through
-        the backend's fused sweep until ≥k survivors, one √2-margin
+        index).  Other backends: expanding-radius region rounds through
+        the backend's sweep until ≥k survivors, one √2-margin
         confirming round, then a top-k distance epilogue on the device.
         Equal distances resolve by lowest object id on every engine.
         """
@@ -662,6 +856,11 @@ class SpatialIndex:
         points = np.asarray(points, np.float64).reshape(-1, 2)
         if not 1 <= k <= self.n_objects:
             raise ValueError(f"k={k} outside [1, {self.n_objects}]")
+        with _obs_trace.span("index.knn", backend=self.spec.name, k=k,
+                             queries=points.shape[0]):
+            return self._knn(points, k)
+
+    def _knn(self, points: np.ndarray, k: int) -> KNNResult:
         nq = points.shape[0]
         live = self._updates
         if self.spec.name == "host":
@@ -694,7 +893,3 @@ class SpatialIndex:
         self.stats.knn_rounds += rounds
         self.stats.queries += nq
         return KNNResult(ids=ids, dists=dists, visits=visits)
-
-    # -- not ported yet (ROADMAP.md "Port to PyTorch/CUDA") ------------
-    def save(self, path):
-        raise _roadmap("SpatialIndex.save (checkpoints)")

@@ -1,20 +1,29 @@
 """Built-in query backends of the :class:`SpatialIndex` registry.
 
-Two engines over the same search semantics:
+Four engines over the same search semantics:
 
 * ``host`` — the oracle: per-level pointer search over the built mqr or
   R-tree, and the numpy level sweep of the schedule for the pyramid (which
-  has no pointers), as the JAX package's ``host`` backend;
+  has no pointers; the serving ladder's host twin,
+  :func:`repro_torch.kernels.fallback.search_f32_np`), as the JAX
+  package's ``host`` backend;
+* ``torch`` — the plain PyTorch sweep (``engine="torch"``) on the index's
+  device, float32, no options: the counterpart of the JAX ``lax`` backend,
+  chosen by name only;
 * ``cuda`` — the fused sweep of :mod:`repro_torch.kernels.pyramid_scan`
   (the counterpart of the JAX ``pallas`` backend), at
   ``precision="float32"``, ``"compact"`` or ``"compact8"``, with tiling
-  autotuned (:mod:`repro_torch.kernels.autotune`) or fixed.
+  autotuned (:mod:`repro_torch.kernels.autotune`) or fixed;
+* ``serve`` — the batching
+  :class:`~repro_torch.launch.spatial_serve.SpatialServer` (LRU cache,
+  dedupe, the cuda → torch → host ladder) as a backend adapter.
 
 Every adapter returns ``(hits (Q, n_obj) bool, visits (Q, L) int32,
 launches int, tiles_skipped)`` with identical hits and per-level access
 counts; ``tiles_skipped`` is the streaming sweep's count of skipped
 (level, tile) pairs as a 0-d int64 tensor on the device, or None where no
-streaming sweep ran.
+streaming sweep ran.  Each ``region`` runs in a ``backend.<name>`` trace
+span (:mod:`repro_torch.obs.trace`).
 """
 
 from __future__ import annotations
@@ -23,8 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mbr as M
-from repro_torch.core.flat import LevelSchedule
-from repro_torch.kernels import ops
+from repro_torch.kernels import fallback, ops
 from repro_torch.kernels.autotune import (
     AUTO_MIN_WIDTH,
     PROBE_QUERIES,
@@ -34,6 +42,7 @@ from repro_torch.kernels.autotune import (
     shape_key,
     tune,
 )
+from repro_torch.obs import trace as _obs_trace
 
 from .registry import register_backend
 from .trees import node_children, node_mbr, tree_height
@@ -41,53 +50,6 @@ from .trees import node_children, node_mbr, tree_height
 ALL_STRUCTURES = ("mqr", "rtree", "pyramid")
 PRECISIONS = ("float32", "compact", "compact8")
 AUTOTUNE = ("auto", "on", "off")
-
-
-def _overlap_np(a, b):
-    """Closed-boundary rectangle intersection, broadcasting (numpy)."""
-    return (
-        (a[..., 0] <= b[..., 2])
-        & (b[..., 0] <= a[..., 2])
-        & (a[..., 1] <= b[..., 3])
-        & (b[..., 1] <= a[..., 3])
-    )
-
-
-def schedule_region_numpy(schedule: LevelSchedule, queries: np.ndarray):
-    """Reference level sweep over a :class:`LevelSchedule`, pure numpy.
-
-    ``active[l] = active[l-1][parent] & overlaps`` (level 0 unconditional at
-    the root slot for tree schedules).  Returns numpy ``(hits, visits (Q,
-    L))``."""
-    queries = np.asarray(queries, np.float32)
-    nq = queries.shape[0]
-    mbr_cm = schedule.mbr_cm.cpu().numpy()
-    parent = schedule.parent.cpu().numpy()
-    obj_level = schedule.obj_level.cpu().numpy()
-    obj_slot = schedule.obj_slot.cpu().numpy()
-    obj_id = schedule.obj_id.cpu().numpy()
-    levels, _, w = mbr_cm.shape
-    mbr = mbr_cm.transpose(0, 2, 1)  # (L, W, 4)
-    acts = np.zeros((levels, nq, w), bool)
-    for l in range(levels):
-        ov = _overlap_np(mbr[l][None, :, :], queries[:, None, :])
-        if l == 0:
-            if schedule.root_unconditional:
-                act = np.zeros((nq, w), bool)
-                act[:, 0] = True
-            else:
-                act = ov
-        else:
-            act = ov & acts[l - 1][:, parent[l]]
-        acts[l] = act
-    visits = acts.sum(axis=2).T.astype(np.int32)
-    entry_act = acts[obj_level, :, obj_slot].T  # (Q, E)
-    if schedule.test_object_mbr:
-        obj_mbr = schedule.obj_mbr.cpu().numpy()
-        entry_act = entry_act & _overlap_np(obj_mbr[None, :, :], queries[:, None, :])
-    hits = np.zeros((nq, max(schedule.n_objects, 1)), bool)
-    np.maximum.at(hits, (slice(None), obj_id), entry_act)
-    return hits, visits
 
 
 @register_backend(
@@ -106,9 +68,13 @@ class HostBackend:
             self.schedule = artifacts.schedule.to("cpu")
 
     def region(self, queries: torch.Tensor):
+        with _obs_trace.span("backend.host", queries=queries.shape[0]):
+            return self._region(queries)
+
+    def _region(self, queries: torch.Tensor):
         queries = queries.cpu().numpy()
         if self.tree is None:
-            hits, visits = schedule_region_numpy(self.schedule, queries)
+            hits, visits = fallback.search_f32_np(queries, self.schedule)
         else:
             hits, visits = self._pointer_search(queries)
         return torch.from_numpy(hits), torch.from_numpy(visits), 0, None
@@ -252,8 +218,80 @@ class CudaBackend:
         return self._run_one(queries, cfg, skipped)
 
     def region(self, queries: torch.Tensor):
-        self.config = self._config(queries)
-        skipped = (torch.zeros((), dtype=torch.int64, device=self.schedule.device)
-                   if self.stream else None)
-        hits, visits, launches = self._run(queries, self.config, skipped)
+        with _obs_trace.span("backend.cuda", queries=queries.shape[0],
+                             precision=self.precision, stream=self.stream):
+            self.config = self._config(queries)
+            skipped = (torch.zeros((), dtype=torch.int64, device=self.schedule.device)
+                       if self.stream else None)
+            hits, visits, launches = self._run(queries, self.config, skipped)
         return hits, visits, launches, skipped
+
+
+@register_backend(
+    "torch",
+    structures=ALL_STRUCTURES,
+    doc="the plain PyTorch level sweep (the kernels' plain versions) on the "
+        "index's device; float32, no options; as the JAX lax backend",
+)
+class TorchBackend:
+    """Plain-sweep adapter: :func:`repro_torch.kernels.ops.pyramid_scan`
+    with ``engine="torch"``.  It launches none of the hand-written kernels,
+    so it reports 0 launches; a caller chooses it by name only, and no
+    other backend falls back to it (the ``serve`` ladder's ``torch`` rung
+    runs the same sweep and counts it as a degraded batch)."""
+
+    def __init__(self, artifacts):
+        self.schedule = artifacts.schedule
+
+    def region(self, queries: torch.Tensor):
+        with _obs_trace.span("backend.torch", queries=queries.shape[0]):
+            hits, visits = ops.pyramid_scan(self.schedule, queries, engine="torch")
+        return hits, visits, 0, None
+
+
+@register_backend(
+    "serve",
+    structures=ALL_STRUCTURES,
+    doc="batching SpatialServer: LRU cache + dedupe + the cuda -> torch -> "
+        "host degradation ladder; precision='compact'/'compact8' serve the "
+        "quantized tile forms",
+)
+class ServeBackend:
+    """:class:`repro_torch.launch.spatial_serve.SpatialServer` as a
+    backend.  ``launches`` are the server's card launches of the batch (one
+    per level on the ``cuda`` rung, none below it); :meth:`drain_health`
+    hands the ladder's ledger to ``AccessStats``."""
+
+    def __init__(self, artifacts, *, query_block: int = 16, cache_size: int = 4096,
+                 block_w: int = 128, precision: str = "float32", ladder=None,
+                 max_retries: int = 2, backoff: float = 0.05, fault_plan=None):
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r}; expected one of {PRECISIONS}")
+        # Imported here: launch.spatial_serve builds on the index package.
+        from repro_torch.launch.spatial_serve import LADDER, SpatialServer
+
+        if precision == "compact":
+            quantized = artifacts.quantized
+        elif precision == "compact8":
+            quantized = artifacts.quantized8
+        else:
+            quantized = None
+        self.server = SpatialServer(
+            artifacts.schedule, device=artifacts.device, query_block=query_block,
+            cache_size=cache_size,
+            block_w=block_w, precision=precision, quantized=quantized,
+            ladder=LADDER if ladder is None else ladder, max_retries=max_retries,
+            backoff=backoff, fault_plan=fault_plan,
+        )
+
+    def region(self, queries: torch.Tensor):
+        with _obs_trace.span("backend.serve", queries=queries.shape[0]):
+            before = self.server.stats.kernel_launches
+            hits, visits = self.server.search(queries)
+            return hits, visits, self.server.stats.kernel_launches - before, None
+
+    def bind_fault_plan(self, plan) -> None:
+        self.server.bind_fault_plan(plan)
+
+    def drain_health(self) -> dict:
+        return self.server.drain_health()

@@ -9,7 +9,9 @@ levelized pair sweep:
   level-synchronized; the LEFT index's backend picks the engine:
   ``cuda`` runs :func:`repro_torch.kernels.ops.fused_join` (kernel #6,
   one launch per level, with a plain-torch epilogue; its plain version on
-  the CPU), ``host`` the same function on CPU tensors;
+  the CPU), ``torch`` the same with the plain pair sweep on the left
+  index's device, ``host`` the same function on CPU tensors, and
+  ``serve`` walks the degradation ladder :data:`JOIN_LADDER`;
 * the right index's arrays move to the left index's device, and the
   result's tensors live there;
 * ``precision="compact"`` (on the left index) quantizes BOTH sides' tiles
@@ -24,8 +26,16 @@ levelized pair sweep:
   every structure × backend × precision; precision and pruning quality
   only move the pair-visit ledger.
 
-The JAX package's ``serve`` backend walks a degradation ladder per join;
-it waits for the port's serving layer (ROADMAP.md, queue A item 5).
+The ``serve`` backend walks ``cuda → torch → host`` per join call
+(:data:`repro_torch.kernels.fallback.JOIN_FALLBACKS` are the lower rungs),
+honouring the left index's bound :class:`repro_torch.ft.FaultPlan`, through
+the region server's walk (:func:`repro_torch.kernels.fallback.run_ladder`):
+the same trace events, a ``RuntimeWarning`` on every degrade, and rung
+dispatches, failures and degraded calls folded into the index's
+``AccessStats``.  It has no retries and no sticky floor: a failing rung
+degrades at once, and the next call starts at ``cuda`` again, as in the
+reference.  On the card only an injected failure degrades; a real kernel
+error raises.
 """
 
 from __future__ import annotations
@@ -36,10 +46,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.flat import CELLS, LevelSchedule, ancestor_chains
-from repro_torch.kernels import join_scan, ops
+from repro_torch.kernels import fallback, join_scan, ops
 from repro_torch.kernels.quantize import quantize_rows
 
 PREDICATES = ("intersects",)
+
+#: degradation-ladder rung order for serve-backend joins
+JOIN_LADDER = ("cuda", "torch", "host")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,19 +203,42 @@ def join_impl(left, right, predicate: str = "intersects"):
 
     The left index picks the engine (backend, precision) and the device:
     ``cuda`` runs :func:`repro_torch.kernels.ops.fused_join` on the left
-    index's device, any other backend the same function on CPU tensors
-    (its plain versions; as the JAX package sends backends off its ladder
-    to its host rung); both sides contribute structure + live state.
-    ``launches`` counts one kernel launch per swept level on the ``cuda``
-    backend (ROADMAP C7).
+    index's device, ``torch`` its plain pair sweep there, ``host`` the
+    same function on CPU tensors, ``serve`` the ladder; both sides
+    contribute structure + live state.  ``launches`` counts one kernel
+    launch per swept level on the ``cuda`` backend and rung (ROADMAP C7).
     """
     if predicate not in PREDICATES:
         raise ValueError(
             f"unknown join predicate {predicate!r}; expected one of {PREDICATES}")
     args, k, symmetric = lower_join(left, right)
-    if left.spec.name != "cuda":
-        pairs, visits = ops.fused_join(*(a.cpu() for a in args), symmetric=symmetric)
-        dev = left.device
-        return JoinResult(pairs.to(dev), visits.to(dev), base_levels=k), 0
-    pairs, visits = ops.fused_join(*args, symmetric=symmetric)
-    return JoinResult(pairs, visits, base_levels=k), k
+    backend = left.spec.name
+    if backend != "serve":
+        rung = backend if backend in JOIN_LADDER else "host"
+        pairs, visits, launches = _dispatch(rung, args, k, symmetric, left.device)
+        return JoinResult(pairs, visits, base_levels=k), launches
+
+    # serve: walk the degradation ladder, same health ledger as region;
+    # no retries and no sticky floor, as in the reference
+    ledger = fallback.LadderLedger()
+    try:
+        (pairs, visits, launches), _ = fallback.run_ladder(
+            JOIN_LADDER, lambda rung: _dispatch(rung, args, k, symmetric, left.device),
+            ledger=ledger, device=left.device, fault_plan=left._fault_plan,
+            who="SpatialIndex.join")
+    finally:
+        left.stats.absorb_health(dataclasses.asdict(ledger))
+    return JoinResult(pairs, visits, base_levels=k), launches
+
+
+def _dispatch(rung: str, args, k: int, symmetric: bool, device: torch.device):
+    """Run one ladder rung over the lowered join arrays; returns ``(pairs,
+    visits, launches)`` on ``device``."""
+    if rung == "cuda":
+        pairs, visits = ops.fused_join(*args, symmetric=symmetric)
+        return pairs, visits, k
+    if rung == "torch":
+        pairs, visits = fallback.JOIN_FALLBACKS["torch"](*args, symmetric=symmetric)
+    else:
+        pairs, visits = fallback.JOIN_FALLBACKS["host"](*args, symmetric=symmetric)
+    return pairs.to(device), visits.to(device), 0

@@ -40,16 +40,8 @@ def register_backend(name: str, *, structures: Iterable[str], doc: str = ""):
     return deco
 
 
-# Backends of the JAX package that wait for a later slice of the port.
-_UNPORTED = {"serve": "the serve backend and its degradation ladder"}
-
-
 def get_backend(name: str) -> BackendSpec:
     _ensure_loaded()
-    if name in _UNPORTED and name not in _REGISTRY:
-        raise NotImplementedError(
-            f"{_UNPORTED[name]} (backend={name!r}) is not ported to repro_torch yet; "
-            f"see ROADMAP.md")
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -269,10 +269,12 @@ def fused_join(
     a_cm, a_parent, a_anc, a_level, a_gid,
     b_cm, b_parent, b_anc, b_level, b_gid,
     table_a, table_b, alive_a, alive_b, delta_a, delta_b,
-    *, symmetric: bool = False,
+    *, symmetric: bool = False, engine: str = "kernel",
 ):
     """Tree-vs-tree spatial join: :func:`pair_sweep` (kernel #6, one launch
-    per level, on a CUDA tensor) + :func:`join_epilogue`.
+    per level, on a CUDA tensor) + :func:`join_epilogue`; ``engine="torch"``
+    sweeps with :func:`pair_sweep_torch` on any device instead (the
+    ``torch`` backend and the serving ladder's ``torch`` rung).
 
     Both sides arrive as their first ``K`` schedule levels (float32 tiles,
     or uint16 tiles on one JOINT grid for ``precision="compact"``), int32
@@ -291,7 +293,13 @@ def fused_join(
     require_fits(need, a_cm.device,
                  f"the join's ({k_levels}, {wa}, {wb}) pair mask and its "
                  f"({table_a.shape[0]}, {table_b.shape[0]}) epilogue")
-    act = pair_sweep(a_cm, a_parent, b_cm, b_parent, symmetric=symmetric)
+    if engine == "kernel":
+        act = pair_sweep(a_cm, a_parent, b_cm, b_parent, symmetric=symmetric)
+    elif engine == "torch":
+        _check_pair_args(a_cm, a_parent, b_cm, b_parent, symmetric)
+        act = pair_sweep_torch(a_cm, a_parent, b_cm, b_parent, symmetric=symmetric)
+    else:
+        raise ValueError(f"unknown join engine {engine!r}; expected 'kernel' or 'torch'")
     return join_epilogue(
         act, a_anc, a_level, a_gid, b_anc, b_level, b_gid, table_a, table_b,
         alive_a, alive_b, delta_a, delta_b, symmetric=symmetric)

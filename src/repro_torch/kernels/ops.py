@@ -60,6 +60,17 @@ mqr_sparse_attention_ref = mqr_sparse_attention_torch
 rmsnorm_ref = rmsnorm_torch
 
 
+def load_kernels(device) -> None:
+    """Build (once) and load the hand-written kernels when ``device`` is a
+    CUDA device; nothing on the CPU.  Callers that must not mistake a
+    failed build for a failed launch (the serving ladder) call this before
+    their first launch, so an ``nvcc`` or load error raises here."""
+    if torch.device(device).type == "cuda":
+        from . import _lib
+
+        _lib.load()
+
+
 def default_device() -> torch.device:
     """The device an entry point uses when the caller names none: the CUDA
     card.  Raises when there is no card — running on the CPU has to be

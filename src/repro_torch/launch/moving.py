@@ -16,11 +16,12 @@ churn — what a vehicle-tracking or geofencing service sees:
 
 All motion comes from one numpy ``default_rng(seed)`` drawn in the JAX
 package's order, so a seed replays its scenario exactly.  The workload
-drives a plain :class:`~repro_torch.index.SpatialIndex` (``index=`` takes
-one); the JAX package's ``DurableIndex`` and ``FaultPlan`` wait for the
-port's durability layer (ROADMAP.md, queue A item 5).
-``rebuild_per_tick=True`` is the naive baseline: every tick rebuilds the
-whole index instead of going through the delta buffer.
+drives any index-like with ``insert/delete/region/join`` (``index=``
+takes one): a plain :class:`~repro_torch.index.SpatialIndex` or a
+:class:`~repro_torch.checkpoint.DurableIndex`, whose ``FaultPlan`` kills
+then land mid-tick and whose recovery resumes from the last durable
+mutation.  ``rebuild_per_tick=True`` is the naive baseline: every tick
+rebuilds the whole index instead of going through the delta buffer.
 
     PYTHONPATH=src python -m repro_torch.launch.moving --ticks 200
 """
@@ -146,10 +147,16 @@ class MovingWorkload:
         self.pos[slots] = np.clip(p, lo, hi)
         self.vel[slots] = v
 
+    # -- index-protocol shims (SpatialIndex | DurableIndex) ------------
+    @staticmethod
+    def _ids(result) -> np.ndarray:
+        """Unwrap ``DurableIndex.MutationResult.ids`` / pass gid arrays."""
+        return np.asarray(getattr(result, "ids", result), np.int64)
+
     @property
     def query_index(self) -> SpatialIndex:
-        """The index the continuous queries run on."""
-        return self.index
+        """The underlying ``SpatialIndex`` (unwraps ``DurableIndex``)."""
+        return getattr(self.index, "index", self.index)
 
     # -- the tick ------------------------------------------------------
     def tick(self) -> TickResult:
@@ -170,7 +177,7 @@ class MovingWorkload:
             new = self.gid[moved]  # rebuild renumbers from zero
         else:
             self.index.delete(old)
-            new = np.asarray(self.index.insert(self.boxes(moved)), np.int64)
+            new = self._ids(self.index.insert(self.boxes(moved)))
             self.dead_gids.extend(old.tolist())
         self.gid[moved] = new
 

@@ -3,12 +3,13 @@
 Counterpart of ``repro.update``: ``SpatialIndex.insert`` / ``.delete`` /
 ``.flush`` absorb online mutations without a rebuild per operation, and
 every backend's results stay bit-identical to the host mqr
-insertion-rule oracle.  The reference's write-ahead log (``update/wal.py``)
-belongs with durability (ROADMAP queue A item 5) and is not ported here.
+insertion-rule oracle.  :mod:`repro_torch.update.wal` is the mutation
+write-ahead log of :class:`repro_torch.checkpoint.DurableIndex`.
 """
 
 from .buffer import AugmentedArrays, BufferFullError, UpdateLog
 from .policy import DEFAULT_CAPACITY, MergePolicy, as_policy
+from .wal import WalCorruption, WriteAheadLog, read_wal, recover_wal, repair_wal
 
 __all__ = [
     "AugmentedArrays",
@@ -17,4 +18,9 @@ __all__ = [
     "MergePolicy",
     "as_policy",
     "DEFAULT_CAPACITY",
+    "WalCorruption",
+    "WriteAheadLog",
+    "read_wal",
+    "recover_wal",
+    "repair_wal",
 ]

@@ -34,8 +34,11 @@ zero parents, the delta object rows and ``alive``) and joins it to the
 base on the device.  The result equals the reference's arrays field for
 field.
 
-Not ported here: the reference's trace spans (``repro.obs``, ROADMAP
-queue A item 5) and its fault-injection hook (``repro.ft``, the same item).
+As in the reference, a merge runs inside an ``update.merge`` trace span
+(:mod:`repro_torch.obs.trace`), and :attr:`UpdateLog.fault_plan` (a
+:class:`repro_torch.ft.FaultPlan`, None in production) is called inside
+it, after the new id space is laid out and before the base is rebuilt:
+the mid-merge kill window of the durability tests.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.flat import NEVER_MBR, Q_NEVER_MBR
+from repro_torch.obs import trace as _obs_trace
 
 from .policy import MergePolicy
 
@@ -153,6 +157,9 @@ class UpdateLog:
         self.epoch = 0        # bumps on every mutation
         self.base_epoch = 0   # bumps on every merge (base arrays replaced)
         self.flushes = 0
+        # fault-injection hook (repro_torch.ft.FaultPlan): lets the harness
+        # stretch merges / kill mid-merge; None in production.
+        self.fault_plan = None
         self._reset_caches()
 
     def _reset_caches(self) -> None:
@@ -269,8 +276,11 @@ class UpdateLog:
         return self._merge(extra_mbrs=mbrs)
 
     def _merge(self, extra_mbrs: Optional[np.ndarray]) -> np.ndarray:
-        # The reference wraps this in an "update.merge" trace span; the
-        # port has no tracing yet (ROADMAP queue A item 5).
+        extra = 0 if extra_mbrs is None else int(extra_mbrs.shape[0])
+        with _obs_trace.span("update.merge", extra=extra, epoch=self.base_epoch):
+            return self._merge_impl(extra_mbrs)
+
+    def _merge_impl(self, extra_mbrs: Optional[np.ndarray]) -> np.ndarray:
         if extra_mbrs is not None and extra_mbrs.shape[0]:
             b = extra_mbrs.shape[0]
             extra_gids = np.arange(self.next_gid, self.next_gid + b,
@@ -297,6 +307,11 @@ class UpdateLog:
             )
         # Ascending global id == original insertion order: the canonical
         # order the host mqr-insertion oracle also uses.
+        if self.fault_plan is not None:
+            # Mid-merge fault window: the WAL record for the triggering op
+            # is durable but the compaction has not replaced the base yet
+            # — a kill here must recover by re-running the merge.
+            self.fault_plan.merge_event()
         self.base = self._rebuild(self.mbr_table[live])
         self.base_gids = live.astype(np.int64)
         self.delta_mbrs[:] = 0.0
@@ -334,6 +349,7 @@ class UpdateLog:
         new.epoch = self.epoch
         new.base_epoch = self.base_epoch
         new.flushes = self.flushes
+        new.fault_plan = self.fault_plan
         new._reset_caches()
         return new
 
@@ -394,6 +410,7 @@ class UpdateLog:
         new.epoch = int(scalars["epoch"])
         new.base_epoch = int(scalars["base_epoch"])
         new.flushes = int(scalars["flushes"])
+        new.fault_plan = None
         new._reset_caches()
         return new
 

@@ -18,6 +18,7 @@ import torch
 import conftest
 from repro.index import SpatialIndex as JaxIndex
 from repro_torch import SpatialIndex
+from repro_torch.ft import FaultPlan
 from repro_torch.index import advertised_pairs, backend_names
 
 N = 700
@@ -113,28 +114,35 @@ def test_with_backend_shares_the_build():
 
 
 def test_registry():
-    assert backend_names() == ["cuda", "host"]
+    assert backend_names() == ["cuda", "host", "serve", "torch"]
     assert advertised_pairs() == [
         (structure, backend) for structure in ("mqr", "pyramid", "rtree")
-        for backend in ("cuda", "host")
+        for backend in ("cuda", "host", "serve", "torch")
     ]
 
 
 @pytest.mark.parametrize("opts", [
-    {"fault_plan": object()},
+    {"fault_plan": FaultPlan()},
 ])
 def test_unported_options_raise(opts):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SpatialIndex.build(_data()[:20], device="cpu", **opts)
+    """Options that the port once refused with NotImplementedError; every
+    one of them is ported now, so each builds and takes effect.  The
+    test keeps the name it had then."""
+    idx = SpatialIndex.build(_data()[:20], device="cpu", **opts)
+    assert idx._fault_plan is opts["fault_plan"]
 
 
 @pytest.mark.parametrize("method,args", [
     ("save", ("x",)),
 ])
-def test_unported_methods_raise(method, args):
+def test_unported_methods_raise(method, args, tmp_path):
+    """Methods that the port once refused with NotImplementedError; every
+    one of them is ported now and runs.  The test keeps the name it had
+    then."""
     idx = SpatialIndex.build(_data()[:20], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        getattr(idx, method)(*args)
+    getattr(idx, method)(*(tmp_path / a for a in args))
+    back = SpatialIndex.load(tmp_path / "x", device="cpu")
+    assert torch.equal(back.region(_queries()).hits, idx.region(_queries()).hits)
 
 
 def test_bad_options_raise():

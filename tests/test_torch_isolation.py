@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch import SpatialIndex, convert
+from repro_torch.checkpoint import DurableIndex
+from repro_torch.launch.spatial_serve import SpatialServer
 from repro_torch.core import kvindex
 from repro_torch.kernels import ops
 
@@ -80,6 +82,24 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "    kb[:, 1].contiguous(), kb[:, 2].contiguous())\n"
         "n = ops.rmsnorm(keys, probe)\n"
         "assert o.shape == (2, 16) and x.shape == (2, 128, 16) and n.shape == keys.shape\n"
+        "import tempfile\n"
+        "from repro_torch.checkpoint import DurableIndex, live_ids\n"
+        "from repro_torch.ft import FaultPlan\n"
+        "from repro_torch.obs import trace\n"
+        "trace.enable()\n"
+        "with tempfile.TemporaryDirectory() as root:\n"
+        "    dur = DurableIndex.create(d, root, structure='pyramid', device='cpu', sync=False,\n"
+        "                              capacity=8)\n"
+        "    dur.insert(d[:3]); dur.delete([0]); dur.checkpoint(); dur.flush(); dur.close()\n"
+        "    back = DurableIndex.recover(root, backend='serve', device='cpu', sync=False)\n"
+        "    assert (live_ids(back) == live_ids(dur)).all()\n"
+        "    back.index.bind_fault_plan(FaultPlan(fail_launches=3))\n"
+        "    import warnings\n"
+        "    with warnings.catch_warnings():\n"
+        "        warnings.simplefilter('ignore')\n"
+        "        assert back.region(q).hits.equal(dur.region(q).hits)\n"
+        "    assert back.stats.rung_dispatches == {'torch': 1}\n"
+        "assert any(e['name'] == 'serve.rung' for e in trace.get_tracer().events())\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
@@ -91,7 +111,7 @@ def test_port_runs_with_jax_and_repro_unimportable():
     assert res.stdout.strip() == "ok"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     """With no card and no explicit CPU request, nothing runs on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = np.array([[0.0, 0.0, 1.0, 1.0], [2.0, 2.0, 3.0, 3.0]])
@@ -120,6 +140,27 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert convert.kvindex_from_numpy(kv, device="cpu").block_mbr.device.type == "cpu"
     # asked for explicitly, the CPU works
     assert SpatialIndex.build(data, device="cpu").device == torch.device("cpu")
+    # the durability and serving entry points follow the same rule
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpatialIndex.build(data, backend="serve")
+    assert SpatialIndex.build(data, backend="serve", device="cpu").region(data).hits.shape == (2, 2)
+    SpatialIndex.build(data, device="cpu").save(tmp_path / "snap")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpatialIndex.load(tmp_path / "snap")
+    assert SpatialIndex.load(tmp_path / "snap", device="cpu").device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DurableIndex.create(data, tmp_path / "d0", sync=False)
+    DurableIndex.create(data, tmp_path / "d", device="cpu", sync=False).close()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DurableIndex.recover(tmp_path / "d", sync=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DurableIndex.open(tmp_path / "d", sync=False)
+    assert DurableIndex.recover(tmp_path / "d", device="cpu", sync=False).n_objects == 2
+    assert DurableIndex.open(tmp_path / "d", device="cpu", sync=False).n_objects == 2
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpatialServer(sched)
+    hits, _ = SpatialServer(sched, device="cpu").search(data)
+    assert hits.device == torch.device("cpu") and hits.shape == (2, 2)
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -411,12 +411,17 @@ def test_join_stats_ledger():
 
 
 def test_join_unknown_predicate_and_serve_raise():
+    """An unknown predicate raises; the ``serve`` backend, once refused
+    with NotImplementedError, now joins through its ladder and gives the
+    ``cuda`` backend's pairs.  The test keeps the name it had then."""
     idx = SpatialIndex.build(_data("a", "uniform_squares", 40), device="cpu")
     with pytest.raises(ValueError, match="predicate"):
         idx.join(idx, predicate="within")
     assert pjoin.PREDICATES == jjoin.PREDICATES
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SpatialIndex.build(_data("a", "uniform_squares", 40), backend="serve", device="cpu")
+    served = SpatialIndex.build(_data("a", "uniform_squares", 40), backend="serve", device="cpu")
+    other = SpatialIndex.build(_data("b", "uniform_squares", 30), device="cpu")
+    assert torch.equal(served.join(other).pairs, idx.join(other).pairs)
+    assert served.stats.rung_dispatches == {"cuda": 1}
 
 
 def test_size_guard_raises_before_allocating():
