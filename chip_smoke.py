@@ -137,7 +137,31 @@ it and read just after):
      and the uint16 tiles equal an un-killed run of the same ops, and Q
      hits equal a brute force over the live ids; WAL appends/s with and
      without fsync, recover ms and ops replayed;
- 16. mqr-KV and attention kernels, at llama3.2-1B's widths (d_model 2048,
+ 16. serving front end (``repro_torch.serve``), in a temporary directory:
+     three pyramid tenants of n objects on the ``serve`` backend, built on
+     the card (``maps`` compact, ``fleet`` float32 and durable with a
+     delta buffer of 4,096, ``maps8`` compact8), 16-query batches, an
+     interactive class (50 ms, shed past 256) and a batch class (2 s,
+     queued).  First, while ``fleet`` is pristine, one batch of each
+     tenant with the launch-report side channel armed: ``bytes_streamed``
+     equals its formula (the card's bytes, ROADMAP C19) and, with the mask
+     written, over the sweep's device time stays within 3.35 TB/s x 1.05.
+     Then 3 segments of 48 region, count, point and k-NN (k 10) requests
+     through the queue, ``fleet`` mutated between them: every answer
+     equals the tenant's own index called directly on the ``cuda``
+     backend, counts equal ``hits.sum()``, and a repeated ``maps`` query
+     comes from its cache at epoch 0; each of 4 batches' host service time
+     is at least its CUDA-event device window; every batch so far ran on
+     the ``cuda`` rung; 192 requests with a ``FaultPlan`` bound mid-run
+     (``cuda`` failing from its third attempt) answer as the direct call
+     while every tenant degrades to ``torch``; a new front end over
+     ``fleet``'s durable root recovers it and answers 64 queries as before
+     the restart; an open-loop sweep (``run_sweep``) on ``maps`` at 1,000,
+     4,000 and 16,000 region queries/s, 2 s each, prints offered and
+     achieved rates, p50 / p99 / p99.9, shed, SLO violations, the average
+     batch and the queue-wait p99; fails unless #4, #5, #1 (both tile
+     types) and #3 launched;
+ 17. mqr-KV and attention kernels, at llama3.2-1B's widths (d_model 2048,
      32 heads, 8 kv heads, head dim 64; mqr block 128, top-K 64, 6 levels),
      random inputs from the seed: ``ops.rmsnorm`` on (prefill, 2048) and
      ``ops.flash_attention`` on (32, prefill, 64), each in float32 and
@@ -156,7 +180,7 @@ it and read just after):
      search must prune for every head; prints the fraction of blocks
      attended and the ms of index build, selection and attention per
      decode step beside the plain dense decode over all blocks;
- 17. each kernel against its plain version at its path's shapes (exact
+ 18. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
      within ``rtol |plain| + row_rms x RMS of the row``: float32 (1e-4,
@@ -184,7 +208,7 @@ it and read just after):
      store-rate floor printed as context;
      before #4's row, its device time by level and kernel (the profiler's
      kernels in launch order) and its launches a level;
- 18. end-to-end times of builds, region and point batches (first call,
+ 19. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one call per path (region
      batches per path and precision, two joins, a k-NN call, a moving tick
@@ -203,6 +227,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import itertools
 import json
 import multiprocessing
 import statistics
@@ -888,6 +913,378 @@ def plain_quantizer_calls():
         yield calls
     finally:
         quantize.quantize_cm_torch = plain
+
+
+# -- the serving front end ------------------------------------------------
+
+FRONT_PRECISION = {"maps": "compact", "fleet": "float32", "maps8": "compact8"}
+FRONT_SWEEP_QPS = (1_000.0, 4_000.0, 16_000.0)
+
+
+def front_config(fleet_root: str, tenants=("maps", "fleet", "maps8")) -> dict:
+    """The front end's declarative config: three pyramid tenants on the
+    ``serve`` backend, built on the card (``maps`` compact, ``fleet``
+    float32 and durable with a delta buffer of 4,096, ``maps8`` compact8
+    through ``backend_opts``); 16-query batches; an interactive class
+    (50 ms, shed past 256 pending) and a batch class (2 s, queued)."""
+    common = {"structure": "pyramid", "backend": "serve", "build": "device"}
+    all_tenants = {
+        "maps": dict(common, name="maps", precision="compact"),
+        "fleet": dict(common, name="fleet", capacity=4_096, durable_root=fleet_root),
+        "maps8": dict(common, name="maps8", backend_opts={"precision": "compact8"}),
+    }
+    return {
+        "query_block": 16,
+        "classes": [
+            {"name": "interactive", "deadline_ms": 50.0, "overload": "shed", "max_queue": 256},
+            {"name": "batch", "deadline_ms": 2000.0, "overload": "queue"},
+        ],
+        "tenants": [all_tenants[t] for t in tenants],
+    }
+
+
+def report_formula(ix, precision: str, block_w: int = 128) -> float:
+    """``bytes_streamed`` of one sweep call on ``ix``'s pyramid schedule,
+    from its shapes (repro_torch.obs.counters, ROADMAP C19): every tested
+    level's lanes (16 B a slot float32, 8 uint16, 4 uint8) and every gated
+    level's parents, once; #3 reads a level's tiles up to ``n_real[l]``
+    rounded up to ``block_w``."""
+    s = ix.schedule
+    levels, width = s.levels, s.width
+    first = int(s.root_unconditional)
+    if precision == "float32":
+        lanes, pbytes, read = [16] * levels, s.parent.element_size(), [width] * levels
+    elif precision == "compact":
+        q = ix.artifacts.quantized
+        lanes, pbytes, read = [8] * levels, q.parent_q.element_size(), [width] * levels
+    else:
+        q = ix.artifacts.quantized8
+        lanes = [4 if l < q.split else 8 for l in range(levels)]
+        pbytes = q.parent_q.element_size()
+        read = [min(width, -(-int(n) // block_w) * block_w) for n in s.n_real.tolist()]
+    return float(sum(read[l] * lanes[l] for l in range(first, levels))
+                 + sum(read[l] * pbytes for l in range(1, levels)))
+
+
+def sweep_call(ix, precision: str, q: torch.Tensor):
+    """The sweep kernel call of ``ix``'s ``serve`` rung on queries ``q``
+    (#1 for float32 and compact, #3 for compact8), for timing."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pyramid_scan import _quantize_queries
+
+    s = ix.schedule
+    root = s.root_unconditional
+    if precision == "float32":
+        return lambda: ops.level_sweep(q, s.mbr_cm, s.parent, root_unconditional=root)
+    qs = ix.artifacts.quantized if precision == "compact" else ix.artifacts.quantized8
+    qq = _quantize_queries(q, qs.origin, qs.inv_cell, qs.cells)
+    if precision == "compact":
+        return lambda: ops.level_sweep(qq, qs.mbr_q, qs.parent_q, root_unconditional=root)
+    qq8 = _quantize_queries(q, qs.origin, qs.inv_cell8, qs.cells8)
+    sp = qs.split
+    return lambda: ops.level_sweep_hier(qq8, qq, qs.mbr_q8, qs.mbr_q[sp:], qs.parent_q,
+                                        split=sp, root_unconditional=root, n_real=s.n_real)
+
+
+class EventTimed:
+    """A tenant index whose ``region`` calls are bracketed by CUDA events:
+    the device window of each batch the front end launches."""
+
+    def __init__(self, index):
+        self.index = index
+        self.windows = []
+
+    def __getattr__(self, name):
+        return getattr(self.index, name)
+
+    def region(self, queries):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        res = self.index.region(queries)
+        end.record()
+        self.windows.append((start, end))
+        return res
+
+
+def front_end_phase(args, checks, dev, card, data, queries, points, paths) -> dict:
+    """The serving front end on the card (``repro_torch.serve``): three
+    tenants of n objects, then parity with mutations, a healthy run, a
+    forced degradation, a restart, launch reports and an open-loop sweep."""
+    from repro_torch.checkpoint import live_ids
+    from repro_torch.core import datasets
+    from repro_torch.ft import FaultPlan
+    from repro_torch.kernels import _lib
+    from repro_torch.obs import counters
+    from repro_torch.serve import ServerConfig, ServingFrontEnd, TenantRuntime
+    from repro_torch.serve.loadgen import run_sweep
+
+    res_out = {}
+    tenants = tuple(FRONT_PRECISION)
+    q16 = queries[:16]
+    sync()
+    _lib.counters.reset()
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    try:
+        cfg = front_config(str(tmp / "fleet"))
+        t = time.perf_counter()
+        front = ServingFrontEnd.build(cfg, {name: data for name in tenants}, device=dev)
+        sync()
+        res_out["build_s"] = time.perf_counter() - t
+        held_out = {}  # launches of the checks' own calls, not the path's
+
+        def reference(fn, *a, **kw):
+            """A call that checks the front end: its launches are taken back
+            out of the counts of the path."""
+            before = _lib.counters.snapshot()
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, v in _lib.counters.snapshot().items():
+                    held_out[k] = held_out.get(k, 0) + v - before.get(k, 0)
+
+        # the tenants' own indexes, called directly on the cuda backend
+        direct = {name: reference(front.tenants[name].spatial.with_backend, "cuda",
+                                  precision=FRONT_PRECISION[name], **FIXED)
+                  for name in tenants}
+        print(f"  3 tenants of {args.n:,} objects built on the card in "
+              f"{res_out['build_s']:.2f} s (fleet durable, snapshot included)", flush=True)
+
+        # 5 (first, while fleet is pristine: live sweeps report nothing).
+        # One batch of each path with the side channel armed.
+        reports, timing = {}, {}
+        q_card = torch.from_numpy(q16).to(dev)
+        for name in ("fleet", "maps", "maps8"):
+            rt = front.tenants[name]
+            before = rt.stats.to_dict()
+            counters.collect_launch_reports(True)
+            try:
+                tickets = [front.submit(name, "region", q) for q in q16]
+                front.pump()
+            finally:
+                counters.collect_launch_reports(False)
+            d = rt.stats.diff(before)
+            want = report_formula(rt.spatial, FRONT_PRECISION[name])
+            checks.expect(all(r.done for r in tickets) and d["launch_reports"] == 1
+                          and d["bytes_streamed"] == want,
+                          f"launch report, {name} ({FRONT_PRECISION[name]}): one report, "
+                          f"bytes_streamed {d['bytes_streamed']:,.0f} == its formula "
+                          f"{want:,.0f}; mask bytes {d['mask_bytes']:,.0f}, tiles "
+                          f"{d['tiles_fetched']}")
+            reports[name] = d
+            sch = rt.spatial.schedule
+            timing[name] = (reference(sweep_call, rt.spatial, FRONT_PRECISION[name], q_card),
+                            sch.levels * len(q16) * sch.width)
+
+        # 1. parity: mixed requests through the queue, fleet mutated between
+        # segments; every answer == the tenant's own index called directly
+        rng = np.random.default_rng(args.seed + 31)
+        kinds = ("region", "count", "point", "knn")
+        asked = {}
+        n_mut = 0
+
+        def check_segment(tickets):
+            ok = True
+            for name in tenants:
+                rect = [r for r in tickets if r.tenant == name and r.kind != "knn"]
+                if rect:
+                    r = reference(direct[name].region, np.stack([x.payload for x in rect]))
+                    counts = r.hits.sum(dim=1).tolist()
+                    for i, req in enumerate(rect):
+                        if req.kind == "count":
+                            ok &= req.result == counts[i]
+                        else:
+                            ok &= same(req.result.hits, r.hits[i]) and same(
+                                req.result.visits, r.visits_per_level[i])
+                nn = [r for r in tickets if r.tenant == name and r.kind == "knn"]
+                if nn:
+                    r = reference(direct[name].knn, np.stack([x.payload for x in nn]), 10)
+                    for i, req in enumerate(nn):
+                        ok &= same(req.result[0], r.ids[i]) and same(req.result[1], r.dists[i])
+            return ok
+
+        n_checked = 0
+        for seg in range(3):
+            tickets = []
+            for i in range(48):
+                name = tenants[i % 3]
+                kind = kinds[(i // 3) % 4]
+                qi = int(rng.integers(0, len(queries)))
+                payload = points[qi] if kind in ("point", "knn") else queries[qi]
+                tickets.append(front.submit(name, kind, payload,
+                                            k=10 if kind == "knn" else None,
+                                            slo="batch" if i % 7 == 6 else None))
+                front.pump()
+            front.drain()
+            ok = all(r.done for r in tickets) and check_segment(tickets)
+            n_checked += len(tickets)
+            checks.expect(ok, f"parity, segment {seg}: {len(tickets)} region, count, point "
+                              f"and k-NN (k 10) answers == each tenant's index called "
+                              f"directly (cuda backend); counts == hits.sum()")
+            for r in tickets:
+                if r.tenant == "maps" and r.kind == "region":
+                    asked.setdefault(r.payload.tobytes(), r)
+            del tickets
+            fleet = front.tenants["fleet"].index
+            front.insert("fleet", datasets.uniform_squares(50, seed=args.seed + 40 + seg))
+            front.delete("fleet", live_ids(fleet)[:100])
+            n_mut += 2
+        # maps's cached answers survive fleet's mutations
+        server = front.tenants["maps"].spatial._backend.server
+        hits_before = server.stats.cache_hits
+        old = next(iter(asked.values()))
+        again = front.submit("maps", "region", old.payload)
+        front.drain()
+        checks.expect(front.tenants["fleet"].epoch > 0 and front.tenants["maps"].epoch == 0
+                      and server.stats.cache_hits == hits_before + 1
+                      and same(again.result.hits, old.result.hits)
+                      and same(again.result.visits, old.result.visits),
+                      f"isolation: fleet at epoch {front.tenants['fleet'].epoch}, maps at 0; "
+                      f"a repeated maps query answered from its cache, unchanged")
+
+        # host service time of a batch >= its device window (CUDA events)
+        timed = EventTimed(front.tenants["maps"].index)
+        front.tenants["maps"].index = timed
+        spans = []
+        for b in range(4):
+            batch = [front.submit("maps", "region", q) for q in queries[16 * b:16 * b + 16]]
+            front.pump()
+            spans.append((max(r.t_complete for r in batch) - batch[0].t_launch) * 1e3)
+        front.tenants["maps"].index = timed.index
+        device = [s.elapsed_time(e) for s, e in timed.windows]
+        checks.expect(len(device) == 4 and all(h >= d for h, d in zip(spans, device)),
+                      "a batch's host service time >= its CUDA-event device window: "
+                      + ", ".join(f"{h:.3f} >= {d:.3f} ms" for h, d in zip(spans, device)))
+        res_out["batch_host_ms"], res_out["batch_device_ms"] = spans, device
+
+        # 2. the healthy run: the cuda rung only
+        rungs = {name: dict(front.stats(name).rung_dispatches) for name in tenants}
+        checks.expect(all(set(r) == {"cuda"} for r in rungs.values())
+                      and all(front.stats(name).launch_failures == 0 for name in tenants),
+                      f"healthy run: every batch on the cuda rung, no failure ({rungs})")
+
+        # 3. forced degradation mid-run: the cuda rung fails from its third
+        # attempt on (two batches of 16 on cuda, then every tenant degrades)
+        plan = FaultPlan(fail_launches=10 ** 9, fail_from_launch=2, fail_rungs=("cuda",))
+        tickets = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for i in range(192):
+                if i == 12:
+                    front.bind_fault_plan(plan)
+                name = tenants[i % 3]
+                kind = ("region", "count", "point")[(i // 3) % 3]
+                qi = int(rng.integers(0, len(queries)))
+                payload = points[qi] if kind == "point" else queries[qi]
+                tickets.append(front.submit(name, kind, payload))
+                front.pump()
+            front.drain()
+        front.bind_fault_plan(None)
+        deg = {name: (front.stats(name).degraded_batches,
+                      dict(front.stats(name).rung_dispatches)) for name in tenants}
+        checks.expect(all(r.done for r in tickets) and check_segment(tickets)
+                      and plan.launch_failures > 0
+                      and all(d > 0 and r.get("torch", 0) > 0 for d, r in deg.values()),
+                      f"forced degradation (FaultPlan fail_from_launch=2, cuda): all "
+                      f"{len(tickets)} answers == the direct call; {plan.launch_failures} "
+                      f"injected failures; degraded batches and rungs {deg}")
+        del tickets
+
+        # 4. restart: a new front end over fleet's durable root recovers it
+        rects = queries[:64]
+        pre = reference(direct["fleet"].region, rects)
+        front.tenants["fleet"].index.close()
+        t = time.perf_counter()
+        front2 = ServingFrontEnd.build(front_config(str(tmp / "fleet"), ("fleet",)), {},
+                                       device=dev)
+        sync()
+        res_out["recover_s"] = time.perf_counter() - t
+        rec = front2.tenants["fleet"].index
+        tickets = [front2.submit("fleet", "region", q) for q in rects]
+        front2.drain()
+        checks.expect(rec.ops_total == n_mut and rec.index.backend == "serve"
+                      and all(same(r.result.hits, pre.hits[i])
+                              and same(r.result.visits, pre.visits_per_level[i])
+                              for i, r in enumerate(tickets)),
+                      f"restart: fleet recovered in {res_out['recover_s']:.2f} s "
+                      f"({rec.ops_total} durable ops, {rec.recovered_ops} replayed); 64 "
+                      f"answers through its queue == the "
+                      f"pre-restart ones")
+        rec.close()
+        del tickets, pre, front2, rec
+
+        # 6. the open-loop sweep on maps: fresh telemetry, queues and LRU a level
+        maps = front.tenants["maps"].spatial
+        sweep_cfg = ServerConfig.from_dict(front_config(str(tmp / "fleet"), ("maps",)))
+
+        def make_front():
+            ix = maps.with_backend("serve", precision="compact", query_block=16)
+            return ServingFrontEnd(sweep_cfg, {"maps": TenantRuntime(sweep_cfg.tenants[0],
+                                                                     ix)}), "maps"
+
+        rows = run_sweep(make_front, FRONT_SWEEP_QPS, duration=2.0, seed=args.seed)
+        for row in rows:
+            print(f"  sweep qps_offered {row['qps_offered']:.1f} qps_achieved "
+                  f"{row['qps_achieved']:.1f} p50 {row['p50_ms']:.3f} ms p99 "
+                  f"{row['p99_ms']:.3f} ms p99.9 {row['p999_ms']:.3f} ms shed {row['shed']} "
+                  f"slo_violations {row['slo_violations']} avg_batch {row['avg_batch']} "
+                  f"queue_wait_p99 {row['queue_wait_p99_ms']:.3f} ms  [{card}]", flush=True)
+        checks.expect(len(rows) == len(FRONT_SWEEP_QPS) and all(
+            r["completed"] > 0 and r["completed"] + r["shed"] == r["submitted"]
+            for r in rows), "open-loop sweep: every level served, completed + shed == "
+                            "submitted")
+        res_out["sweep"] = rows
+        # one full batch through a front end, for the profile phase: each
+        # call takes the next 16 queries, so every batch misses the LRU
+        prof_ix = maps.with_backend("serve", precision="compact", query_block=16)
+        prof_front = ServingFrontEnd(sweep_cfg, {"maps": TenantRuntime(sweep_cfg.tenants[0],
+                                                                       prof_ix)})
+        calls = itertools.count()
+
+        def one_batch(qs):
+            at = 16 * next(calls) % (len(qs) - 15)
+            tickets = [prof_front.submit("maps", "region", q) for q in qs[at:at + 16]]
+            prof_front.pump()
+            return tickets
+
+        res_out["batch"] = one_batch
+        del front, direct, maps
+
+        sync()
+        paths["serving front end"] = {
+            k: v - held_out.get(k, 0) for k, v in _lib.counters.snapshot().items()
+            if v > held_out.get(k, 0)}
+        checked = {k: v for k, v in held_out.items() if v}
+        print(f"  launches {paths['serving front end']} (the checks' direct calls, "
+              f"{checked}, not included)", flush=True)
+        for name in ("build_levels", "quantize_cm", "level_sweep_f32", "level_sweep_u16",
+                     "level_sweep_hier"):
+            n = paths["serving front end"].get(name, 0)
+            checks.expect(n > 0, f"{name} launched on the serving front end path ({n})")
+    finally:
+        counters.collect_launch_reports(False)
+        tmp_dir.cleanup()
+
+    # 5, continued: each report's bytes (and the mask the sweep writes) over
+    # the device time of its sweep on the same queries, after the path's
+    # counts were read
+    limit = PEAK_BYTES_PER_S * 1.05
+    for name, (fn, written) in timing.items():
+        ms = device_ms(fn)
+        streamed = reports[name]["bytes_streamed"]
+        rate = (streamed + written) / (ms * 1e-3)
+        reports[name].update(sweep_ms=ms, written=written, rate=rate)
+        checks.expect(rate <= limit,
+                      f"launch report, {name}: ({streamed:,.0f} streamed + {written:,} mask "
+                      f"bytes written) / {ms:.4f} ms device time = {rate / 1e12:.3f} TB/s <= "
+                      f"3.35 TB/s x 1.05 (streamed alone {streamed / (ms * 1e-3) / 1e12:.3f} "
+                      f"TB/s)  [{card}]")
+    del timing
+    res_out["reports"] = reports
+    res_out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the phase took {res_out['phase_s']:.1f} s", flush=True)
+    return res_out
 
 
 class Checks:
@@ -2354,6 +2751,11 @@ def run(args, second) -> int:
 
     checks.phase("durability and serving ladder", durability_path)
 
+    # -- the serving front end (repro_torch.serve) over three tenants ----------
+    front_out = {}
+    checks.phase("serving front end", lambda: front_out.update(
+        front_end_phase(args, checks, dev, card, data, queries, points, paths)))
+
     # -- mqr-KV block selection and the attention and norm kernels (#8-#10) --
     # llama3.2-1B's widths (src/repro/configs/llama32_1b.py) and its mqr-KV
     # settings (src/repro/models/transformer.py: mqr_block, mqr_topk,
@@ -2998,6 +3400,9 @@ def run(args, second) -> int:
         if "step" in attn_out:
             batches.append(("mqr-KV decode step (32 index builds, selection, #9 bf16)",
                             attn_out["step"], None))
+        if "batch" in front_out:
+            batches.append(("serving front end: one 16-query maps batch (compact, serve, "
+                            "an LRU miss)", front_out["batch"], queries))
         if "workload" in moving_out:  # one more tick, after the checked run
             batches.append(("moving tick", lambda _: moving_out["workload"].tick(), None))
         for label, fn, arg in batches:
@@ -3064,6 +3469,7 @@ def run(args, second) -> int:
              for label, r in knn_out.items()},
         moving={f: v for f, v in moving_out.items() if f not in ("workload", "sweep_args")},
         durability=dur_out,
+        front_end={f: v for f, v in front_out.items() if f != "batch"},
         attention={f: attn_out.get(f) for f in (
             "selected_frac", "survivor_frac", "build_ms", "select_ms", "attend_ms",
             "attend_all_ms", "dense_plain_ms", "sparse_vs_dense")},

@@ -57,6 +57,7 @@ from repro_torch.core.flat import (
 )
 from repro_torch.core.metrics import compute_metrics
 from repro_torch.kernels import ops
+from repro_torch.obs import counters as _obs_counters
 from repro_torch.obs import trace as _obs_trace
 from repro_torch.update import BufferFullError, MergePolicy, UpdateLog, as_policy
 from repro_torch.update.engine import LiveEngine
@@ -129,11 +130,18 @@ class RegionResult:
                       the delta buffer's flat-scan accesses.
     base_levels:      levels of the frozen base build; None for an index
                       with no live-update state.
+    launch_report:    the merged :class:`repro_torch.obs.LaunchReport` of
+                      this batch's sweep calls, in the card's bytes —
+                      only while ``repro_torch.obs.collect_launch_reports``
+                      is armed and a path that emits ran (the ``cuda``
+                      backend, the ``serve`` backend's ``cuda`` and
+                      ``host`` rungs); None otherwise.
     """
 
     hits: torch.Tensor
     visits_per_level: torch.Tensor
     base_levels: Optional[int] = None
+    launch_report: Optional[object] = None
 
     @property
     def visits(self) -> torch.Tensor:
@@ -185,12 +193,14 @@ class AccessStats:
     (one per level per sweep chunk, K per join; 0 on the ``torch`` and
     ``host`` backends and rungs), not the TPU kernel's one launch per
     16-query block, so comparisons with the reference leave it out.
-    Not here yet: the serving front end's ``shed_queries`` and
-    ``queued_queries`` (they come with ``serve/``), and the byte and tile
-    ledger ``bytes_streamed``, ``mask_bytes``, ``tiles_fetched`` and
-    ``launch_reports`` (they come with ``obs/counters`` derived for the
-    card).  ``tiles_skipped`` is the streaming sweep's own count, made on
-    the device (ROADMAP C6).
+    ``shed_queries`` and ``queued_queries`` are the serving front end's
+    (:mod:`repro_torch.serve`).  The byte and tile ledger
+    (``bytes_streamed``, ``mask_bytes``, ``tiles_fetched``,
+    ``launch_reports``) grows only while
+    ``repro_torch.obs.collect_launch_reports`` is armed, in the card's
+    bytes (:mod:`repro_torch.obs.counters`, ROADMAP C19).
+    ``tiles_skipped`` is the streaming sweep's own count, made on the
+    device and added with every batch, armed or not (ROADMAP C6).
     """
 
     queries: int = 0
@@ -211,9 +221,18 @@ class AccessStats:
     shed_mutations: int = 0    # objects dropped by admission="shed"
     queued_mutations: int = 0  # objects parked by DurableIndex queueing
     rung_dispatches: dict = dataclasses.field(default_factory=dict)
+    # serving-front-end ledger
+    shed_queries: int = 0      # requests dropped by SLO admission control
+    queued_queries: int = 0    # requests parked past max_queue (best-effort)
+    # kernel byte/tile ledger; accumulates only while
+    # repro_torch.obs.collect_launch_reports(True) is armed
+    bytes_streamed: float = 0.0   # tile and parent bytes the sweeps read
+    mask_bytes: float = 0.0       # mask bytes written, parent-mask bytes read
+    tiles_fetched: int = 0
     # (level, tile) pairs the streaming sweep (stream=True) skipped, as the
     # kernel counted them on the device
     tiles_skipped: int = 0
+    launch_reports: int = 0       # batches with a ledger attached
 
     def record(self, n_queries: int, accesses: int, launches: int) -> None:
         self.queries += int(n_queries)
@@ -231,6 +250,18 @@ class AccessStats:
         for rung, n in health.get("rung_dispatches", {}).items():
             if n:
                 self.rung_dispatches[rung] = self.rung_dispatches.get(rung, 0) + int(n)
+
+    def absorb_launch_report(self, report) -> None:
+        """Fold one merged :class:`repro_torch.obs.LaunchReport` into the
+        ledger.  ``tiles_skipped`` is left alone: the port adds the
+        streaming kernel's own count with every batch (ROADMAP C6), so a
+        report's skipped tiles would count twice."""
+        if report is None:
+            return
+        self.bytes_streamed += float(report.bytes_streamed)
+        self.mask_bytes += float(report.mask_bytes)
+        self.tiles_fetched += int(report.tiles_fetched)
+        self.launch_reports += 1
 
     def to_dict(self) -> dict:
         """Flat snapshot of every counter (``rung_dispatches`` stays a
@@ -800,6 +831,22 @@ class SpatialIndex:
         else:
             self.stats.delta_accesses += extra
 
+    def _drain_launch_report(self, visits=None):
+        """Drain and merge the side channel for one logical batch, filling
+        the survivor counts from the visits' column sums (made on the
+        device) where the emitting path left them out; None while the
+        side channel is disarmed."""
+        if not _obs_counters.collecting():
+            return None
+        report = _obs_counters.merge_reports(_obs_counters.drain())
+        if report is not None:
+            if report.survivors_per_level is None and visits is not None:
+                report.survivors_per_level = tuple(visits.sum(dim=0).tolist())
+            if report.backend is None:
+                report.backend = self.spec.name
+            self.stats.absorb_launch_report(report)
+        return report
+
     def region(self, queries) -> RegionResult:
         """Batched region search over (Q, 4) query rectangles."""
         q = self._queries(queries, 4)
@@ -807,7 +854,8 @@ class SpatialIndex:
                              structure=self.structure, queries=q.shape[0]):
             hits, visits, launches, base_levels, skipped = self._region_raw(q)
         self._account(q.shape[0], visits, launches, base_levels, skipped)
-        return RegionResult(hits=hits, visits_per_level=visits, base_levels=base_levels)
+        return RegionResult(hits=hits, visits_per_level=visits, base_levels=base_levels,
+                            launch_report=self._drain_launch_report(visits))
 
     def point(self, points) -> RegionResult:
         """Point queries (Q, 2) as degenerate rectangles."""
@@ -892,4 +940,5 @@ class SpatialIndex:
         self.stats.knn_queries += nq
         self.stats.knn_rounds += rounds
         self.stats.queries += nq
+        self._drain_launch_report()  # fold every round's ledger
         return KNNResult(ids=ids, dists=dists, visits=visits)

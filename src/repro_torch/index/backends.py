@@ -42,6 +42,7 @@ from repro_torch.kernels.autotune import (
     shape_key,
     tune,
 )
+from repro_torch.obs import counters as _obs_counters
 from repro_torch.obs import trace as _obs_trace
 
 from .registry import register_backend
@@ -220,10 +221,25 @@ class CudaBackend:
     def region(self, queries: torch.Tensor):
         with _obs_trace.span("backend.cuda", queries=queries.shape[0],
                              precision=self.precision, stream=self.stream):
+            # Reports emitted before this call (an earlier k-NN round's, the
+            # façade drains them after the last round) stay on the channel.
+            mark = _obs_counters.pending()
             self.config = self._config(queries)
+            if _obs_counters.collecting():
+                _obs_counters.drain(mark)  # discard the autotune probes' reports
             skipped = (torch.zeros((), dtype=torch.int64, device=self.schedule.device)
                        if self.stream else None)
             hits, visits, launches = self._run(queries, self.config, skipped)
+        if _obs_counters.collecting():
+            # One report per query_block chunk: re-emit them merged, stamped
+            # with the tiling used (the façade drains it into
+            # RegionResult.launch_report).
+            report = _obs_counters.merge_reports(_obs_counters.drain(mark))
+            if report is not None:
+                report.query_block = self.config.query_block
+                report.block_w = self.config.block_w
+                report.backend = "cuda"
+                _obs_counters.emit(report)
         return hits, visits, launches, skipped
 
 

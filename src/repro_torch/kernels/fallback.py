@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch.ft.failures import InjectedFailure
+from repro_torch.obs import counters as _obs_counters
 from repro_torch.obs import trace as _trace
 
 from .join_scan import fused_join, join_epilogue
@@ -148,6 +149,15 @@ def _level_act(ov, prev, parent_l, *, l, nq, w, root_unconditional, uncond_from)
     return act
 
 
+def _report_host_twin(queries, tiles, parent) -> None:
+    """The host twins are eager numpy: each sweep reports the bytes of
+    its stored tile and parent arrays on the armed side channel
+    (:mod:`repro_torch.obs.counters`)."""
+    if _obs_counters.collecting():
+        _obs_counters.emit(_obs_counters.host_twin_report(queries, tiles, parent,
+                                                          stream=False))
+
+
 def _sweep_np(queries, mbr_cm, parent, *, root_unconditional, uncond_from):
     """(L, Q, W) active mask of the one-grid sweep."""
     levels, _, w = mbr_cm.shape
@@ -205,6 +215,7 @@ def _finish(queries, act, obj_level, obj_slot, gate_mbr, obj_id, n_objects, aliv
 def search_f32_np(queries, sched, *, block_w: int = 128):
     del block_w  # kernel-only tiling
     queries = np.asarray(queries, np.float32)
+    _report_host_twin(queries, _np(sched.mbr_cm), _np(sched.parent))
     act = _sweep_np(queries, _np(sched.mbr_cm), _np(sched.parent).astype(np.int64),
                     root_unconditional=sched.root_unconditional, uncond_from=None)
     return _finish(queries, act, _np(sched.obj_level), _np(sched.obj_slot),
@@ -217,6 +228,7 @@ def search_compact_np(queries, qsched, *, block_w: int = 128):
     base = qsched.base
     queries = np.asarray(queries, np.float32)
     qq = _quantize_queries_np(queries, _np(qsched.origin), _np(qsched.inv_cell), qsched.cells)
+    _report_host_twin(qq, _np(qsched.mbr_q), _np(qsched.parent_q))
     act = _sweep_np(qq, _np(qsched.mbr_q).astype(np.int32),
                     _np(qsched.parent_q).astype(np.int64),
                     root_unconditional=base.root_unconditional, uncond_from=None)
@@ -233,6 +245,8 @@ def search_compact8_np(queries, qsched, *, block_w: int = 128):
     qq16 = _quantize_queries_np(queries, origin, _np(qsched.inv_cell), qsched.cells)
     qq8 = _quantize_queries_np(queries, origin, _np(qsched.inv_cell8), qsched.cells8)
     split = qsched.split
+    _report_host_twin(qq16, (_np(qsched.mbr_q8), _np(qsched.mbr_q)[split:]),
+                      _np(qsched.parent_q))
     act = _sweep_hier(qq8, qq16, _np(qsched.mbr_q8), _np(qsched.mbr_q)[split:],
                       _np(qsched.parent_q).astype(np.int64),
                       root_unconditional=base.root_unconditional)
@@ -250,11 +264,13 @@ def search_live_np(queries, aug, *, block_w: int = 128):
         mbr_q, parent_q, gate, obj_level, obj_slot, obj_id, origin, inv_cell, alive = (
             _np(a) for a in aug.arrays)
         qeff = _quantize_queries_np(queries, origin, inv_cell, st["cells"])
+        _report_host_twin(qeff, mbr_q, parent_q)
         tiles = mbr_q.astype(np.int32)
         parent = parent_q.astype(np.int64)
     else:
         tiles, parent, obj_mbr, obj_level, obj_slot, obj_id, alive = (
             _np(a) for a in aug.arrays)
+        _report_host_twin(queries, tiles, parent)
         parent = parent.astype(np.int64)
         qeff = queries
         gate = obj_mbr if st.get("test_object_mbr", True) else None

@@ -16,6 +16,11 @@ path (:func:`fused_search_live`, :func:`fused_search_compact_live`, whose
 delta-buffer levels are flat: ``uncond_from = base_levels``).
 :func:`per_level_region_search` is the per-level launch plan: one
 ``mbr_scan`` launch per level, the frontier combined on the device.
+With :func:`repro_torch.obs.collect_launch_reports` armed, the kernel
+engine of :func:`pyramid_scan`, :func:`pyramid_scan_compact` and
+:func:`pyramid_scan_compact8` emits one
+:class:`~repro_torch.obs.LaunchReport` a call (the card's bytes,
+:mod:`repro_torch.obs.counters`); disarmed, that costs one flag check.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.flat import LevelSchedule, QuantizedSchedule, overlaps
+from repro_torch.obs import counters as _obs_counters
 
 from . import _lib
 
@@ -510,6 +516,21 @@ def _sweep(engine: str, queries, mbr_cm, parent, *, block_w, root_unconditional,
                              uncond_from=uncond_from)
 
 
+def _armed(engine: str) -> bool:
+    """Whether this sweep emits a :class:`repro_torch.obs.LaunchReport`:
+    the side channel is armed and the kernel engine runs (the reports
+    describe the card's kernels; a plain version emits none)."""
+    return engine == "kernel" and _obs_counters.collecting()
+
+
+def _call_counter(armed: bool, stream: bool, skipped, device):
+    """The skip counter to sweep with: a fresh one for an armed streaming
+    sweep, whose report needs this call's count alone, else ``skipped``."""
+    if armed and stream:
+        return torch.zeros((), dtype=torch.int64, device=device)
+    return skipped
+
+
 def stream_windows(parent, n_real, *, block_w: int, device,
                    uncond_from: int | None = None, levels: int | None = None):
     """:func:`parent_windows` with ``win_off`` as an int32 tensor on
@@ -537,11 +558,19 @@ def pyramid_scan(schedule: LevelSchedule, queries: torch.Tensor, *,
     if stream and win_off is None:
         win_off, win_w = stream_windows(schedule.parent, schedule.n_real,
                                         block_w=block_w, device=schedule.device)
+    armed = _armed(engine)
+    count = _call_counter(armed, stream, skipped, schedule.device)
     act = _sweep(
         engine, queries, schedule.mbr_cm, schedule.parent, block_w=block_w,
         root_unconditional=schedule.root_unconditional, stream=stream,
-        win_off=win_off, win_w=win_w, skipped=skipped,
+        win_off=win_off, win_w=win_w, skipped=count,
     )
+    if armed:  # side channel: the kernel path only
+        if stream and skipped is not None:
+            skipped += count
+        _obs_counters.emit(_obs_counters.scan_report_float32(
+            schedule, queries, block_w=block_w, stream=stream, win_off=win_off,
+            skipped=count))
     return _hits_epilogue(
         act, queries, schedule.obj_mbr if schedule.test_object_mbr else None,
         schedule.obj_level, schedule.obj_slot, schedule.obj_id,
@@ -568,11 +597,19 @@ def pyramid_scan_compact(qsched: QuantizedSchedule, queries: torch.Tensor, *,
     if stream and win_off is None:
         win_off, win_w = stream_windows(qsched.parent_q, base.n_real,
                                         block_w=block_w, device=qsched.device)
+    armed = _armed(engine)
+    count = _call_counter(armed, stream, skipped, qsched.device)
     act = _sweep(
         engine, qq, qsched.mbr_q, qsched.parent_q, block_w=block_w,
         root_unconditional=base.root_unconditional, stream=stream,
-        win_off=win_off, win_w=win_w, skipped=skipped,
+        win_off=win_off, win_w=win_w, skipped=count,
     )
+    if armed:  # side channel: the kernel path only
+        if stream and skipped is not None:
+            skipped += count
+        _obs_counters.emit(_obs_counters.scan_report_compact(
+            qsched, queries, block_w=block_w, stream=stream, win_off=win_off,
+            skipped=count))
     return _hits_epilogue(
         act, queries, qsched.confirm_mbr, base.obj_level, base.obj_slot,
         base.obj_id, base.n_objects,
@@ -605,6 +642,9 @@ def pyramid_scan_compact8(qsched: QuantizedSchedule, queries: torch.Tensor, *,
         act = fn(qq8, qq16, qsched.mbr_q8, qsched.mbr_q[split:], qsched.parent_q,
                  split=split, root_unconditional=base.root_unconditional,
                  n_real=base.n_real, **kw)
+    if _armed(engine):  # side channel: the kernel path only
+        _obs_counters.emit(_obs_counters.scan_report_compact8(qsched, queries,
+                                                              block_w=block_w))
     return _hits_epilogue(
         act, queries, qsched.confirm_mbr, base.obj_level, base.obj_slot,
         base.obj_id, base.n_objects,

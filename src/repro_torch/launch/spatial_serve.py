@@ -1,8 +1,12 @@
 """Batched spatial query serving over the fused region sweep.
 
-Counterpart of ``repro.launch.spatial_serve``.  A :class:`SpatialServer`
-holds one level schedule on its device (the CUDA card unless the caller
-passes ``device="cpu"``) and answers streams of query rectangles with
+Counterpart of ``repro.launch.spatial_serve``: the low-level batch engine.
+The documented serving entry point is the front end,
+:mod:`repro_torch.serve` (continuous batching, SLO admission, tenants),
+which reaches this engine through the ``serve`` backend.  A
+:class:`SpatialServer` holds one level schedule on its device (the CUDA
+card unless the caller passes ``device="cpu"``) and answers streams of
+query rectangles with
 
 * an LRU result cache — repeated regions are answered without touching
   the device; entries are tagged with the mutation epoch, so an entry

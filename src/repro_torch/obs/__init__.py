@@ -1,23 +1,29 @@
 """repro_torch.obs — the port's observability layer.
 
-Counterpart of ``repro.obs`` for two of its three pieces:
+Counterpart of ``repro.obs``, in three pieces:
 
 * :mod:`repro_torch.obs.trace` — flight-recorder spans with
   Chrome/Perfetto ``trace.json`` export, threaded through the façade, the
   backends, the serving ladder and the durability paths (host time only;
   see its docstring);
+* :mod:`repro_torch.obs.counters` — the per-launch byte and tile ledger
+  (:class:`~repro_torch.obs.counters.LaunchReport`), in the bytes the
+  card's sweep kernels load and store (the reference models the TPU
+  kernel's DMA; ROADMAP C19), and the reference's ledger math, copied;
 * :mod:`repro_torch.obs.metrics` — a Prometheus-text / JSON metrics
-  registry snapshotting ``AccessStats`` with per-tenant labels.
+  registry snapshotting ``AccessStats`` and the serving front end's
+  telemetry with per-tenant labels.
 
-The reference's third piece, ``obs/counters.py`` (the per-launch byte and
-tile ledger), models the TPU kernel's DMA traffic; the port's counterpart
-is still to be derived for the card's launches (ROADMAP.md).
-
-This package imports nothing from the rest of ``repro_torch`` (only the
-standard library), so every layer may depend on it without cycles.
+This package imports nothing from the rest of ``repro_torch`` (only numpy
+and the standard library), so every layer may depend on it without cycles.
 """
 
-from repro_torch.obs import metrics, trace
+from repro_torch.obs import counters, metrics, trace
+from repro_torch.obs.counters import (
+    LaunchReport,
+    collect_launch_reports,
+    merge_reports,
+)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.trace import (
     Tracer,
@@ -31,13 +37,17 @@ from repro_torch.obs.trace import (
 )
 
 __all__ = [
+    "LaunchReport",
     "MetricsRegistry",
     "Tracer",
+    "collect_launch_reports",
     "counter",
+    "counters",
     "disable",
     "enable",
     "get_tracer",
     "instant",
+    "merge_reports",
     "metrics",
     "set_tracer",
     "span",

@@ -1,8 +1,9 @@
 """Metrics registry: one snapshot, two exports.
 
 Counterpart of ``repro.obs.metrics``: :class:`MetricsRegistry` is a
-point-in-time snapshot builder — ``SpatialIndex.metrics()`` pours its
-``AccessStats`` counters into it, then renders either Prometheus text
+point-in-time snapshot — ``SpatialIndex.metrics()`` and
+``ServingFrontEnd.metrics()`` pour ``AccessStats`` counters and the front
+end's latency histograms into it, then render either Prometheus text
 exposition or JSON.  Zero dependencies; the registry holds plain samples,
 not live instruments, so snapshotting never perturbs the serving path.
 
@@ -11,9 +12,6 @@ sanitised metric names, ``# HELP`` / ``# TYPE`` headers, label sets per
 sample, and latency histograms exported as summaries (``quantile``
 labels + ``_sum`` / ``_count``).  The namespace stays ``repro``, so the
 port and the JAX package export the same families for the same stats.
-:func:`telemetry_into` takes any object with the serving front end's
-telemetry shape (``snapshot()``, ``latency``, ``queue_wait``,
-``by_class``, ``by_tenant``); the front end itself is not ported yet.
 """
 
 from __future__ import annotations
