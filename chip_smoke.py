@@ -180,7 +180,25 @@ it and read just after):
      search must prune for every head; prints the fraction of blocks
      attended and the ms of index build, selection and attention per
      decode step beside the plain dense decode over all blocks;
- 18. each kernel against its plain version at its path's shapes (exact
+ 18. LLM serving, llama3.2-1B at full width (``repro_torch.models``: 16
+     layers, d_model 2048, 32 heads, 8 kv heads, head dim 64, vocab
+     128,256, tied, bfloat16), random parameters from the seed on the
+     card: ``launch.serve.serve`` at B 4, prompt 32, gen 32, dense and
+     ``mqr_sparse=True`` (tokens in range; #10 launched 33 times a step,
+     #9 16 times a sparse step, no plain version of #8-#10 called; tok/s);
+     one ``decode_step`` over (4, kv_len) caches of every layer filled from
+     the seed at pos = kv_len - 37, dense and sparse (64 of kv_len / 128
+     blocks), each step's ms and one layer's batched index build (B x 8
+     indexes in one pass); the model's ids equal ``select_blocks`` on the
+     single-row index of each (batch, kv head); #9 at ``group`` 4 on the
+     model's inputs within its bfloat16 limit of the plain version; with
+     top-K = every block the sparse step's logits within 0.05 of the
+     dense step's on a float32 copy of the model and caches (the bfloat16
+     difference printed); a step with ``mqr_incremental=True`` launches #9
+     16 times; ``prefill`` of (1, prefill) launches #8 16 times, and a
+     256-token prompt's last logits through ``prefill`` lie within 0.25 of
+     the same prompt streamed through decode steps;
+ 19. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
      within ``rtol |plain| + row_rms x RMS of the row``: float32 (1e-4,
@@ -207,13 +225,16 @@ it and read just after):
      one fill (``zero_()``) of the same output bytes, a practical
      store-rate floor printed as context;
      before #4's row, its device time by level and kernel (the profiler's
-     kernels in launch order) and its launches a level;
- 19. end-to-end times of builds, region and point batches (first call,
+     kernels in launch order) and its launches a level; #9 also as the
+     model calls it (``group`` 4, the model's ids; its bound counts each
+     distinct (kv row, block) once), and #8-#10's launches are those of
+     phases 17 and 18;
+ 20. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one call per path (region
-     batches per path and precision, two joins, a k-NN call, a moving tick
-     and an mqr-KV decode step: device time by kernel, and the device's
-     idle share).
+     batches per path and precision, two joins, a k-NN call, a moving tick,
+     an mqr-KV decode step and llama3.2-1B's dense and sparse decode steps:
+     device time by kernel, and the device's idle share).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 as the last line, ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -1285,6 +1306,289 @@ def front_end_phase(args, checks, dev, card, data, queries, points, paths) -> di
     res_out["phase_s"] = time.perf_counter() - t_phase
     print(f"  the phase took {res_out['phase_s']:.1f} s", flush=True)
     return res_out
+
+
+# -- LLM serving: llama3.2-1B at full width through the port's models -------
+
+LLM_ARCH = "llama32_1b"
+LLM_SERVE = dict(batch=4, prompt_len=32, gen=32)
+LLM_DEC_B = 4            # batch of the long-context decode step
+LLM_CHECK_PROMPT = 256   # tokens of the prefill-vs-streamed-decode check
+LLM_SPARSE_GATE = 0.05   # |sparse - dense| logits with top-K = nb (the reference's gate)
+LLM_PREFILL_GATE = 0.25  # |prefill - streamed decode| logits (the reference's bf16 gate)
+PR16_BUILD_MS = 152.93   # 32 unbatched index builds of one decode step (PERF.md §5, PR 16)
+
+
+@contextlib.contextmanager
+def plain_attention_calls():
+    """Counts the calls of the plain versions of #8-#10 (looked up through
+    their modules, as their wrappers call them) made while the block runs:
+    yields a dict name -> calls."""
+    from repro_torch.kernels import flash_attention, mqr_sparse_attention, rmsnorm
+
+    calls: dict[str, int] = {}
+    saved = []
+    for mod, name in ((rmsnorm, "rmsnorm_torch"), (flash_attention, "flash_attention_torch"),
+                      (mqr_sparse_attention, "mqr_sparse_attention_torch")):
+        plain = getattr(mod, name)
+
+        def counted(*args, _plain=plain, _name=name, **kwargs):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _plain(*args, **kwargs)
+
+        setattr(mod, name, counted)
+        saved.append((mod, name, plain))
+    try:
+        yield calls
+    finally:
+        for mod, name, plain in saved:
+            setattr(mod, name, plain)
+
+
+@contextlib.contextmanager
+def recorded_selection(attn):
+    """Records the inputs and ids of every ``attention.sparse_block_ids``
+    call made while the block runs (one a layer of a sparse step)."""
+    seen = []
+    select = attn.sparse_block_ids
+
+    def recording(params, cfg, q, k_cache, pos):
+        ids = select(params, cfg, q, k_cache, pos)
+        seen.append(dict(probe=params["probe"], q=q, k=k_cache, pos=pos, ids=ids))
+        return ids
+
+    attn.sparse_block_ids = recording
+    try:
+        yield seen
+    finally:
+        attn.sparse_block_ids = select
+
+
+def llm_phase(args, checks, dev, card, paths) -> dict:
+    """llama3.2-1B at full width on the card through the port's models: the
+    serving loop dense and sparse, a long-context decode step, prefill.
+    Launch counts of each run land in ``paths``."""
+    from repro_torch.configs import registry
+    from repro_torch.core import bulk, kvindex
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import count_params, tree_cast
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    cfg = registry.get_config(LLM_ARCH)
+    n_layers, heads, hkv, dh = cfg.n_layers, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    group = heads // hkv
+    norms_a_step = 2 * n_layers + 1
+    t = time.perf_counter()
+    params = T.init_params(args.seed, cfg, device=dev)
+    sync()
+    res.update(init_s=time.perf_counter() - t, param_count=cfg.param_count(),
+               param_elements=count_params(params), param_bytes=T.param_bytes(params))
+    print(f"  {LLM_ARCH} at full width: {n_layers} layers, d_model {cfg.d_model}, {heads} "
+          f"heads ({hkv} kv, head dim {dh}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size:,} (padded "
+          f"{cfg.padded_vocab:,}), {cfg.dtype}, random from seed {args.seed}: param_count() "
+          f"{res['param_count']:,}; {res['param_elements']:,} elements, "
+          f"{res['param_bytes']:,} bytes on the card; init {res['init_s']:.2f} s  [{card}]",
+          flush=True)
+
+    def in_mode(fn):
+        with torch.inference_mode():
+            return fn()
+
+    # -- serve(): the prompt streamed through decode steps, then greedy ----
+    b, plen, gen = LLM_SERVE["batch"], LLM_SERVE["prompt_len"], LLM_SERVE["gen"]
+    steps_run = plen + gen - 1
+    serve_mod.serve(arch=LLM_ARCH, smoke=False, batch=b, prompt_len=4, gen=2, seed=args.seed,
+                    params=params, device=dev)  # warm-up: cuBLAS handles, first launches
+    for sparse in (False, True):
+        label = "sparse" if sparse else "dense"
+        with plain_attention_calls() as plain:
+            sync()
+            _lib.counters.reset()
+            t = time.perf_counter()
+            out = serve_mod.serve(arch=LLM_ARCH, smoke=False, mqr_sparse=sparse, seed=args.seed,
+                                  params=params, device=dev, **LLM_SERVE)
+            wall = time.perf_counter() - t
+            sync()
+            counts = paths[f"llm serve {label}"] = _lib.counters.snapshot()
+        res[f"serve_{label}_tok_s"] = b * (plen + gen) / wall
+        res[f"serve_{label}_s"] = wall
+        print(f"  serve {label}: B {b}, prompt {plen}, gen {gen}: {steps_run} steps in "
+              f"{wall:.3f} s, {res[f'serve_{label}_tok_s']:.1f} tok/s (host clock, the tokens "
+              f"read once at the end); launches {counts}  [{card}]", flush=True)
+        checks.expect(out.shape == (b, gen) and bool((out >= 0).all())
+                      and bool((out < cfg.vocab_size).all()),
+                      f"serve {label}: tokens ({b}, {gen}) in [0, {cfg.vocab_size})")
+        checks.expect(counts.get("rmsnorm_bf16", 0) == norms_a_step * steps_run,
+                      f"serve {label}: #10 ran {norms_a_step} times a step "
+                      f"({counts.get('rmsnorm_bf16', 0)} = {norms_a_step} x {steps_run})")
+        want9 = n_layers * steps_run if sparse else 0
+        checks.expect(counts.get("mqr_sparse_attention_bf16", 0) == want9
+                      and counts.get("mqr_sparse_attention", 0) == want9,
+                      f"serve {label}: #9 ran {n_layers if sparse else 0} times a step "
+                      f"({counts.get('mqr_sparse_attention_bf16', 0)})")
+        checks.expect(not plain, f"serve {label}: no plain version of #8-#10 called ({plain})")
+
+    # -- one decode step over a long cache, dense and sparse ---------------
+    s_len, bd = args.kv_len, LLM_DEC_B
+    pos = s_len - 37
+    nb = s_len // cfg.mqr_block
+    topk = min(cfg.mqr_topk, nb)
+    caches = T.init_caches(cfg, bd, s_len, device=dev)
+    gen_ = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    for layer in caches["all"]:
+        for name in ("k", "v"):
+            layer["l0"][name].normal_(generator=gen_)
+    tok = torch.randint(0, cfg.vocab_size, (bd, 1), generator=gen_, device=dev)
+
+    def step(sparse, c=None, model=cfg):
+        return in_mode(lambda: T.decode_step(params, model, tok, c or caches, pos,
+                                             mqr_sparse=sparse)[0])
+
+    for sparse in (False, True):
+        label = "sparse" if sparse else "dense"
+        with plain_attention_calls() as plain:
+            sync()
+            _lib.counters.reset()
+            logits = step(sparse)
+            sync()
+            counts = paths[f"llm decode step {label}"] = _lib.counters.snapshot()
+        res[f"{label}_logits"] = logits
+        checks.expect(tuple(logits.shape) == (bd, 1, cfg.padded_vocab)
+                      and bool(logits.float().isfinite().all()),
+                      f"decode step {label} at {s_len:,} tokens: finite ({bd}, 1, "
+                      f"{cfg.padded_vocab}) logits")
+        checks.expect(counts.get("rmsnorm_bf16", 0) == norms_a_step
+                      and counts.get("mqr_sparse_attention_bf16", 0) == (n_layers if sparse
+                                                                         else 0)
+                      and not plain,
+                      f"decode step {label}: #10 x {counts.get('rmsnorm_bf16', 0)}, #9 x "
+                      f"{counts.get('mqr_sparse_attention_bf16', 0)}, no plain version")
+        res[f"{label}_step_ms"] = wall_ms(lambda: step(sparse))
+    k0 = caches["all"][0]["l0"]["k"]
+    probe_rows = params["blocks"][0]["l0"]["mixer"]["probe"].expand(bd, hkv, dh).reshape(-1, dh)
+    res["build_ms"] = wall_ms(lambda: kvindex.build_kv_index(
+        k0.reshape(bd * hkv, s_len, dh), probe_rows, cfg.mqr_block, cfg.mqr_levels))
+    print(f"  decode step, B {bd}, {s_len:,}-token caches in all {n_layers} layers, pos {pos} "
+          f"(median of {REPEATS}, host clock to a synchronize): dense {res['dense_step_ms']:.2f} "
+          f"ms, sparse ({topk} of {nb} blocks) {res['sparse_step_ms']:.2f} ms; the batched "
+          f"index build of one layer ({bd * hkv} indexes in one pass) {res['build_ms']:.3f} ms, "
+          f"beside PR 16's {PR16_BUILD_MS} ms for {bd * hkv} unbatched builds  [{card}]",
+          flush=True)
+
+    # the model's ids == select_blocks on each (b, kv head)'s single-row index
+    with recorded_selection(attn) as seen:
+        step(True)
+    sync()
+    checks.expect(len(seen) == n_layers, f"sparse step: {len(seen)} batched selections, one "
+                                         f"a layer")
+    rec = seen[0]
+    ids = rec["ids"]
+    ok, survivors = True, []
+    for bi in range(bd):
+        for g in range(hkv):
+            single = kvindex.build_kv_index(rec["k"][bi, g], rec["probe"][g], cfg.mqr_block,
+                                            cfg.mqr_levels)
+            regions = torch.stack([kvindex.query_region(rec["q"][bi, 0, h], rec["probe"][g],
+                                                        pos + 1)
+                                   for h in range(g * group, (g + 1) * group)])
+            want = kvindex.select_blocks(single, regions, topk)
+            rows = slice(bi * heads + g * group, bi * heads + (g + 1) * group)
+            ok &= same(ids[rows], want)
+            survivors += bulk.pyramid_search(single.pyramid, regions).sum(-1).tolist()
+    checks.expect(ok, f"the model's ids ({tuple(ids.shape)}, layer 0) == select_blocks on the "
+                      f"single-row index of each of the {bd * hkv} (batch, kv head) rows")
+    res["survivors_mean"] = sum(survivors) / len(survivors)
+    kb = rec["k"].view(bd * hkv, nb, cfg.mqr_block, dh)
+    vb = caches["all"][0]["l0"]["v"].view(bd * hkv, nb, cfg.mqr_block, dh)
+    qd = rec["q"].reshape(bd * heads, dh).to(kb.dtype)
+    got = ops.mqr_sparse_attention(qd, kb, vb, ids, pos, group=group)
+    plain = ops.mqr_sparse_attention_torch(qd, kb, vb, ids, pos, group=group)
+    worst = worst_over_limit(got, plain, 2e-2, 3e-2)
+    checks.expect(worst <= 1.0, f"#9 with group {group} within 2e-2 |plain| + 3e-2 x the row's "
+                                f"RMS of its plain version (worst error / limit {worst:.3g})")
+    res["g4"] = dict(q=qd, kb=kb, vb=vb, ids=ids, pos=pos, group=group)
+
+    # top-K = nb: the sparse step attends every block and equals dense.  In
+    # bfloat16 the roundings of 16 layers alone move the largest of the
+    # B x 128,256 logits by a few ulps (printed), so the gate holds a float32
+    # copy of the model and caches, where #9 and the dense path differ only
+    # in the order of their sums.
+    all_cfg = dataclasses.replace(cfg, mqr_topk=nb)
+    res["all_blocks_vs_dense_bf16"] = float(
+        (step(True, model=all_cfg).float() - res["dense_logits"].float()).abs().max())
+    p32 = tree_cast(params, torch.float32)
+    c32 = {"all": [{"l0": {n: layer["l0"][n].float() for n in ("k", "v")}}
+                   for layer in caches["all"]]}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", mqr_topk=nb)
+    dense32, sparse32 = (in_mode(lambda s=s: T.decode_step(p32, cfg32, tok, c32, pos,
+                                                           mqr_sparse=s)[0])
+                         for s in (False, True))
+    diff = float((sparse32 - dense32).abs().max())
+    res["all_blocks_vs_dense"] = diff
+    checks.expect(diff < LLM_SPARSE_GATE,
+                  f"sparse step with top-K = nb = {nb}, float32 copy of the model: max |logits "
+                  f"- dense| {diff:.2e} < {LLM_SPARSE_GATE} (bfloat16: "
+                  f"{res['all_blocks_vs_dense_bf16']:.4f})")
+    del p32, c32, dense32, sparse32
+    # the incremental index (in the cache) runs and launches #9
+    inc_cfg = dataclasses.replace(cfg, mqr_incremental=True)
+    inc = T.init_caches(inc_cfg, bd, s_len, device=dev)
+    for layer, src in zip(inc["all"], caches["all"]):
+        layer["l0"]["k"], layer["l0"]["v"] = src["l0"]["k"], src["l0"]["v"]
+    sync()
+    _lib.counters.reset()
+    inc_logits = step(True, c=inc, model=inc_cfg)
+    sync()
+    counts = paths["llm decode step incremental"] = _lib.counters.snapshot()
+    checks.expect(counts.get("mqr_sparse_attention_bf16", 0) == n_layers
+                  and bool(inc_logits.float().isfinite().all()),
+                  f"incremental sparse step: finite logits, #9 x "
+                  f"{counts.get('mqr_sparse_attention_bf16', 0)}")
+    res["incremental_step_ms"] = wall_ms(lambda: step(True, c=inc, model=inc_cfg))
+    del inc, inc_logits
+
+    # -- prefill ------------------------------------------------------------
+    toks = torch.randint(0, cfg.vocab_size, (1, args.prefill), generator=gen_, device=dev)
+    with plain_attention_calls() as plain:
+        sync()
+        _lib.counters.reset()
+        last = in_mode(lambda: T.prefill(params, cfg, {"tokens": toks}))
+        sync()
+        counts = paths["llm prefill"] = _lib.counters.snapshot()
+    checks.expect(counts.get("flash_attention_bf16", 0) == n_layers and not plain
+                  and tuple(last.shape) == (1, 1, cfg.padded_vocab)
+                  and bool(last.float().isfinite().all()),
+                  f"prefill of {args.prefill:,} tokens: finite last-token logits, #8 x "
+                  f"{counts.get('flash_attention_bf16', 0)} (one a layer), no plain version")
+    res["prefill_ms"] = wall_ms(lambda: in_mode(
+        lambda: T.prefill(params, cfg, {"tokens": toks})), 3)
+    # prefill's last logits == the same prompt streamed through decode steps
+    short = toks[:, :LLM_CHECK_PROMPT]
+    c = T.init_caches(cfg, 1, LLM_CHECK_PROMPT, device=dev)
+    for i in range(LLM_CHECK_PROMPT):
+        lg = in_mode(lambda: T.decode_step(params, cfg, short[:, i:i + 1], c, i)[0])
+    pre = in_mode(lambda: T.prefill(params, cfg, {"tokens": short}))
+    diff = float((pre.float() - lg.float()).abs().max())
+    res["prefill_vs_decode"] = diff
+    checks.expect(diff < LLM_PREFILL_GATE,
+                  f"prefill of {LLM_CHECK_PROMPT} tokens vs the prompt streamed through decode "
+                  f"steps: max |logits diff| {diff:.4f} < {LLM_PREFILL_GATE}")
+    print(f"  prefill B 1 x {args.prefill:,} tokens: {res['prefill_ms']:.2f} ms (median of 3, "
+          f"host clock to a synchronize); incremental sparse step "
+          f"{res['incremental_step_ms']:.2f} ms; {res['survivors_mean']:.1f} of {nb} blocks "
+          f"survive the region search on average; sparse (top-K = nb) vs dense "
+          f"{res['all_blocks_vs_dense']:.2e} (float32), {res['all_blocks_vs_dense_bf16']:.4f} "
+          f"(bfloat16); prefill vs decode {diff:.4f}  [{card}]",
+          flush=True)
+    res["steps"] = {"dense": lambda _: step(False), "sparse": lambda _: step(True)}
+    res["caches"] = caches
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the phase took {res['phase_s']:.1f} s", flush=True)
+    return res
 
 
 class Checks:
@@ -2920,6 +3224,11 @@ def run(args, second) -> int:
 
     checks.phase("mqr-KV and attention kernels", attention_path)
 
+    # -- LLM serving: llama3.2-1B at full width through the models ---------
+    llm_out = {}
+    checks.phase("LLM serving (llama3.2-1B, full width)", lambda: llm_out.update(
+        llm_phase(args, checks, dev, card, paths)))
+
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
 
@@ -3204,7 +3513,7 @@ def run(args, second) -> int:
     checks.phase("kernels vs plain versions", kernel_phase)
 
     def attention_kernel_phase():
-        """#8-#10 against their plain versions at the shapes of phase 15, and
+        """#8-#10 against their plain versions at the shapes of phase 17, and
         one PyTorch library call each where one computes the same function.
         The limits follow each output's own scale (:func:`worst_over_limit`),
         set from this phase's readings on the card; for #8 and #9 each is
@@ -3212,7 +3521,12 @@ def run(args, second) -> int:
         out."""
         if "ids" not in attn_out:
             return
-        launched = paths["attention"]
+        # launches on the kernels' paths: the random-input phase and the model's runs
+        launched = {}
+        for path, counts in paths.items():
+            if path == "attention" or path.startswith("llm "):
+                for k, n in counts.items():
+                    launched[k] = launched.get(k, 0) + n
         csrc = "src/repro_torch/kernels/csrc/"
         # (rtol, row_rms): bfloat16's rtol covers one bf16 ulp (2^-7 of |v|)
         # at any magnitude, its row term the bf16 rounding of p before P.V
@@ -3274,6 +3588,30 @@ def run(args, second) -> int:
                 mutant=("with the first selected block left out",
                         lambda: ops.mqr_sparse_attention_torch(
                             qd, kb, vb, ids[:, 1:].contiguous(), pos)))
+        if "g4" in llm_out:
+            # #9 as the model calls it: kv rows read in place by `group` query
+            # heads each, at the model's ids; bytes count each distinct (kv
+            # row, block) the ids select once
+            g4 = llm_out["g4"]
+            qd, kb, vb, ids, pos, grp = (g4[k] for k in ("q", "kb", "vb", "ids", "pos", "group"))
+            (bh_dec, hd_dec), kk, nb_, bs = qd.shape, ids.shape[1], kb.shape[1], kb.shape[2]
+            kv_rows = torch.arange(bh_dec, device=ids.device)[:, None] // grp
+            distinct = int(torch.unique(kv_rows * nb_ + ids.long()).numel())
+            print(f"  #9 with group {grp}: {distinct} distinct (kv row, block) pairs of "
+                  f"{bh_dec * kk} selected", flush=True)
+            kernel_row(
+                f"mqr_sparse_attention_bf16_group{grp}", csrc + "mqr_sparse_attention.cu",
+                "src/repro/kernels/mqr_sparse_attention.py:105",
+                lambda: ops.mqr_sparse_attention(qd, kb, vb, ids, pos, group=grp),
+                lambda: ops.mqr_sparse_attention_torch(qd, kb, vb, ids, pos, group=grp),
+                nbytes=distinct * 2 * bs * hd_dec * 2 + bh_dec * (2 * hd_dec * 2 + kk * 4),
+                ops_count=bh_dec * kk * bs * hd_dec * 4,
+                launches=sum(paths[p].get("mqr_sparse_attention_bf16", 0)
+                             for p in paths if p.startswith("llm ")),
+                tol=tol["mqr_sparse_attention"][torch.bfloat16],
+                mutant=("with the first selected block left out",
+                        lambda: ops.mqr_sparse_attention_torch(
+                            qd, kb, vb, ids[:, 1:].contiguous(), pos, group=grp)))
 
         # Edge cases, correctness only, within the same limits: #8 at D 128,
         # at S not a multiple of its 128-row tile and at S 64; #10 where no
@@ -3400,6 +3738,10 @@ def run(args, second) -> int:
         if "step" in attn_out:
             batches.append(("mqr-KV decode step (32 index builds, selection, #9 bf16)",
                             attn_out["step"], None))
+        if "steps" in llm_out:
+            for label, fn in llm_out["steps"].items():
+                batches.append((f"llama3.2-1B {label} decode step (B {LLM_DEC_B}, "
+                                f"{args.kv_len:,}-token caches, 16 layers)", fn, None))
         if "batch" in front_out:
             batches.append(("serving front end: one 16-query maps batch (compact, serve, "
                             "an LRU miss)", front_out["batch"], queries))
@@ -3473,6 +3815,7 @@ def run(args, second) -> int:
         attention={f: attn_out.get(f) for f in (
             "selected_frac", "survivor_frac", "build_ms", "select_ms", "attend_ms",
             "attend_all_ms", "dense_plain_ms", "sparse_vs_dense")},
+        llm={f: v for f, v in llm_out.items() if isinstance(v, (int, float))},
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

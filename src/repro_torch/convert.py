@@ -1,15 +1,16 @@
-"""Carry a schedule or an mqr-KV index built by the JAX package across to the port.
+"""Carry a schedule, an mqr-KV index or a model's parameters built by the
+JAX package across to the port.
 
-The system runs no model, so its "weights" are the built index.  These
-functions take the fields of the JAX package's ``LevelSchedule`` /
+The spatial system's "weights" are the built index.  These functions take the fields of the JAX package's ``LevelSchedule`` /
 ``QuantizedSchedule`` as numpy arrays (``dataclasses.asdict`` on the JAX
 side gives them) and return the port's dataclasses on ``device``, so a
 schedule the JAX package built through any path — an mqr tree schedule
 included — can be swept by the port.  :func:`kvindex_from_numpy` and
 :func:`inc_kvindex_from_numpy` do the same for the reference's ``KVIndex``
 and ``IncKVIndex``, group pyramid included, so block selection can be held
-to the reference on identical state.  This module imports nothing of the
-JAX package.
+to the reference on identical state.  :func:`params_from_numpy` turns a
+transformer's parameter pytree (numpy leaves) into the port's parameters.
+This module imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -102,3 +103,69 @@ def inc_kvindex_from_numpy(fields, device=None) -> IncKVIndex:
         group_mbr=_tensor(f["group_mbr"], np.float32, dev),
         group_of=_tensor(f["group_of"], np.int32, dev),
     )
+
+
+def _leaf(value, shape, dtype: torch.dtype, device, path: str) -> torch.Tensor:
+    """One parameter: a numpy array (a JAX bfloat16 array arrives as numpy's
+    ``bfloat16`` extension type) held to the port's shape and dtype."""
+    a = np.asarray(value)
+    name = str(dtype).removeprefix("torch.")
+    if a.dtype.name != name:
+        raise TypeError(f"{path}: dtype {a.dtype.name}, the port's model wants {name}")
+    if a.shape != tuple(shape):
+        raise ValueError(f"{path}: shape {a.shape}, the port's model wants {tuple(shape)}")
+    if dtype == torch.bfloat16:  # no numpy bfloat16 in torch: carry the bits
+        bits = np.array(a.view(np.int16), order="C", copy=True)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return _tensor(a, a.dtype, device)
+
+
+def _tree(value, want, device, path: str):
+    if isinstance(want, dict):
+        if not isinstance(value, dict) or set(value) != set(want):
+            got = sorted(value) if isinstance(value, dict) else type(value).__name__
+            raise ValueError(f"{path}: keys {got}, the port's model wants {sorted(want)}")
+        return {k: _tree(value[k], want[k], device, f"{path}/{k}") for k in want}
+    return _leaf(value, *want, device, path)
+
+
+def _index(tree, i: int):
+    """Superblock i of a stacked pytree (every leaf's leading axis)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The port's parameters for ``cfg`` from the JAX package's parameter
+    pytree with numpy leaves (``jax.tree.map(np.asarray, params)``).  The
+    reference stacks the superblocks of ``params["blocks"]`` on a leading
+    axis; the port keeps them as a list, so that axis is unstacked.  Every
+    leaf keeps its dtype; a missing or extra key, a shape or a dtype other
+    than the port's ``init_params`` would make raises."""
+    from repro_torch.models.transformer import param_shapes
+
+    dev = resolve_device(device)
+    want = param_shapes(cfg)
+    if not isinstance(tree, dict) or set(tree) != set(want):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"params: keys {got}, the port's model wants {sorted(want)}")
+    out = {}
+    for key, spec in want.items():
+        if key == "blocks":
+            stacked = tree["blocks"]
+            n = cfg.n_superblocks
+            leaves = [np.asarray(v) for v in _flat(stacked)]
+            if any(a.ndim == 0 or a.shape[0] != n for a in leaves):
+                raise ValueError(f"params/blocks: every leaf must stack {n} superblocks")
+            out[key] = [_tree(_index(stacked, i), spec[i], dev, f"params/blocks[{i}]")
+                        for i in range(n)]
+        else:
+            out[key] = _tree(tree[key], spec, dev, f"params/{key}")
+    return out
+
+
+def _flat(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _flat(v)]
+    return [tree]

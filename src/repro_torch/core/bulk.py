@@ -12,6 +12,12 @@ at level l and ``group_mbr[l, g]`` that group's MBR (unused ids carry the
 +inf/-inf sentinel).  Group 0 at level 0 is the root; an object alone in
 its group stops splitting.  :func:`pyramid_search` is the pointer-free
 region search over it (the mqr-KV block selection of ``core/kvindex.py``).
+
+:func:`build_pyramid` and :func:`pyramid_search` also take leading row
+dimensions: MBRs (R, n, 4) give R pyramids in one pass, each equal to the
+pyramid of its row built alone (the reference ``vmap``s the single build).
+No step reads a tensor on the host, so a batched build inside a decode
+step never waits for the card.
 """
 
 from __future__ import annotations
@@ -53,20 +59,28 @@ def quad_code(acx, acy, bcx, bcy) -> torch.Tensor:
 
 
 def _densify(keys: torch.Tensor) -> torch.Tensor:
-    """Dense ids in ascending key order (the numbering of the JAX
-    ``bulk._densify``, whose argsort + cumsum ranks keys the same way)."""
-    return torch.unique(keys, sorted=True, return_inverse=True)[1]
+    """Dense ids in ascending key order along the last dimension, ranked as
+    the JAX ``bulk._densify`` ranks them (argsort, a flag where the sorted
+    key changes, cumsum); leading dimensions are rows ranked apart.  Sort,
+    scan and scatter only: no host sync, unlike ``torch.unique``."""
+    order = torch.argsort(keys, dim=-1)
+    sk = torch.gather(keys, -1, order)
+    new = torch.zeros_like(sk)
+    new[..., 1:] = sk[..., 1:] != sk[..., :-1]
+    return torch.empty_like(new).scatter_(-1, order, new.cumsum(-1))
 
 
 def _group_bounds(gid: torch.Tensor, mbrs: torch.Tensor, n: int) -> torch.Tensor:
-    """Per-group enclosing MBR, (n, 4).  Empty groups come out
-    (+inf, +inf, -inf, -inf), as ``jax.ops.segment_min/max`` give them."""
-    idx = gid[:, None].expand(-1, 2)
-    lo = torch.full((n, 2), math.inf, dtype=torch.float32, device=mbrs.device)
-    hi = torch.full((n, 2), -math.inf, dtype=torch.float32, device=mbrs.device)
-    lo = lo.scatter_reduce(0, idx, mbrs[:, :2], "amin", include_self=True)
-    hi = hi.scatter_reduce(0, idx, mbrs[:, 2:], "amax", include_self=True)
-    return torch.cat([lo, hi], dim=1)
+    """Per-group enclosing MBR, (..., n, 4) for ids (..., n) and MBRs
+    (..., n, 4).  Empty groups come out (+inf, +inf, -inf, -inf), as
+    ``jax.ops.segment_min/max`` give them."""
+    idx = gid[..., None].expand(*gid.shape, 2)
+    shape = (*gid.shape[:-1], n, 2)
+    lo = torch.full(shape, math.inf, dtype=torch.float32, device=mbrs.device)
+    hi = torch.full(shape, -math.inf, dtype=torch.float32, device=mbrs.device)
+    lo = lo.scatter_reduce(-2, idx, mbrs[..., :2], "amin", include_self=True)
+    hi = hi.scatter_reduce(-2, idx, mbrs[..., 2:], "amax", include_self=True)
+    return torch.cat([lo, hi], dim=-1)
 
 
 def default_levels(n: int) -> int:
@@ -77,22 +91,24 @@ def default_levels(n: int) -> int:
 
 
 def build_pyramid(mbrs: torch.Tensor, levels: int) -> GroupPyramid:
-    """Build the mqr group pyramid for ``mbrs`` (n, 4) float32."""
+    """Build the mqr group pyramid for ``mbrs`` (n, 4) float32: group_of
+    (L, n), group_mbr (L, n, 4).  MBRs (R, n, 4) give R pyramids at once,
+    group_of (R, L, n) and group_mbr (R, L, n, 4)."""
     mbrs = mbrs.to(torch.float32)
-    n = mbrs.shape[0]
-    cx = (mbrs[:, 0] + mbrs[:, 2]) * 0.5
-    cy = (mbrs[:, 1] + mbrs[:, 3]) * 0.5
+    n = mbrs.shape[-2]
+    cx = (mbrs[..., 0] + mbrs[..., 2]) * 0.5
+    cy = (mbrs[..., 1] + mbrs[..., 3]) * 0.5
 
-    gid = torch.zeros((n,), dtype=torch.int64, device=mbrs.device)
+    gid = torch.zeros(mbrs.shape[:-1], dtype=torch.int64, device=mbrs.device)
     bounds = _group_bounds(gid, mbrs, n)
     group_of = [gid]
     group_mbr = [bounds]
     for _ in range(levels - 1):
-        counts = torch.bincount(gid, minlength=n)
-        multi = counts[gid] > 1
-        gb = bounds[gid]
-        gcx = (gb[:, 0] + gb[:, 2]) * 0.5
-        gcy = (gb[:, 1] + gb[:, 3]) * 0.5
+        counts = torch.zeros_like(gid).scatter_add_(-1, gid, torch.ones_like(gid))
+        multi = torch.gather(counts, -1, gid) > 1
+        gb = torch.gather(bounds, -2, gid[..., None].expand(*gid.shape, 4))
+        gcx = (gb[..., 0] + gb[..., 2]) * 0.5
+        gcy = (gb[..., 1] + gb[..., 3]) * 0.5
         quad = quad_code(cx, cy, gcx, gcy)
         # Singletons keep their slot; keys stay unique per group.
         key = torch.where(multi, gid * 5 + quad, gid * 5)
@@ -101,18 +117,22 @@ def build_pyramid(mbrs: torch.Tensor, levels: int) -> GroupPyramid:
         group_of.append(gid)
         group_mbr.append(bounds)
     return GroupPyramid(
-        group_of=torch.stack(group_of).to(torch.int32),
-        group_mbr=torch.stack(group_mbr),
+        group_of=torch.stack(group_of, dim=-2).to(torch.int32),
+        group_mbr=torch.stack(group_mbr, dim=-3),
         levels=levels,
     )
 
 
 def pyramid_search(pyr: GroupPyramid, region: torch.Tensor) -> torch.Tensor:
     """Pointer-free region search: object i survives iff the group MBR of
-    every ancestor level overlaps the region.  ``region`` (4,) gives (n,)
-    bool; a batch of regions (R, 4) gives (R, n), one row per region."""
-    gather = pyr.group_of.long()[:, :, None].expand(-1, -1, 4)
-    anc = torch.gather(pyr.group_mbr, 1, gather)  # (L, n, 4)
+    every ancestor level overlaps the region.  For one pyramid, ``region``
+    (4,) gives (n,) bool and a batch of regions (G, 4) gives (G, n), one row
+    per region.  For rows of pyramids (R, L, n), regions (R, G, 4) give
+    (R, G, n): row r's G regions searched in row r's pyramid."""
+    gather = pyr.group_of.long()[..., None].expand(*pyr.group_of.shape, 4)
+    anc = torch.gather(pyr.group_mbr, -2, gather)  # (..., L, n, 4)
+    if anc.dim() > 3:  # rows of pyramids: room for each row's regions
+        anc = anc.unsqueeze(-4)
     per_level = _overlaps(anc, region[..., None, None, :])  # (..., L, n)
     return per_level.all(dim=-2)
 

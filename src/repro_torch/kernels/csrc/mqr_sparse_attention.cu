@@ -3,8 +3,11 @@
 // Replaces the Pallas kernel `_kernel` of
 // src/repro/kernels/mqr_sparse_attention.py (called from
 // `mqr_sparse_attention`, kernel #9).  q (BH, D); k and v blocks
-// (BH, nb, bs, D); ids (BH, K) int32; pos (a device int32: the inclusive
-// causal limit) -> out (BH, D).  float32 or bfloat16.
+// (BH / group, nb, bs, D); ids (BH, K) int32; pos (a device int32: the
+// inclusive causal limit) -> out (BH, D).  float32 or bfloat16.  Query row r
+// reads kv row r / group, so grouped-query attention reads the KV cache in
+// place, each kv head's blocks once per query head of its group (group 1
+// is the reference's one kv row per query row).
 //
 // Per (b, h), over the K ids in order (the TPU kernel's sequential grid
 // axis; here cut into chunks that are merged in order, see below):
@@ -51,7 +54,7 @@ __global__ void __launch_bounds__(THREADS)
     sparse_partial(const T* __restrict__ q, const T* __restrict__ kb,
                    const T* __restrict__ vb, const int* __restrict__ ids,
                    const int* __restrict__ pos_ptr, float* __restrict__ part, int nb, int bs,
-                   int kk, int d, int chunk, int splits, float scale) {
+                   int kk, int d, int chunk, int splits, int group, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int vec = 16 / (int)sizeof(T);          // elements per 16-byte load
   const int row_vecs = d / vec;
@@ -62,6 +65,7 @@ __global__ void __launch_bounds__(THREADS)
   float* s_p = s_q + d;      // bs: logits, then p rounded to T
   float* s_red = s_p + bs;   // 32
   const long long bh = blockIdx.x / splits;
+  const long long kv = bh / group;  // the kv row this query row reads
   const int sp = blockIdx.x % splits;
   const int t0 = sp * chunk, t1 = min(kk, t0 + chunk);
   const int tid = threadIdx.x;
@@ -75,7 +79,7 @@ __global__ void __launch_bounds__(THREADS)
     const int raw = ids[bh * kk + t];
     const int wrapped = raw < 0 ? raw + nb : raw;
     const int id = wrapped < 0 ? 0 : (wrapped >= nb ? nb - 1 : wrapped);
-    const long long base = ((bh * nb + id) * (long long)bs) * d;
+    const long long base = ((kv * nb + id) * (long long)bs) * d;
     const uint4* kg = reinterpret_cast<const uint4*>(kb + base);
     const uint4* vg = reinterpret_cast<const uint4*>(vb + base);
     for (int i = tid; i < bs * row_vecs; i += THREADS) {
@@ -157,7 +161,7 @@ size_t smem_bytes(int bs, int d) {
 template <typename T>
 int launch(const void* q, const void* kb, const void* vb, const void* ids, const void* pos,
            void* part, void* out, long long bh, int nb, int bs, int kk, int d, int chunk,
-           int splits, float scale, cudaStream_t stream) {
+           int splits, int group, float scale, cudaStream_t stream) {
   if (d % (16 / (int)sizeof(T))) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes<T>(bs, d);
   if (smem > 48 * 1024) {
@@ -167,7 +171,7 @@ int launch(const void* q, const void* kb, const void* vb, const void* ids, const
   }
   sparse_partial<T><<<(unsigned int)(bh * splits), THREADS, smem, stream>>>(
       (const T*)q, (const T*)kb, (const T*)vb, (const int*)ids, (const int*)pos,
-      (float*)part, nb, bs, kk, d, chunk, splits, scale);
+      (float*)part, nb, bs, kk, d, chunk, splits, group, scale);
   REPRO_LAUNCH_CHECK();
   sparse_combine<T><<<(unsigned int)bh, THREADS, 0, stream>>>((const float*)part, (T*)out,
                                                               splits, d);
@@ -179,28 +183,29 @@ int launch(const void* q, const void* kb, const void* vb, const void* ids, const
 
 extern "C" {
 
-// q: (bh, d); k_blocks, v_blocks: (bh, nb, bs, d), 16-byte aligned;
+// q: (bh, d); k_blocks, v_blocks: (bh / group, nb, bs, d), 16-byte aligned;
 // ids: (bh, kk) int32; pos: one int32 in device memory; part: float32
 // workspace of bh * splits * (d + 2); out: (bh, d).  The ids of a row are
 // cut into `splits` chunks of `chunk` (the last may be shorter, none
-// empty).  dtype: REPRO_F32 or REPRO_BF16 for q, k, v and out alike.  d
+// empty).  group >= 1 divides bh: query row r reads kv row r / group.
+// dtype: REPRO_F32 or REPRO_BF16 for q, k, v and out alike.  d
 // must divide 128 and be a multiple of 16 bytes' worth of elements (the
 // wrapper checks).  Returns 0 or the CUDA error of the launches.
 int repro_mqr_sparse_attention(const void* q, const void* k_blocks, const void* v_blocks,
                                const void* ids, const void* pos, void* part, void* out,
                                long long bh, int nb, int bs, int kk, int d, int chunk,
-                               int splits, int dtype, float scale, void* stream) {
+                               int splits, int group, int dtype, float scale, void* stream) {
   if (bh == 0) return 0;
   if (d <= 0 || THREADS % d || nb <= 0 || bs <= 0 || kk <= 0 || chunk <= 0 ||
-      splits <= 0 || (long long)(splits - 1) * chunk >= kk)
+      splits <= 0 || (long long)(splits - 1) * chunk >= kk || group <= 0 || bh % group)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == REPRO_F32)
     return launch<float>(q, k_blocks, v_blocks, ids, pos, part, out, bh, nb, bs, kk, d, chunk,
-                         splits, scale, s);
+                         splits, group, scale, s);
   if (dtype == REPRO_BF16)
     return launch<__nv_bfloat16>(q, k_blocks, v_blocks, ids, pos, part, out, bh, nb, bs, kk,
-                                 d, chunk, splits, scale, s);
+                                 d, chunk, splits, group, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -11,6 +11,12 @@ An id outside [0, nb) reads the block the reference's jnp gather reads
 (a negative id counts from the end, numpy's rule, then the index is
 clamped to [0, nb - 1]) and is masked by its own position ``id * bs + j``;
 the wrapper never reads ``ids`` or ``pos`` on the host.
+
+``group`` maps query rows to kv rows for grouped-query attention: query
+row r reads kv row ``r // group`` of k and v blocks (BH / group, nb, bs, D),
+so a model's cache is read in place rather than copied once per query head
+(``group=1``, the default, is the reference's signature and the kernel as
+it was).
 """
 
 from __future__ import annotations
@@ -39,13 +45,15 @@ def split_k(bh: int, kk: int) -> tuple[int, int]:
     return chunk, -(-kk // chunk)
 
 
-def mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos) -> torch.Tensor:
+def mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos, group: int = 1) -> torch.Tensor:
     """Plain version: softmax over the K * bs gathered logits in float32
     (products of the input type, float32 sums), p cast to v's dtype before
-    P.V, output in q's dtype.  ``pos`` is a Python int or a 0-d tensor."""
-    bh, nb, bs, d = k_blocks.shape
+    P.V, output in q's dtype.  ``pos`` is a Python int or a 0-d tensor;
+    query row r reads kv row ``r // group``."""
+    bh, d = q.shape
+    nb, bs = k_blocks.shape[1], k_blocks.shape[2]
     ids = ids.to(torch.int64)
-    rows = torch.arange(bh, device=ids.device)[:, None]
+    rows = torch.div(torch.arange(bh, device=ids.device), group, rounding_mode="floor")[:, None]
     safe = torch.where(ids < 0, ids + nb, ids).clamp(0, nb - 1)
     kg = k_blocks[rows, safe].to(torch.float32)  # (BH, K, bs, D)
     vg = v_blocks[rows, safe]
@@ -58,20 +66,28 @@ def mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos) -> torch.Tensor:
     return out.to(q.dtype)
 
 
-def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos) -> torch.Tensor:
+def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos, group: int = 1) -> torch.Tensor:
     """Decode attention of q (BH, D) over the blocks ``ids`` (BH, K) int32
-    of k_blocks, v_blocks (BH, nb, bs, D), keys past ``pos`` (inclusive
-    causal limit: a Python int or a 0-d integer tensor) masked -> (BH, D)
-    in q's dtype.  float32 or bfloat16.  On the card D must divide 128 (and
-    be a multiple of 8 in bfloat16), the kernel splits each row's K ids into
-    chunks (:func:`split_k`) merged by a second launch (the pair counts as
-    one launch), and it takes a float32 workspace of BH * chunks * (D + 2).
+    of k_blocks, v_blocks (BH / group, nb, bs, D) — query row r reads kv row
+    ``r // group`` — keys past ``pos`` (inclusive causal limit: a Python int
+    or a 0-d integer tensor) masked -> (BH, D) in q's dtype.  float32 or
+    bfloat16.  On the card D must divide 128 (and be a multiple of 8 in
+    bfloat16), the kernel splits each row's K ids into chunks
+    (:func:`split_k`) merged by a second launch (the pair counts as one
+    launch), and it takes a float32 workspace of BH * chunks * (D + 2).
     A k/v block must fit one block's shared memory (bs = 128 at D = 128 in
     float32 takes 134 KB); a larger one fails the launch, which raises."""
     code = _lib.dtype_code(q, "q")
     if k_blocks.dim() != 4:
         raise ValueError(f"k_blocks must be (BH, nb, bs, D), got {tuple(k_blocks.shape)}")
-    bh, nb, bs, d = k_blocks.shape
+    if not isinstance(group, int) or group < 1 or q.dim() != 2 or q.shape[0] % group:
+        raise ValueError(f"group must be a positive int dividing BH, got {group} for q "
+                         f"{tuple(q.shape)}")
+    nb, bs, d = k_blocks.shape[1:]
+    bh = q.shape[0]
+    if k_blocks.shape[0] != bh // group:
+        raise ValueError(f"k_blocks must hold BH / group = {bh // group} kv rows, got "
+                         f"{tuple(k_blocks.shape)}")
     _lib.require(q, "q", q.dtype, (bh, d))
     _lib.require(k_blocks, "k_blocks", q.dtype)
     _lib.require(v_blocks, "v_blocks", q.dtype, k_blocks.shape)
@@ -87,7 +103,7 @@ def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos) -> torch.Tensor:
     else:
         pos = int(pos)
     if dev.type == "cpu":
-        return mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos)
+        return mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos, group)
     if dev.type != "cuda":
         raise ValueError(f"mqr_sparse_attention runs on cuda or cpu, not {dev}")
     lib = _lib.load()
@@ -108,7 +124,7 @@ def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos) -> torch.Tensor:
         rc = lib.repro_mqr_sparse_attention(
             q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), ids.data_ptr(),
             pos_dev.data_ptr(), part.data_ptr(), out.data_ptr(), bh, nb, bs, ids.shape[1], d,
-            chunk, splits, code, _scale(d), _lib.stream_of(q),
+            chunk, splits, group, code, _scale(d), _lib.stream_of(q),
         )
         _lib.check(rc, "mqr_sparse_attention")
         _lib.counters.add("mqr_sparse_attention")

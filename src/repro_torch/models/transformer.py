@@ -1,0 +1,439 @@
+"""Composable decoder-only LM: the serving path of the reference's models.
+
+Counterpart of ``repro.models.transformer``.  A model is a stack of
+*superblocks*; each applies the layer pattern ``cfg.block_pattern`` (mixer
++ FFN with pre-RMSNorm residuals).  Parameters are the reference's pytree as
+nested dicts of tensors, except that ``params["blocks"]`` is a list with one
+dict a superblock where the reference stacks them on a leading axis for
+``jax.lax.scan``; here the superblocks run in a plain loop, in inference
+mode (no remat: training waits, ROADMAP A4).  Caches likewise:
+``caches["all"]`` is a list of per-superblock dicts, in the cache layout of
+``attention`` (B, Hkv, S, Dh), written in place by :func:`decode_step`.
+
+Ported: the ``attn`` and ``local`` mixers and the ``swiglu``, ``geglu``,
+``mlp_gelu`` and ``none`` FFNs, with both stub frontends (audio codebooks,
+vision patches) — six of the ten configs.  The ``mla``, ``mamba2`` and
+``rglru`` mixers and the ``moe`` FFN raise ``NotImplementedError`` (ROADMAP
+A3); ``loss_and_aux`` waits for training (A4).
+
+On the card every RMSNorm runs kernel #10, causal attention kernel #8 and
+the mqr-KV sparse decode kernel #9 (``attention``, ``modules``).
+Every entry point takes ``device``: the card unless ``"cpu"`` is asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.ops import resolve_device
+
+from . import attention as attn
+from .modules import (
+    Params,
+    act_fn,
+    dense_init,
+    device_of,
+    embed_init,
+    param_dtype,
+    rmsnorm,
+    rmsnorm_init,
+    shard,
+    tree_leaves,
+)
+
+NOT_PORTED = "is not ported yet (ROADMAP A3)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+    block_pattern: Tuple[str, ...] = ("attn",)
+    tail_pattern: Tuple[str, ...] = ()  # trailing layers when n_layers % pattern != 0
+    ffn_kind: str = "swiglu"  # swiglu | geglu | mlp_gelu | moe | none
+    act: str = "silu"
+    # MoE
+    n_experts: int = 0
+    experts_per_tok: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    n_dense_layers: int = 0  # leading layers with dense FFN (DeepSeek)
+    router_kind: str = "softmax"  # softmax | sigmoid
+    moe_capacity_factor: float = 1.25
+    moe_dispatch: str = "einsum"  # einsum (GShard baseline) | scatter (optimized)
+    # MLA
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    mtp_depth: int = 0  # multi-token-prediction heads (DeepSeek-V3)
+    # Mamba-2
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_ngroups: int = 1
+    conv_kernel: int = 4
+    ssd_chunk: int = 256
+    # RG-LRU
+    lru_width: int = 0
+    local_window: int = 0
+    local_attn_impl: str = "banded"  # banded | masked (perf baseline)
+    # misc
+    norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"  # full (nothing saveable) | dots (save matmuls)
+    attn_chunk: int = 1024
+    # frontends (stubs: precomputed embeddings/codebooks)
+    frontend: str = "none"  # none | audio_codebooks | vision_patches
+    n_codebooks: int = 0
+    n_patches: int = 0
+    # mqr-KV sparse attention (the paper's technique)
+    mqr_block: int = 128
+    mqr_topk: int = 64
+    mqr_levels: int = 6
+    mqr_incremental: bool = False  # index lives in the cache
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """LM-head vocab padded to 256 (pad ids are masked at serve time)."""
+        return (self.vocab_size + 255) // 256 * 256
+
+    @property
+    def n_superblocks(self) -> int:
+        body = self.n_layers - len(self.tail_pattern)
+        if body % len(self.block_pattern):
+            raise ValueError(f"{self.n_layers} layers do not divide into {self.block_pattern}")
+        return body // len(self.block_pattern)
+
+    def param_count(self) -> int:
+        """Analytic total parameter count N (for 6·N·D roofline)."""
+        d = self.d_model
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.frontend == "audio_codebooks":
+            total += self.n_codebooks * self.vocab_size * d  # heads
+        per_pattern = sum(self._mixer_params(kind) for kind in self.block_pattern)
+        total += self.n_superblocks * per_pattern
+        for kind in self.tail_pattern:
+            total += self._mixer_params(kind)
+        for li in range(self.n_layers):
+            total += self._ffn_params(li)
+        total += self.n_layers * 2 * d  # norms
+        return total
+
+    def _mixer_params(self, kind: str) -> int:
+        d, dh = self.d_model, self.head_dim_
+        if kind in ("attn", "local"):
+            return d * dh * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * dh * d
+        if kind == "mla":
+            r, rk = self.q_lora_rank, self.kv_lora_rank
+            qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+            return (
+                d * r
+                + r * self.n_heads * qk
+                + d * (rk + self.qk_rope_head_dim)
+                + rk * self.n_heads * (self.qk_nope_head_dim + self.v_head_dim)
+                + self.n_heads * self.v_head_dim * d
+            )
+        if kind == "mamba2":
+            d_inner = self.ssm_expand * d
+            gn = self.ssm_ngroups * self.ssm_state
+            nheads = d_inner // self.ssm_headdim
+            return d * (2 * d_inner + 2 * gn + nheads) + d_inner * d
+        if kind == "rglru":
+            w = self.lru_width
+            return 2 * d * w + 2 * w * w + w * d
+        raise ValueError(kind)
+
+    def _ffn_params(self, layer_idx: int) -> int:
+        d = self.d_model
+        if self.ffn_kind == "none":
+            return 0
+        if self.ffn_kind == "moe" and layer_idx >= self.n_dense_layers:
+            e, f = self.n_experts, self.moe_d_ff
+            shared = 3 * d * self.moe_d_ff * self.n_shared_experts
+            return e * 3 * d * f + d * e + shared
+        f = self.d_ff
+        if self.ffn_kind == "mlp_gelu":
+            return 2 * d * f
+        return 3 * d * f
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top-k + shared only)."""
+        if self.ffn_kind != "moe":
+            return self.param_count()
+        total = self.param_count()
+        e, k = self.n_experts, self.experts_per_tok
+        inactive_layers = self.n_layers - self.n_dense_layers
+        inactive = inactive_layers * (e - k) * 3 * self.d_model * self.moe_d_ff
+        return total - inactive
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config whose mixers or FFN the
+    port does not have yet."""
+    for kind in cfg.block_pattern + cfg.tail_pattern:
+        if kind not in ("attn", "local"):
+            raise NotImplementedError(f"{cfg.name}: the {kind} mixer {NOT_PORTED}")
+    if cfg.ffn_kind not in ("swiglu", "geglu", "mlp_gelu", "none"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.ffn_kind} FFN {NOT_PORTED}")
+    if cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: multi-token prediction {NOT_PORTED}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_ffn(generator, cfg) -> Params:
+    dt, d, f = param_dtype(cfg), cfg.d_model, cfg.d_ff
+    if cfg.ffn_kind == "none":
+        return {}
+    if cfg.ffn_kind == "mlp_gelu":
+        return {"w_in": dense_init(generator, d, (f,), dt),
+                "w_out": dense_init(generator, f, (d,), dt)}
+    return {"w_gate": dense_init(generator, d, (f,), dt),
+            "w_in": dense_init(generator, d, (f,), dt),
+            "w_out": dense_init(generator, f, (d,), dt)}
+
+
+def _init_superblock(generator, cfg, pattern) -> Params:
+    dev = device_of(generator)
+    return {f"l{i}": {
+        "mixer_norm": rmsnorm_init(cfg.d_model, dev),
+        "mixer": attn.init_attention(generator, cfg, cfg.d_model),
+        "ffn_norm": rmsnorm_init(cfg.d_model, dev),
+        "ffn": _init_ffn(generator, cfg),
+    } for i, _ in enumerate(pattern)}
+
+
+def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
+    """Random parameters from ``seed`` on ``device`` (the card unless
+    ``"cpu"``), laid out as the reference's (``blocks`` a list)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    return _init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The parameter tree of :func:`init_params` with (shape, dtype) leaves,
+    allocating nothing."""
+    check_ported(cfg)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return {k: leaves(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [leaves(v) for v in tree]
+        return tuple(tree.shape), tree.dtype
+
+    return leaves(_init_params(torch.device("meta"), cfg))
+
+
+def _init_params(gen, cfg: ModelConfig) -> Params:
+    dt, vpad, d = param_dtype(cfg), cfg.padded_vocab, cfg.d_model
+    params: Params = {}
+    if cfg.frontend == "audio_codebooks":
+        params["embed"] = torch.stack([embed_init(gen, vpad, d, dt)
+                                      for _ in range(cfg.n_codebooks)])
+        params["lm_head"] = torch.stack([dense_init(gen, d, (vpad,), dt)
+                                         for _ in range(cfg.n_codebooks)])
+    else:
+        params["embed"] = embed_init(gen, vpad, d, dt)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, d, (vpad,), dt)
+    params["final_norm"] = rmsnorm_init(d, device_of(gen))
+    params["blocks"] = [_init_superblock(gen, cfg, cfg.block_pattern)
+                        for _ in range(cfg.n_superblocks)]
+    if cfg.tail_pattern:
+        params["tail"] = _init_superblock(gen, cfg, cfg.tail_pattern)
+    return params
+
+
+def param_bytes(params: Params) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _ffn_apply(p, cfg, x):
+    if cfg.ffn_kind == "none":
+        return x * 0.0
+    act = act_fn(cfg.act)
+    if cfg.ffn_kind == "mlp_gelu":
+        return act(x @ p["w_in"]) @ p["w_out"]
+    h = act(x @ p["w_gate"]) * (x @ p["w_in"])
+    h = shard(h, ("pod", "data"), None, "model")
+    return h @ p["w_out"]
+
+
+def _window(cfg, kind):
+    return cfg.local_window if kind == "local" else None
+
+
+def _superblock(block_params, cfg, x, positions, pattern):
+    for i, kind in enumerate(pattern):
+        lp = block_params[f"l{i}"]
+        h = rmsnorm(lp["mixer_norm"], x, cfg.norm_eps)
+        x = x + attn.attention_train(lp["mixer"], cfg, h, positions, _window(cfg, kind))
+        h = rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
+        x = x + _ffn_apply(lp["ffn"], cfg, h)
+    return x
+
+
+def _scale_embeddings(cfg, x):
+    """The gemma family scales its input embeddings by sqrt(d_model), taken
+    in float32 and cast to the model's dtype, as the reference does."""
+    if cfg.name.startswith("gemma") or cfg.name.startswith("recurrentgemma"):
+        x = x * torch.sqrt(torch.tensor(float(cfg.d_model), dtype=torch.float32)).to(x.dtype)
+    return x
+
+
+def _embed_codebooks(emb, tokens):
+    """Audio stub: sum over codebooks k of emb[k][tokens[..., k]]."""
+    return sum(emb[k][tokens[..., k]] for k in range(emb.shape[0]))
+
+
+def embed_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
+    """Returns (hidden (B, S, D), positions (B, S), loss_mask (B, S))."""
+    dt = param_dtype(cfg)
+    tokens = batch["tokens"].long()
+    dev = tokens.device
+    if cfg.frontend == "audio_codebooks":
+        x = _embed_codebooks(params["embed"], tokens).to(dt)  # tokens (B, S, K)
+        b, s = tokens.shape[:2]
+        positions = torch.arange(s, device=dev).expand(b, s)
+        return x, positions, torch.ones((b, s), dtype=torch.bool, device=dev)
+    if cfg.frontend == "vision_patches":
+        vis = batch["vision_embeds"].to(dt)  # (B, P, D)
+        x = torch.cat([vis, params["embed"][tokens].to(dt)], dim=1)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=dev).expand(b, s)
+        mask = torch.cat([torch.zeros((b, vis.shape[1]), dtype=torch.bool, device=dev),
+                          torch.ones(tokens.shape, dtype=torch.bool, device=dev)], dim=1)
+        return x, positions, mask
+    b, s = tokens.shape
+    x = _scale_embeddings(cfg, params["embed"][tokens].to(dt))
+    positions = torch.arange(s, device=dev).expand(b, s)
+    return x, positions, torch.ones((b, s), dtype=torch.bool, device=dev)
+
+
+def forward_hidden(params, cfg, x, positions):
+    """The hidden trunk shared by train and prefill: every superblock in a
+    loop, the tail, the final norm.  Returns (hidden, None): the reference's
+    second value is the MoE load, and the port has no MoE yet."""
+    check_ported(cfg)
+    x = shard(x, ("pod", "data"), None, None)
+    for block_params in params["blocks"]:
+        x = _superblock(block_params, cfg, x, positions, cfg.block_pattern)
+    if cfg.tail_pattern:
+        x = _superblock(params["tail"], cfg, x, positions, cfg.tail_pattern)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), None
+
+
+def logits_fn(params, cfg, hidden):
+    """Logits over the padded vocab, in the model's dtype (the pad ids are
+    masked by the serve step, as in the reference)."""
+    if cfg.frontend == "audio_codebooks":
+        return torch.einsum("bsd,kdv->bskv", hidden, params["lm_head"])
+    if cfg.tie_embeddings:
+        return hidden @ params["embed"].T
+    return hidden @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Inference: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Any:
+    """Per-superblock caches: ``{"all": [{"l0": cache, ...}, ...]}`` (and
+    ``"tail"``), each attention cache (B, Hkv, max_len, Dh), on ``device``
+    (the card unless ``"cpu"``)."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    dt = param_dtype(cfg)
+
+    def one(kind):
+        if kind == "attn":
+            return attn.init_kv_cache(cfg, batch, max_len, dt, dev)
+        return attn.init_local_cache(cfg, batch, dt, dev)
+
+    def superblock(pattern):
+        return {f"l{i}": one(kind) for i, kind in enumerate(pattern)}
+
+    out = {"all": [superblock(cfg.block_pattern) for _ in range(cfg.n_superblocks)]}
+    if cfg.tail_pattern:
+        out["tail"] = superblock(cfg.tail_pattern)
+    return out
+
+
+def _superblock_decode(block_params, cfg, x, caches, pos, mqr_sparse, pattern):
+    for i, kind in enumerate(pattern):
+        lp = block_params[f"l{i}"]
+        h = rmsnorm(lp["mixer_norm"], x, cfg.norm_eps)
+        if kind == "attn":
+            y, _ = attn.attention_decode(lp["mixer"], cfg, h, caches[f"l{i}"], pos,
+                                         mqr_sparse=mqr_sparse)
+        else:
+            y, _ = attn.local_attention_decode(lp["mixer"], cfg, h, caches[f"l{i}"], pos)
+        x = x + y
+        h = rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
+        x = x + _ffn_apply(lp["ffn"], cfg, h)
+    return x
+
+
+def decode_step(
+    params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # (B, 1) integer (or (B, 1, K) for audio)
+    caches,
+    pos,  # a Python int or a 0-d integer tensor
+    mqr_sparse: bool = False,
+):
+    """One decode step.  Returns (logits (B, 1, V...), caches); the caches
+    are written in place (C24) and returned."""
+    check_ported(cfg)
+    dt = param_dtype(cfg)
+    tokens = tokens.long()
+    if cfg.frontend == "audio_codebooks":
+        x = _embed_codebooks(params["embed"], tokens).to(dt)
+    else:
+        x = _scale_embeddings(cfg, params["embed"][tokens].to(dt))
+    for block_params, cache in zip(params["blocks"], caches["all"]):
+        x = _superblock_decode(block_params, cfg, x, cache, pos, mqr_sparse, cfg.block_pattern)
+    if cfg.tail_pattern:
+        x = _superblock_decode(params["tail"], cfg, x, caches["tail"], pos, mqr_sparse,
+                               cfg.tail_pattern)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_fn(params, cfg, x), caches
+
+
+def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """Inference prefill: the full forward, returning the last token's
+    logits (B, 1, V...).  Serving builds caches by streaming the prompt
+    through :func:`decode_step` (``launch/serve.py``), as the reference."""
+    x, positions, _ = embed_inputs(params, cfg, batch)
+    hidden, _ = forward_hidden(params, cfg, x, positions)
+    return logits_fn(params, cfg, hidden[:, -1:, :])

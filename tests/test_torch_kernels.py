@@ -199,6 +199,42 @@ def test_mqr_sparse_attention_checks_arguments():
         ops.mqr_sparse_attention(q[:, :32], kb, kb, ids, 10)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("group,pos", [(2, 8 * 128 - 40), (4, 3 * 128 + 5), (8, 5 * 128)])
+def test_mqr_sparse_attention_group_reads_kv_row_r_over_group(dtype, group, pos):
+    """With ``group`` > 1 query row r reads kv row r // group in place: the
+    answer equals the ``group=1`` call on the kv rows repeated ``group``
+    times, bit for bit, and the Pallas kernel on the repeated rows within
+    its tolerance."""
+    bh_kv, nb, bs, d, k = 2, 8, 128, 64, 3
+    bh = bh_kv * group
+    rng = np.random.default_rng(group)
+    ids = np.stack([rng.permutation(nb)[:k] for _ in range(bh)]).astype(np.int32)
+    (jk, tk), (jv, tv) = (_both(_normal(group + i, (bh_kv, nb, bs, d)), dtype) for i in (0, 1))
+    jq, tq = _both(_normal(group + 2, (bh, d)), dtype)
+    tids = torch.from_numpy(ids)
+    got = ops.mqr_sparse_attention(tq, tk, tv, tids, pos, group=group)
+    assert got.dtype == tq.dtype and got.shape == (bh, d)
+    rep_k, rep_v = (t.repeat_interleave(group, 0) for t in (tk, tv))
+    torch.testing.assert_close(got, ops.mqr_sparse_attention(tq, rep_k, rep_v, tids, pos),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.mqr_sparse_attention_torch(tq, tk, tv, tids, torch.tensor(pos), group), got,
+        rtol=0, atol=0)
+    want = ref_ops.mqr_sparse_attention(jq, jnp.repeat(jk, group, 0), jnp.repeat(jv, group, 0),
+                                        jnp.asarray(ids), jnp.asarray(pos, jnp.int32))
+    _close(got, want, SPARSE_TOL[dtype])
+
+
+def test_mqr_sparse_attention_checks_group():
+    q, kb = torch.zeros((8, 64)), torch.zeros((2, 8, 128, 64))
+    ids = torch.zeros((8, 3), dtype=torch.int32)
+    assert ops.mqr_sparse_attention(q, kb, kb, ids, 10, group=4).shape == (8, 64)
+    for bad in (0, 3, 2, 2.0):  # not a positive int dividing BH, or kv rows != BH / group
+        with pytest.raises(ValueError):
+            ops.mqr_sparse_attention(q, kb, kb, ids, 10, group=bad)
+
+
 # -- #10 rmsnorm -------------------------------------------------------------
 
 

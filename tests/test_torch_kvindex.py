@@ -257,3 +257,117 @@ def test_selected_blocks_cover_high_score_keys():
     region = kvindex.query_region(_t(q, np.float32), _t(probe, np.float32), 1024)
     ids = kvindex.select_blocks(idx, region, 4).numpy()
     assert 5 in ids, ids
+
+
+# -- the batched build and selection (the counterpart of the reference's vmap)
+
+
+def _grid_rows(seed, r, s, d):
+    """Keys, probes and queries on small integer grids: every float32 dot
+    product is exact in any order, so the port and the reference agree bit
+    for bit."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-3, 4, (r, s, d)).astype(np.float32),
+            rng.integers(-2, 3, (r, d)).astype(np.float32),
+            rng.integers(-2, 3, (r, 3, d)).astype(np.float32))
+
+
+def _same_index(got, want):
+    np.testing.assert_array_equal(got.block_mbr.numpy(), np.asarray(want.block_mbr))
+    np.testing.assert_array_equal(got.pyramid.group_of.numpy(), np.asarray(want.pyramid.group_of))
+    np.testing.assert_array_equal(got.pyramid.group_mbr.numpy(),
+                                  np.asarray(want.pyramid.group_mbr))
+
+
+@pytest.mark.parametrize("r,s,d,bs,levels,k", [(6, 1024, 16, 64, 6, 5), (4, 512, 8, 32, 4, 16)])
+def test_batched_build_and_select_equal_single_rows_and_reference_vmap(r, s, d, bs, levels, k):
+    keys, probes, qs = _grid_rows(r + s, r, s, d)
+    pos = s - 11
+    batched = kvindex.build_kv_index(_t(keys), _t(probes), bs, levels)
+    assert batched.block_mbr.shape == (r, s // bs, 4)
+    assert batched.pyramid.group_of.shape == (r, levels, s // bs)
+    regions = kvindex.query_region(_t(qs), _t(probes)[:, None, :], pos + 1)  # (R, G, 4)
+    ids = kvindex.select_blocks(batched, regions, k)
+    assert ids.shape == (r, 3, k) and ids.dtype == torch.int32
+    # the reference's vmap over rows of build + (vmap over queries of) select
+    @jax.jit
+    def reference(keys, probes, qs):
+        ref = jax.vmap(lambda kk, pp: ref_kv.build_kv_index(kk, pp, bs, levels))(keys, probes)
+        ref_regions = jax.vmap(jax.vmap(
+            lambda q, pp: ref_kv.query_region(q, pp, pos + 1), in_axes=(0, None)))(qs, probes)
+        ref_ids = jax.vmap(lambda ix, rr: jax.vmap(
+            lambda x: ref_kv.select_blocks(ix, x, k))(rr))(ref, ref_regions)
+        return ref, ref_regions, ref_ids
+
+    ref, ref_regions, ref_ids = reference(*map(jnp.asarray, (keys, probes, qs)))
+    _same_index(batched, ref)
+    np.testing.assert_array_equal(regions.numpy(), np.asarray(ref_regions))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ref_ids))
+    # and each row equals the single-row build and selection
+    for i in range(r):
+        single = kvindex.build_kv_index(_t(keys[i]), _t(probes[i]), bs, levels)
+        np.testing.assert_array_equal(batched.block_mbr[i].numpy(), single.block_mbr.numpy())
+        np.testing.assert_array_equal(batched.pyramid.group_of[i].numpy(),
+                                      single.pyramid.group_of.numpy())
+        np.testing.assert_array_equal(batched.pyramid.group_mbr[i].numpy(),
+                                      single.pyramid.group_mbr.numpy())
+        np.testing.assert_array_equal(ids[i].numpy(),
+                                      kvindex.select_blocks(single, regions[i], k).numpy())
+        np.testing.assert_array_equal(
+            bulk.pyramid_search(batched.pyramid, regions)[i].numpy(),
+            bulk.pyramid_search(single.pyramid, regions[i]).numpy())
+
+
+def test_batched_build_of_float_keys_equals_single_rows_bit_for_bit():
+    """Random bfloat16 keys and float32 probes (dot products that round):
+    each row of the batched build equals its single-row build exactly,
+    because the scores are summed in one fixed order whatever the batch."""
+    rng = np.random.default_rng(21)
+    keys = torch.from_numpy(rng.standard_normal((8, 2048, 64)).astype(np.float32))
+    keys = keys.to(torch.bfloat16)
+    probes = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32))
+    qs = torch.from_numpy(rng.standard_normal((8, 4, 64)).astype(np.float32))
+    batched = kvindex.build_kv_index(keys, probes, 128, 6)
+    regions = kvindex.query_region(qs, probes[:, None, :], 2000)
+    ids = kvindex.select_blocks(batched, regions, 5)
+    for i in range(8):
+        single = kvindex.build_kv_index(keys[i], probes[i], 128, 6)
+        assert torch.equal(batched.block_mbr[i].view(torch.int32),
+                           single.block_mbr.view(torch.int32))
+        assert torch.equal(batched.pyramid.group_of[i], single.pyramid.group_of)
+        assert torch.equal(batched.pyramid.group_mbr[i], single.pyramid.group_mbr)
+        for g in range(4):
+            assert torch.equal(regions[i, g], kvindex.query_region(qs[i, g], probes[i], 2000))
+        assert torch.equal(ids[i], kvindex.select_blocks(single, regions[i], 5))
+
+
+def test_batched_incremental_update_and_select_equal_single_rows_and_reference():
+    """The incremental index over rows (R, ...): one update with a score a
+    row, one selection of G regions a row, equal to each row alone and to
+    the reference's vmap."""
+    r, nb, bs, levels = 3, 8, 16, 4
+    idx0 = kvindex.init_incremental(nb, bs, levels, device=CPU)
+    rows = kvindex.IncKVIndex(*(a.expand(r, *a.shape).contiguous() for a in idx0))
+    ref0 = ref_kv.init_incremental(nb, bs, levels)
+    ref_rows = jax.tree.map(lambda a: jnp.broadcast_to(a, (r,) + a.shape), ref0)
+    singles = [idx0] * r
+    rng = np.random.default_rng(3)
+    regions = _regions(3, r * 2, nb * bs, -3.0, 3.0).reshape(r, 2, 4)
+    update = jax.jit(lambda ixs, pos, scs: jax.vmap(
+        lambda ix, sc: ref_kv.incremental_update(ix, pos, sc, bs))(ixs, scs))
+    for pos in rng.permutation(nb * bs)[:30].tolist():
+        scores = rng.standard_normal(r).astype(np.float32)
+        rows = kvindex.incremental_update(rows, pos, _t(scores), bs)
+        ref_rows = update(ref_rows, pos, jnp.asarray(scores))
+        singles = [kvindex.incremental_update(ix, pos, float(sc), bs)
+                   for ix, sc in zip(singles, scores)]
+    for got, want in zip(rows, ref_rows):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    ids = kvindex.incremental_select(rows, _t(regions), 3)
+    ref_ids = jax.vmap(lambda ix, rr: jax.vmap(
+        lambda x: ref_kv.incremental_select(ix, x, 3))(rr))(ref_rows, jnp.asarray(regions))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ref_ids))
+    for i, single in enumerate(singles):
+        for got, want in zip(single, rows):
+            assert torch.equal(got, want[i])
+        assert torch.equal(ids[i], kvindex.incremental_select(single, _t(regions[i]), 3))
