@@ -198,6 +198,23 @@ it and read just after):
      16 times; ``prefill`` of (1, prefill) launches #8 16 times, and a
      256-token prompt's last logits through ``prefill`` lie within 0.25 of
      the same prompt streamed through decode steps;
+     LLM families, at full width, one model at a time (the card freed
+     between): granite-moe-1b (24 layers, 32 experts top-8), DeepSeek-V3
+     cut to its 3 dense layers and first MoE layer (61 do not fit one
+     card; MTP, never applied in serving, left out), mamba2-2.7b (64
+     layers) and recurrentgemma-9b (36 layers); ``serve`` (granite B 4
+     dense and sparse, mamba2 B 4, recurrentgemma B 2), ``prefill`` of
+     (1, prefill), decode steps (granite and DeepSeek dense and sparse
+     over (4, kv_len) caches filled from the seed), each with #10's,
+     #8's and #9's launches counted and no plain version called; one
+     traced dense step's idle share; the MoE layer's einsum and scatter
+     dispatches within 2e-2 + 2e-2 |b| with equal loads, its load summing
+     to the kept choices a token, and, drop-free, all tokens at once
+     against one at a time; #10 at every width of the path; a 128-token
+     prompt's last logits through ``prefill`` within 1e-2 of the prompt
+     streamed through decode steps on a float32 model drawn from the seed
+     (DeepSeek's first layer alone), and there MLA's sparse decode with
+     top-K = every block within 0.05 of dense; peak device memory;
  19. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
@@ -1586,6 +1603,329 @@ def llm_phase(args, checks, dev, card, paths) -> dict:
           flush=True)
     res["steps"] = {"dense": lambda _: step(False), "sparse": lambda _: step(True)}
     res["caches"] = caches
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"  the phase took {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+# -- LLM families: the MoE, MLA, Mamba-2 and RG-LRU configs at full width ----
+
+# model, its cut (depth only; widths as published), serve() settings or None,
+# decode steps at --kv-len (mqr-KV over a cache) or not
+FAMILIES = (
+    dict(arch="granite_moe_1b", cut={}, serve=dict(batch=4, prompt_len=32, gen=32),
+         long_steps=True),
+    # 61 layers of bfloat16 (1.34 TB with MTP) do not fit one card: the 3
+    # dense layers and the first MoE layer; serving never applies MTP
+    dict(arch="deepseek_v3_671b", cut=dict(n_layers=4, mtp_depth=0), serve=None,
+         long_steps=True),
+    dict(arch="mamba2_2p7b", cut={}, serve=dict(batch=4, prompt_len=32, gen=32),
+         long_steps=False),
+    dict(arch="recurrentgemma_9b", cut={}, serve=dict(batch=2, prompt_len=32, gen=32),
+         long_steps=False),
+)
+FAMILY_DEC_B = 4            # batch of the long-context decode steps
+FAMILY_CHECK_PROMPT = 128   # tokens of the prefill-vs-streamed-decode check
+FAMILY_PREFILL_GATE = 1e-2  # |prefill - streamed decode| last logits, float32 copy
+MOE_GATE = (2e-2, 2e-2)     # bf16: |a - b| <= atol + rtol |b| (the reference's parity gate)
+
+
+def busy_share(fn) -> tuple[float, float]:
+    """One traced call of ``fn()``: (host window ms, device busy ms); the
+    idle share is 1 - busy / window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    fn()
+    sync()
+    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        sync()
+        window = (time.perf_counter() - t) * 1e3
+    busy = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            busy += getattr(evt, "self_device_time_total", None) or getattr(
+                evt, "self_cuda_time_total", 0)
+    return window, busy / 1e3
+
+
+def free_card():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def norms_a_step(cfg) -> int:
+    """RMSNorms of one token step (kernel #10's launches): two a layer and
+    the final one, plus MLA's q_norm and kv_norm and Mamba-2's gated norm."""
+    kinds = list(cfg.block_pattern) * cfg.n_superblocks + list(cfg.tail_pattern)
+    return 2 * len(kinds) + 1 + sum(2 if k == "mla" else 1 if k == "mamba2" else 0
+                                    for k in kinds)
+
+
+def family_widths(cfg) -> tuple[int, ...]:
+    """The row widths #10 takes on a family's path."""
+    widths = {cfg.d_model}
+    kinds = set(cfg.block_pattern + cfg.tail_pattern)
+    if "mla" in kinds:
+        widths |= {cfg.q_lora_rank, cfg.kv_lora_rank}
+    if "mamba2" in kinds:
+        widths.add(cfg.ssm_expand * cfg.d_model)
+    return tuple(sorted(widths))
+
+
+def families_phase(args, checks, dev, card, paths) -> dict:
+    """granite-moe-1b, DeepSeek-V3 (cut to 4 layers), mamba2-2.7b and
+    recurrentgemma-9b at full width on the card through the port's models,
+    one model at a time: serve(), prefill, decode steps, the MoE and #10
+    checks, prefill against streamed decode on a float32 copy.  Launch
+    counts land in ``paths`` under ``llm <arch> ...``."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import count_params, rmsnorm_init
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+
+    def in_mode(fn):
+        with torch.inference_mode():
+            return fn()
+
+    def counted(label, fn):
+        """Run ``fn`` with the counters at 0 and plain calls counted; the
+        counts land in ``paths``."""
+        with plain_attention_calls() as plain:
+            sync()
+            _lib.counters.reset()
+            t = time.perf_counter()
+            out = fn()
+            sync()
+            wall = time.perf_counter() - t
+            counts = paths[label] = _lib.counters.snapshot()
+        return out, counts, dict(plain), wall
+
+    def expect_counts(label, counts, plain, want):
+        got = {k: counts.get(k, 0) for k in want}
+        checks.expect(got == want and not plain,
+                      f"{label}: launches {got} == {want}, no plain version ({plain})")
+
+    for fam in FAMILIES:
+        arch = fam["arch"]
+        r = res[arch] = {}
+        cfg = dataclasses.replace(registry.get_config(arch), **fam["cut"])
+        moe_ffn = cfg.ffn_kind == "moe"
+        n_attn = sum(k == "attn" for k in cfg.block_pattern) * cfg.n_superblocks
+        norms = norms_a_step(cfg)
+        cut = (f"cut: {fam['cut']} ({cfg.n_layers} of {registry.get_config(arch).n_layers} "
+               f"layers)" if fam["cut"] else "not cut")
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        params = T.init_params(args.seed, cfg, device=dev)
+        sync()
+        r.update(init_s=time.perf_counter() - t, param_count=cfg.param_count(),
+                 param_bytes=T.param_bytes(params))
+        print(f"  {arch} at full width, {cut}: {cfg.n_layers} layers {cfg.block_pattern}, "
+              f"d_model {cfg.d_model}, ffn {cfg.ffn_kind}, vocab {cfg.vocab_size:,}, "
+              f"{cfg.dtype}, random from seed {args.seed}: param_count() "
+              f"{r['param_count']:,} ({count_params(params):,} elements), "
+              f"{r['param_bytes']:,} bytes on the card; init {r['init_s']:.2f} s  [{card}]",
+              flush=True)
+
+        # -- serve(): the prompt streamed through decode steps, then greedy
+        if fam["serve"]:
+            sv = fam["serve"]
+            b, steps_run = sv["batch"], sv["prompt_len"] + sv["gen"] - 1
+            serve_mod.serve(arch=arch, smoke=False, batch=b, prompt_len=4, gen=2,
+                            seed=args.seed, params=params, device=dev)  # warm-up
+            for sparse in (False, True) if n_attn else (False,):
+                label = "sparse" if sparse else "dense"
+                out, counts, plain, wall = counted(f"llm {arch} serve {label}", lambda: (
+                    serve_mod.serve(arch=arch, smoke=False, mqr_sparse=sparse,
+                                    seed=args.seed, params=params, device=dev, **sv)))
+                r[f"serve_{label}_tok_s"] = b * (sv["prompt_len"] + sv["gen"]) / wall
+                print(f"  {arch} serve {label}: B {b}, prompt {sv['prompt_len']}, gen "
+                      f"{sv['gen']}: {steps_run} steps in {wall:.3f} s, "
+                      f"{r[f'serve_{label}_tok_s']:.1f} tok/s (host clock)  [{card}]",
+                      flush=True)
+                checks.expect(out.shape == (b, sv["gen"]) and bool((out >= 0).all())
+                              and bool((out < cfg.vocab_size).all()),
+                              f"{arch} serve {label}: tokens ({b}, {sv['gen']}) in the vocab")
+                expect_counts(f"{arch} serve {label}", counts, plain, {
+                    "rmsnorm_bf16": norms * steps_run, "flash_attention_bf16": 0,
+                    "mqr_sparse_attention_bf16": n_attn * steps_run if sparse else 0})
+
+        # -- prefill (1, --prefill) -----------------------------------------
+        gen_ = torch.Generator(device=dev).manual_seed(args.seed + 11)
+        toks = torch.randint(0, cfg.vocab_size, (1, args.prefill), generator=gen_, device=dev)
+        last, counts, plain, _ = counted(f"llm {arch} prefill", lambda: in_mode(
+            lambda: T.prefill(params, cfg, {"tokens": toks})))
+        checks.expect(tuple(last.shape) == (1, 1, cfg.padded_vocab)
+                      and bool(last.float().isfinite().all()),
+                      f"{arch} prefill of {args.prefill:,} tokens: finite last-token logits")
+        expect_counts(f"{arch} prefill", counts, plain, {
+            "rmsnorm_bf16": norms, "flash_attention_bf16": n_attn,
+            "mqr_sparse_attention_bf16": 0})
+        r["prefill_ms"] = wall_ms(lambda: in_mode(
+            lambda: T.prefill(params, cfg, {"tokens": toks})), 3)
+        print(f"  {arch} prefill (1, {args.prefill:,}): {r['prefill_ms']:.2f} ms (median of "
+              f"3, host clock to a synchronize)  [{card}]", flush=True)
+        del last
+
+        # -- decode steps: over --kv-len caches (attention, MLA), or at the
+        # serving batch from fresh recurrent state
+        if fam["long_steps"]:
+            bd, s_len = FAMILY_DEC_B, args.kv_len
+            pos = s_len - 37
+        else:
+            bd, s_len, pos = fam["serve"]["batch"], 128, 0
+        caches = T.init_caches(cfg, bd, s_len, device=dev)
+        if fam["long_steps"]:
+            for stack in caches.values():
+                for layer in stack:
+                    for c in layer.values():
+                        for t_ in c.values():
+                            t_.normal_(generator=gen_)
+        tok = torch.randint(0, cfg.vocab_size, (bd, 1), generator=gen_, device=dev)
+
+        def step(sparse):
+            return in_mode(lambda: T.decode_step(params, cfg, tok, caches, pos,
+                                                 mqr_sparse=sparse)[0])
+
+        for sparse in (False, True) if fam["long_steps"] else (False,):
+            label = "sparse" if sparse else "dense"
+            logits, counts, plain, _ = counted(f"llm {arch} decode step {label}",
+                                               lambda: step(sparse))
+            checks.expect(tuple(logits.shape) == (bd, 1, cfg.padded_vocab)
+                          and bool(logits.float().isfinite().all()),
+                          f"{arch} decode step {label} (B {bd}, {s_len:,}-token caches): "
+                          f"finite logits")
+            expect_counts(f"{arch} decode step {label}", counts, plain, {
+                "rmsnorm_bf16": norms, "flash_attention_bf16": 0,
+                "mqr_sparse_attention_bf16": n_attn if sparse else 0})
+            r[f"{label}_step_ms"] = wall_ms(lambda: step(sparse))
+        r["dense_window_ms"], r["dense_busy_ms"] = busy_share(lambda: step(False))
+        r["idle_share"] = max(0.0, 1 - r["dense_busy_ms"] / r["dense_window_ms"])
+        print(f"  {arch} decode step, B {bd}, {s_len:,}-token caches, pos {pos} (median of "
+              f"{REPEATS}, host clock to a synchronize): dense {r['dense_step_ms']:.2f} ms"
+              + (f", sparse {r['sparse_step_ms']:.2f} ms" if "sparse_step_ms" in r else "")
+              + f"; one dense step traced: window {r['dense_window_ms']:.3f} ms, device busy "
+              f"{r['dense_busy_ms']:.3f} ms, idle share {r['idle_share']:.3f}  [{card}]",
+              flush=True)
+        del caches
+
+        # -- the MoE FFN on the card: dispatches, loads, prefill vs decode
+        if moe_ffn:
+            layer = params["blocks"][0]["l0"]["ffn"]
+            x = ops.rmsnorm(torch.randn((1, FAMILY_CHECK_PROMPT * 8, cfg.d_model), device=dev,
+                                        generator=gen_).to(torch.bfloat16),
+                            rmsnorm_init(cfg.d_model, dev))
+            ys, loads = {}, {}
+            for dispatch in ("einsum", "scatter"):
+                mc = dataclasses.replace(cfg, moe_dispatch=dispatch)
+                ys[dispatch], aux = in_mode(lambda: moe.moe_ffn(layer, mc, x))
+                loads[dispatch] = aux["expert_load"]
+            err = float(((ys["einsum"].float() - ys["scatter"].float()).abs()
+                         - MOE_GATE[1] * ys["scatter"].float().abs()).max())
+            s_tok = x.shape[1]
+            top_idx, _ = moe.route(layer, cfg, x)
+            cap = moe.capacity_of(cfg, s_tok, cfg.moe_capacity_factor)
+            kept = int(moe.queue_slots(top_idx, cfg.n_experts, cap)[1].sum())
+            load_sum = float(loads["einsum"].sum())
+            checks.expect(err <= MOE_GATE[0] and same(loads["einsum"], loads["scatter"]),
+                          f"{arch} MoE layer on {s_tok:,} tokens: einsum vs scatter dispatch "
+                          f"|a - b| - {MOE_GATE[1]} |b| = {err:.2e} <= {MOE_GATE[0]}; loads "
+                          f"equal")
+            checks.expect(abs(load_sum - kept / s_tok) < 1e-4 and load_sum <= cfg.experts_per_tok,
+                          f"{arch} MoE expert load sums to the kept top-k fraction: "
+                          f"{load_sum:.5f} = {kept} kept choices / {s_tok} tokens "
+                          f"(<= k = {cfg.experts_per_tok}; capacity {cap})")
+            free = dataclasses.replace(cfg, moe_capacity_factor=cfg.n_experts
+                                       / cfg.experts_per_tok)  # capacity = S: drop-free
+            xs = x[:, :FAMILY_CHECK_PROMPT]
+            y_all, aux = in_mode(lambda: moe.moe_ffn(layer, free, xs))
+            y_tok = torch.cat([in_mode(lambda i=i: moe.moe_ffn(layer, free, xs[:, i:i + 1])[0])
+                               for i in range(xs.shape[1])], dim=1)
+            err_pd = float(((y_all.float() - y_tok.float()).abs()
+                            - MOE_GATE[1] * y_tok.float().abs()).max())
+            free_sum = float(aux["expert_load"].sum())
+            checks.expect(err_pd <= MOE_GATE[0]
+                          and abs(free_sum - cfg.experts_per_tok) < 1e-4,
+                          f"{arch} MoE layer, drop-free: {xs.shape[1]} tokens at once vs one "
+                          f"at a time (decode) |a - b| - {MOE_GATE[1]} |b| = {err_pd:.2e} <= "
+                          f"{MOE_GATE[0]}; load sums to k: {free_sum:.5f}")
+            r.update(moe_dispatch_err=err, moe_load_sum=load_sum, moe_prefill_vs_decode=err_pd)
+            del layer, x, ys, xs, y_all, y_tok
+
+        # -- #10 at every width of the family's path --------------------------
+        for d in family_widths(cfg):
+            xr = torch.randn((args.prefill, d), device=dev, generator=gen_).to(torch.bfloat16)
+            w = 1 + 0.1 * torch.randn((d,), device=dev, generator=gen_)
+            worst = worst_over_limit(ops.rmsnorm(xr, w), ops.rmsnorm_torch(xr, w), 2e-2, 3e-2)
+            checks.expect(worst <= 1.0, f"{arch}: #10 on ({args.prefill}, {d}) bf16 within "
+                                        f"2e-2 |plain| + 3e-2 x the row's RMS (worst error / "
+                                        f"limit {worst:.3g})")
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # -- prefill vs the prompt streamed through decode steps, float32 ----
+        check_cfg = dataclasses.replace(cfg, dtype="float32")
+        if moe_ffn:
+            check_cfg = dataclasses.replace(check_cfg, moe_capacity_factor=cfg.n_experts
+                                            / cfg.experts_per_tok)
+        # float32 weights drawn anew from the seed once the bfloat16 ones are
+        # freed (a copy beside them would not fit for recurrentgemma-9b);
+        # DeepSeek's 4 layers are 60 GB in float32: its first layer alone
+        # (MLA and a dense FFN), with the MoE layer checked above
+        del params
+        free_card()
+        if arch == "deepseek_v3_671b":
+            check_cfg = dataclasses.replace(check_cfg, n_layers=1, n_dense_layers=1)
+        p32 = T.init_params(args.seed, check_cfg, device=dev)
+        short = toks[:, :FAMILY_CHECK_PROMPT]
+        c = T.init_caches(check_cfg, 1, FAMILY_CHECK_PROMPT, device=dev)
+        for i in range(FAMILY_CHECK_PROMPT):
+            lg = in_mode(lambda: T.decode_step(p32, check_cfg, short[:, i:i + 1], c, i)[0])
+        pre = in_mode(lambda: T.prefill(p32, check_cfg, {"tokens": short}))
+        diff = float((pre - lg).abs().max())
+        r["prefill_vs_decode_f32"] = diff
+        checks.expect(diff < FAMILY_PREFILL_GATE,
+                      f"{arch} float32 copy ({check_cfg.n_layers} layers"
+                      f"{', drop-free capacity' if moe_ffn else ''}): prefill of "
+                      f"{FAMILY_CHECK_PROMPT} tokens vs the prompt streamed through decode "
+                      f"steps, max |logits diff| {diff:.2e} < {FAMILY_PREFILL_GATE}")
+        del c
+        if arch == "deepseek_v3_671b":
+            # MLA sparse decode with top-K = nb against dense, float32
+            nb = args.kv_len // cfg.mqr_block
+            all_cfg = dataclasses.replace(check_cfg, mqr_topk=nb)
+            c32 = T.init_caches(all_cfg, FAMILY_DEC_B, args.kv_len, device=dev)
+            for stack in c32.values():
+                for layer_c in stack:
+                    for t_ in layer_c["l0"].values():
+                        t_.normal_(generator=gen_)
+            pos = args.kv_len - 37
+            dense32, sparse32 = (in_mode(lambda s=s: T.decode_step(
+                p32, all_cfg, tok, c32, pos, mqr_sparse=s)[0]) for s in (False, True))
+            diff = float((sparse32 - dense32).abs().max())
+            r["mla_all_blocks_vs_dense_f32"] = diff
+            checks.expect(diff < LLM_SPARSE_GATE,
+                          f"{arch} float32 copy (1 layer), {args.kv_len:,}-token latent cache: "
+                          f"MLA sparse decode with top-K = nb = {nb} vs dense, max |logits "
+                          f"diff| {diff:.2e} < {LLM_SPARSE_GATE}")
+            del c32, dense32, sparse32
+        del p32
+        free_card()
+        r["peak_gib"] = max(r["peak_gib"], torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"  {arch}: peak device memory {r['peak_gib']:.2f} GiB (the phase's own "
+              f"tensors and what earlier phases hold); prefill vs streamed decode (float32) "
+              f"{r['prefill_vs_decode_f32']:.2e}  [{card}]", flush=True)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"  the phase took {res['phase_s']:.1f} s", flush=True)
     return res
@@ -3228,6 +3568,10 @@ def run(args, second) -> int:
     llm_out = {}
     checks.phase("LLM serving (llama3.2-1B, full width)", lambda: llm_out.update(
         llm_phase(args, checks, dev, card, paths)))
+    families_out = {}
+    checks.phase("LLM families (granite-moe-1b, DeepSeek-V3 cut, mamba2-2.7b, "
+                 "recurrentgemma-9b; full width)", lambda: families_out.update(
+                     families_phase(args, checks, dev, card, paths)))
 
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
@@ -3816,6 +4160,7 @@ def run(args, second) -> int:
             "selected_frac", "survivor_frac", "build_ms", "select_ms", "attend_ms",
             "attend_all_ms", "dense_plain_ms", "sparse_vs_dense")},
         llm={f: v for f, v in llm_out.items() if isinstance(v, (int, float))},
+        families=families_out,
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

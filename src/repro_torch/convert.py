@@ -136,13 +136,19 @@ def _index(tree, i: int):
     return np.asarray(tree)[i]
 
 
+# Parameter trees the reference stacks on a leading axis (superblocks, MTP
+# depths) and the port keeps as lists.
+STACKED = ("blocks", "blocks_dense", "mtp")
+
+
 def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """The port's parameters for ``cfg`` from the JAX package's parameter
     pytree with numpy leaves (``jax.tree.map(np.asarray, params)``).  The
-    reference stacks the superblocks of ``params["blocks"]`` on a leading
-    axis; the port keeps them as a list, so that axis is unstacked.  Every
-    leaf keeps its dtype; a missing or extra key, a shape or a dtype other
-    than the port's ``init_params`` would make raises."""
+    reference stacks the superblocks of ``params["blocks"]`` and
+    ``params["blocks_dense"]``, and the depths of ``params["mtp"]``, on a
+    leading axis; the port keeps them as lists, so that axis is unstacked.
+    Every leaf keeps its dtype; a missing or extra key, a shape or a dtype
+    other than the port's ``init_params`` would make raises."""
     from repro_torch.models.transformer import param_shapes
 
     dev = resolve_device(device)
@@ -152,13 +158,14 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
         raise ValueError(f"params: keys {got}, the port's model wants {sorted(want)}")
     out = {}
     for key, spec in want.items():
-        if key == "blocks":
-            stacked = tree["blocks"]
-            n = cfg.n_superblocks
+        if key in STACKED:
+            stacked = tree[key]
+            n = len(spec)
             leaves = [np.asarray(v) for v in _flat(stacked)]
             if any(a.ndim == 0 or a.shape[0] != n for a in leaves):
-                raise ValueError(f"params/blocks: every leaf must stack {n} superblocks")
-            out[key] = [_tree(_index(stacked, i), spec[i], dev, f"params/blocks[{i}]")
+                what = "depths" if key == "mtp" else "superblocks"
+                raise ValueError(f"params/{key}: every leaf must stack {n} {what}")
+            out[key] = [_tree(_index(stacked, i), spec[i], dev, f"params/{key}[{i}]")
                         for i in range(n)]
         else:
             out[key] = _tree(tree[key], spec, dev, f"params/{key}")

@@ -39,25 +39,48 @@ def device_of(generator) -> torch.device:
     return generator.device if isinstance(generator, torch.Generator) else generator
 
 
-def _trunc_normal(shape, std: float, dtype, generator) -> torch.Tensor:
-    if not isinstance(generator, torch.Generator):
-        return torch.empty(shape, dtype=dtype, device=generator)
+# A tensor of more elements than this is drawn in slices along its leading
+# axis, so its float32 draw never lives whole (one DeepSeek-V3 expert tensor
+# is 3.8e9 elements: 15 GB in float32).  Every tensor of llama3.2-1B lies
+# below it, so their bits are those of one whole draw (ROADMAP C27).
+SLICE_ELEMENTS = 1 << 28
+
+
+def _draw(shape, std: float, dtype, generator) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * std).to(dtype)
+
+
+def trunc_normal(shape, std: float, dtype, generator) -> torch.Tensor:
+    """A normal truncated at ±2 drawn in float32, scaled by ``std`` and cast
+    to ``dtype``, on the generator's device (``meta`` lays out the shape
+    only).  Above :data:`SLICE_ELEMENTS` the draw goes slice by slice along
+    the leading axis, each slice the same rule."""
+    if not isinstance(generator, torch.Generator):
+        return torch.empty(shape, dtype=dtype, device=generator)
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n <= SLICE_ELEMENTS or shape[0] == 1:
+        return _draw(shape, std, dtype, generator)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    rows = max(1, SLICE_ELEMENTS // (n // shape[0]))
+    for i in range(0, shape[0], rows):
+        out[i:i + rows] = _draw((min(rows, shape[0] - i), *shape[1:]), std, dtype, generator)
+    return out
 
 
 def dense_init(generator, in_dim: int, out_shape, dtype=torch.bfloat16,
                scale: float = 1.0) -> torch.Tensor:
     """Weight of shape (in_dim, *out_shape), fan-in scaled truncated normal,
     on the generator's device."""
-    return _trunc_normal((in_dim, *out_shape), scale / math.sqrt(in_dim), dtype, generator)
+    return trunc_normal((in_dim, *out_shape), scale / math.sqrt(in_dim), dtype, generator)
 
 
 def embed_init(generator, vocab: int, dim: int, dtype=torch.bfloat16) -> torch.Tensor:
     # 1/sqrt(dim) keeps tied-head logits O(1); the gemma family multiplies
     # its input embeddings by sqrt(dim), as in the reference.
-    return _trunc_normal((vocab, dim), dim ** -0.5, dtype, generator)
+    return trunc_normal((vocab, dim), dim ** -0.5, dtype, generator)
 
 
 def rmsnorm_init(dim: int, device=None, dtype=torch.float32) -> torch.Tensor:

@@ -3,22 +3,28 @@
 Counterpart of ``repro.models.transformer``.  A model is a stack of
 *superblocks*; each applies the layer pattern ``cfg.block_pattern`` (mixer
 + FFN with pre-RMSNorm residuals).  Parameters are the reference's pytree as
-nested dicts of tensors, except that ``params["blocks"]`` is a list with one
-dict a superblock where the reference stacks them on a leading axis for
-``jax.lax.scan``; here the superblocks run in a plain loop, in inference
-mode (no remat: training waits, ROADMAP A4).  Caches likewise:
-``caches["all"]`` is a list of per-superblock dicts, in the cache layout of
-``attention`` (B, Hkv, S, Dh), written in place by :func:`decode_step`.
+nested dicts of tensors, except that ``params["blocks"]`` (and DeepSeek's
+``params["blocks_dense"]``, the leading layers with a dense FFN) is a list
+with one dict a superblock where the reference stacks them on a leading
+axis for ``jax.lax.scan``, and ``params["mtp"]`` a list with one dict a
+multi-token-prediction depth; here the superblocks run in a plain loop, in
+inference mode (no remat: training waits, ROADMAP A4).  Caches likewise:
+``caches["all"]`` (DeepSeek: ``"dense"`` and ``"moe"``) is a list of
+per-superblock dicts, written in place by :func:`decode_step`; attention
+caches are (B, Hkv, S, Dh) (C24), the others keep the reference's layout.
 
-Ported: the ``attn`` and ``local`` mixers and the ``swiglu``, ``geglu``,
-``mlp_gelu`` and ``none`` FFNs, with both stub frontends (audio codebooks,
-vision patches) — six of the ten configs.  The ``mla``, ``mamba2`` and
-``rglru`` mixers and the ``moe`` FFN raise ``NotImplementedError`` (ROADMAP
-A3); ``loss_and_aux`` waits for training (A4).
+Every mixer (``attn``, ``local``, ``mla``, ``mamba2``, ``rglru``) and FFN
+(``swiglu``, ``geglu``, ``mlp_gelu``, ``moe``, ``none``) of the ten
+configs is ported, with both stub frontends (audio codebooks, vision
+patches).  ``loss_and_aux`` waits for training and raises
+``NotImplementedError`` (A4); the MTP parameters are created as the
+reference's, which applies them only in training.
 
 On the card every RMSNorm runs kernel #10, causal attention kernel #8 and
-the mqr-KV sparse decode kernel #9 (``attention``, ``modules``).
-Every entry point takes ``device``: the card unless ``"cpu"`` is asked for.
+the mqr-KV sparse decode of the ``attn`` mixer kernel #9 (``attention``,
+``modules``); the MLA, SSD, RG-LRU and MoE paths are plain torch, as the
+reference computes them outside any kernel.  Every entry point takes
+``device``: the card unless ``"cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -31,6 +37,10 @@ import torch
 from repro_torch.kernels.ops import resolve_device
 
 from . import attention as attn
+from . import mamba2 as m2
+from . import mla as mla_mod
+from . import moe as moe_mod
+from . import rglru as rg
 from .modules import (
     Params,
     act_fn,
@@ -44,7 +54,7 @@ from .modules import (
     tree_leaves,
 )
 
-NOT_PORTED = "is not ported yet (ROADMAP A3)"
+NOT_PORTED = "is not ported yet (ROADMAP A4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,27 +196,29 @@ class ModelConfig:
         return total - inactive
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config whose mixers or FFN the
-    port does not have yet."""
-    for kind in cfg.block_pattern + cfg.tail_pattern:
-        if kind not in ("attn", "local"):
-            raise NotImplementedError(f"{cfg.name}: the {kind} mixer {NOT_PORTED}")
-    if cfg.ffn_kind not in ("swiglu", "geglu", "mlp_gelu", "none"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.ffn_kind} FFN {NOT_PORTED}")
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: multi-token prediction {NOT_PORTED}")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
-def _init_ffn(generator, cfg) -> Params:
+def _init_mixer(generator, cfg, kind: str) -> Params:
+    if kind in ("attn", "local"):
+        return attn.init_attention(generator, cfg, cfg.d_model)
+    if kind == "mla":
+        return mla_mod.init_mla(generator, cfg, cfg.d_model)
+    if kind == "mamba2":
+        return m2.init_mamba2(generator, cfg, cfg.d_model)
+    if kind == "rglru":
+        return rg.init_rglru(generator, cfg, cfg.d_model)
+    raise ValueError(kind)
+
+
+def _init_ffn(generator, cfg, moe_layer: bool) -> Params:
     dt, d, f = param_dtype(cfg), cfg.d_model, cfg.d_ff
     if cfg.ffn_kind == "none":
         return {}
+    if moe_layer:
+        return moe_mod.init_moe(generator, cfg, d)
     if cfg.ffn_kind == "mlp_gelu":
         return {"w_in": dense_init(generator, d, (f,), dt),
                 "w_out": dense_init(generator, f, (d,), dt)}
@@ -215,20 +227,21 @@ def _init_ffn(generator, cfg) -> Params:
             "w_out": dense_init(generator, f, (d,), dt)}
 
 
-def _init_superblock(generator, cfg, pattern) -> Params:
+def _init_superblock(generator, cfg, moe_flags, pattern) -> Params:
+    """One superblock of ``pattern``; moe_flags: whether each entry's FFN
+    is MoE."""
     dev = device_of(generator)
     return {f"l{i}": {
         "mixer_norm": rmsnorm_init(cfg.d_model, dev),
-        "mixer": attn.init_attention(generator, cfg, cfg.d_model),
+        "mixer": _init_mixer(generator, cfg, kind),
         "ffn_norm": rmsnorm_init(cfg.d_model, dev),
-        "ffn": _init_ffn(generator, cfg),
-    } for i, _ in enumerate(pattern)}
+        "ffn": _init_ffn(generator, cfg, moe_flags[i]),
+    } for i, kind in enumerate(pattern)}
 
 
 def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
     """Random parameters from ``seed`` on ``device`` (the card unless
     ``"cpu"``), laid out as the reference's (``blocks`` a list)."""
-    check_ported(cfg)
     dev = resolve_device(device)
     return _init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
 
@@ -236,7 +249,6 @@ def init_params(seed: int, cfg: ModelConfig, device=None) -> Params:
 def param_shapes(cfg: ModelConfig) -> Params:
     """The parameter tree of :func:`init_params` with (shape, dtype) leaves,
     allocating nothing."""
-    check_ported(cfg)
 
     def leaves(tree):
         if isinstance(tree, dict):
@@ -246,6 +258,16 @@ def param_shapes(cfg: ModelConfig) -> Params:
         return tuple(tree.shape), tree.dtype
 
     return leaves(_init_params(torch.device("meta"), cfg))
+
+
+def _split_stacks(cfg) -> bool:
+    """DeepSeek's two homogeneous stacks: the leading ``n_dense_layers``
+    with a dense FFN, then the MoE layers."""
+    if cfg.ffn_kind == "moe" and cfg.n_dense_layers:
+        if len(cfg.block_pattern) != 1:
+            raise ValueError("n_dense_layers requires a single-entry pattern")
+        return True
+    return False
 
 
 def _init_params(gen, cfg: ModelConfig) -> Params:
@@ -261,10 +283,27 @@ def _init_params(gen, cfg: ModelConfig) -> Params:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, d, (vpad,), dt)
     params["final_norm"] = rmsnorm_init(d, device_of(gen))
-    params["blocks"] = [_init_superblock(gen, cfg, cfg.block_pattern)
-                        for _ in range(cfg.n_superblocks)]
+    moe = cfg.ffn_kind == "moe"
+    pattern = cfg.block_pattern
+    if _split_stacks(cfg):
+        nd = cfg.n_dense_layers
+        params["blocks_dense"] = [_init_superblock(gen, cfg, (False,), pattern)
+                                  for _ in range(nd)]
+        params["blocks"] = [_init_superblock(gen, cfg, (True,), pattern)
+                            for _ in range(cfg.n_layers - nd)]
+    else:
+        flags = tuple(moe for _ in pattern)
+        params["blocks"] = [_init_superblock(gen, cfg, flags, pattern)
+                            for _ in range(cfg.n_superblocks)]
     if cfg.tail_pattern:
-        params["tail"] = _init_superblock(gen, cfg, cfg.tail_pattern)
+        tflags = tuple(moe for _ in cfg.tail_pattern)
+        params["tail"] = _init_superblock(gen, cfg, tflags, cfg.tail_pattern)
+    if cfg.mtp_depth:
+        # DeepSeek-V3 MTP: one extra block and a projection a depth; the
+        # reference applies them only in training (A4).
+        params["mtp"] = [{"proj": dense_init(gen, 2 * d, (d,), dt),
+                          "block": _init_superblock(gen, cfg, (moe,), pattern)}
+                         for _ in range(cfg.mtp_depth)]
     return params
 
 
@@ -277,29 +316,60 @@ def param_bytes(params: Params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _ffn_apply(p, cfg, x):
+def _ffn_apply(p, cfg, x, moe_layer: bool):
+    """-> (y, aux): aux the MoE layer's ``{"expert_load": (E,)}``, else None."""
     if cfg.ffn_kind == "none":
-        return x * 0.0
+        return x * 0.0, None
+    if moe_layer:
+        return moe_mod.moe_ffn(p, cfg, x)
     act = act_fn(cfg.act)
     if cfg.ffn_kind == "mlp_gelu":
-        return act(x @ p["w_in"]) @ p["w_out"]
+        return act(x @ p["w_in"]) @ p["w_out"], None
     h = act(x @ p["w_gate"]) * (x @ p["w_in"])
     h = shard(h, ("pod", "data"), None, "model")
-    return h @ p["w_out"]
+    return h @ p["w_out"], None
 
 
-def _window(cfg, kind):
-    return cfg.local_window if kind == "local" else None
+def _mixer_train(p, cfg, kind, x, positions):
+    if kind == "attn":
+        return attn.attention_train(p, cfg, x, positions)
+    if kind == "local":
+        return attn.attention_train(p, cfg, x, positions, window=cfg.local_window)
+    if kind == "mla":
+        return mla_mod.mla_train(p, cfg, x, positions, chunk=cfg.attn_chunk)
+    if kind == "mamba2":
+        return m2.mamba2_train(p, cfg, x, positions, chunk=cfg.ssd_chunk)
+    if kind == "rglru":
+        return rg.rglru_train(p, cfg, x, positions)
+    raise ValueError(kind)
 
 
-def _superblock(block_params, cfg, x, positions, pattern):
+def _superblock(block_params, cfg, x, positions, moe_flags, pattern):
+    """-> (x, the summed expert load of its MoE layers, or None)."""
+    aux_load = None
     for i, kind in enumerate(pattern):
         lp = block_params[f"l{i}"]
         h = rmsnorm(lp["mixer_norm"], x, cfg.norm_eps)
-        x = x + attn.attention_train(lp["mixer"], cfg, h, positions, _window(cfg, kind))
+        x = x + _mixer_train(lp["mixer"], cfg, kind, h, positions)
         h = rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
-        x = x + _ffn_apply(lp["ffn"], cfg, h)
-    return x
+        y, aux = _ffn_apply(lp["ffn"], cfg, h, moe_flags[i])
+        x = x + y
+        if aux is not None:
+            load = aux["expert_load"]
+            aux_load = load if aux_load is None else aux_load + load
+    return x, aux_load
+
+
+def _stack(blocks, cfg, x, positions, moe_flags):
+    """Every superblock of a stack in turn -> (x, load (E,) float32 summed
+    over the stack; (1,) zeros without MoE), as the reference's scan."""
+    e = cfg.n_experts if cfg.ffn_kind == "moe" else 1
+    load = torch.zeros((e,), dtype=torch.float32, device=x.device)
+    for block_params in blocks:
+        x, aux_load = _superblock(block_params, cfg, x, positions, moe_flags, cfg.block_pattern)
+        if aux_load is not None:
+            load = load + aux_load
+    return x, load
 
 
 def _scale_embeddings(cfg, x):
@@ -341,15 +411,22 @@ def embed_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
 
 def forward_hidden(params, cfg, x, positions):
     """The hidden trunk shared by train and prefill: every superblock in a
-    loop, the tail, the final norm.  Returns (hidden, None): the reference's
-    second value is the MoE load, and the port has no MoE yet."""
-    check_ported(cfg)
+    loop, the tail, the final norm.  Returns (hidden, load): the expert
+    load (E,) summed over the MoE stack, as the reference's (the dense
+    stack's and the tail's are dropped, as there; (1,) zeros without
+    MoE)."""
     x = shard(x, ("pod", "data"), None, None)
-    for block_params in params["blocks"]:
-        x = _superblock(block_params, cfg, x, positions, cfg.block_pattern)
+    moe = cfg.ffn_kind == "moe"
+    if _split_stacks(cfg):
+        x, _ = _stack(params["blocks_dense"], cfg, x, positions, (False,))
+        x, load = _stack(params["blocks"], cfg, x, positions, (True,))
+    else:
+        x, load = _stack(params["blocks"], cfg, x, positions,
+                         tuple(moe for _ in cfg.block_pattern))
     if cfg.tail_pattern:
-        x = _superblock(params["tail"], cfg, x, positions, cfg.tail_pattern)
-    return rmsnorm(params["final_norm"], x, cfg.norm_eps), None
+        tflags = tuple(moe for _ in cfg.tail_pattern)
+        x, _ = _superblock(params["tail"], cfg, x, positions, tflags, cfg.tail_pattern)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), load
 
 
 def logits_fn(params, cfg, hidden):
@@ -362,45 +439,75 @@ def logits_fn(params, cfg, hidden):
     return hidden @ params["lm_head"]
 
 
+def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """The training loss waits for the training slice."""
+    raise NotImplementedError(f"{cfg.name}: loss_and_aux (training) {NOT_PORTED}")
+
+
 # ---------------------------------------------------------------------------
 # Inference: prefill + decode
 # ---------------------------------------------------------------------------
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Any:
-    """Per-superblock caches: ``{"all": [{"l0": cache, ...}, ...]}`` (and
-    ``"tail"``), each attention cache (B, Hkv, max_len, Dh), on ``device``
-    (the card unless ``"cpu"``)."""
-    check_ported(cfg)
+    """Per-superblock caches: ``{"all": [{"l0": cache, ...}, ...]}``
+    (DeepSeek: ``"dense"`` and ``"moe"``; and ``"tail"``) on ``device``
+    (the card unless ``"cpu"``): attention (B, Hkv, max_len, Dh), local a
+    ring buffer, MLA the latent (B, max_len, rank), Mamba-2 and RG-LRU
+    their recurrent states."""
     dev = resolve_device(device)
     dt = param_dtype(cfg)
 
     def one(kind):
         if kind == "attn":
             return attn.init_kv_cache(cfg, batch, max_len, dt, dev)
-        return attn.init_local_cache(cfg, batch, dt, dev)
+        if kind == "local":
+            return attn.init_local_cache(cfg, batch, dt, dev)
+        if kind == "mla":
+            return mla_mod.init_mla_cache(cfg, batch, max_len, dt, dev)
+        if kind == "mamba2":
+            return m2.init_mamba2_cache(cfg, batch, cfg.d_model, dt, dev)
+        if kind == "rglru":
+            return rg.init_rglru_cache(cfg, batch, dt, dev)
+        raise ValueError(kind)
 
     def superblock(pattern):
         return {f"l{i}": one(kind) for i, kind in enumerate(pattern)}
 
-    out = {"all": [superblock(cfg.block_pattern) for _ in range(cfg.n_superblocks)]}
+    if _split_stacks(cfg):
+        nd = cfg.n_dense_layers
+        nm = cfg.n_layers - len(cfg.tail_pattern) - nd
+        out = {"dense": [superblock(cfg.block_pattern) for _ in range(nd)],
+               "moe": [superblock(cfg.block_pattern) for _ in range(nm)]}
+    else:
+        out = {"all": [superblock(cfg.block_pattern) for _ in range(cfg.n_superblocks)]}
     if cfg.tail_pattern:
         out["tail"] = superblock(cfg.tail_pattern)
     return out
 
 
-def _superblock_decode(block_params, cfg, x, caches, pos, mqr_sparse, pattern):
+def _mixer_decode(p, cfg, kind, x, cache, pos, mqr_sparse):
+    if kind == "attn":
+        return attn.attention_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
+    if kind == "local":
+        return attn.local_attention_decode(p, cfg, x, cache, pos)
+    if kind == "mla":
+        return mla_mod.mla_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
+    if kind == "mamba2":
+        return m2.mamba2_decode(p, cfg, x, cache, pos)
+    if kind == "rglru":
+        return rg.rglru_decode(p, cfg, x, cache, pos)
+    raise ValueError(kind)
+
+
+def _superblock_decode(block_params, cfg, x, caches, pos, moe_flags, mqr_sparse, pattern):
     for i, kind in enumerate(pattern):
         lp = block_params[f"l{i}"]
         h = rmsnorm(lp["mixer_norm"], x, cfg.norm_eps)
-        if kind == "attn":
-            y, _ = attn.attention_decode(lp["mixer"], cfg, h, caches[f"l{i}"], pos,
-                                         mqr_sparse=mqr_sparse)
-        else:
-            y, _ = attn.local_attention_decode(lp["mixer"], cfg, h, caches[f"l{i}"], pos)
+        y, _ = _mixer_decode(lp["mixer"], cfg, kind, h, caches[f"l{i}"], pos, mqr_sparse)
         x = x + y
         h = rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
-        x = x + _ffn_apply(lp["ffn"], cfg, h)
+        x = x + _ffn_apply(lp["ffn"], cfg, h, moe_flags[i])[0]
     return x
 
 
@@ -414,17 +521,25 @@ def decode_step(
 ):
     """One decode step.  Returns (logits (B, 1, V...), caches); the caches
     are written in place (C24) and returned."""
-    check_ported(cfg)
     dt = param_dtype(cfg)
     tokens = tokens.long()
     if cfg.frontend == "audio_codebooks":
         x = _embed_codebooks(params["embed"], tokens).to(dt)
     else:
         x = _scale_embeddings(cfg, params["embed"][tokens].to(dt))
-    for block_params, cache in zip(params["blocks"], caches["all"]):
-        x = _superblock_decode(block_params, cfg, x, cache, pos, mqr_sparse, cfg.block_pattern)
+    moe = cfg.ffn_kind == "moe"
+    if _split_stacks(cfg):
+        stacks = ((params["blocks_dense"], caches["dense"], (False,)),
+                  (params["blocks"], caches["moe"], (True,)))
+    else:
+        stacks = ((params["blocks"], caches["all"], tuple(moe for _ in cfg.block_pattern)),)
+    for blocks, stack_caches, flags in stacks:
+        for block_params, cache in zip(blocks, stack_caches):
+            x = _superblock_decode(block_params, cfg, x, cache, pos, flags, mqr_sparse,
+                                   cfg.block_pattern)
     if cfg.tail_pattern:
-        x = _superblock_decode(params["tail"], cfg, x, caches["tail"], pos, mqr_sparse,
+        tflags = tuple(moe for _ in cfg.tail_pattern)
+        x = _superblock_decode(params["tail"], cfg, x, caches["tail"], pos, tflags, mqr_sparse,
                                cfg.tail_pattern)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_fn(params, cfg, x), caches
