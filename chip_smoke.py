@@ -1611,18 +1611,38 @@ def llm_phase(args, checks, dev, card, paths) -> dict:
 # -- LLM families: the MoE, MLA, Mamba-2 and RG-LRU configs at full width ----
 
 # model, its cut (depth only; widths as published), serve() settings or None,
-# decode steps at --kv-len (mqr-KV over a cache) or not
+# decode steps at --kv-len (mqr-KV over a cache) or not, and the depth of
+# the float32 copy that holds prefill against streamed decode where the
+# cut model in float32 would not fit beside what earlier phases hold
 FAMILIES = (
     dict(arch="granite_moe_1b", cut={}, serve=dict(batch=4, prompt_len=32, gen=32),
          long_steps=True),
     # 61 layers of bfloat16 (1.34 TB with MTP) do not fit one card: the 3
     # dense layers and the first MoE layer; serving never applies MTP
     dict(arch="deepseek_v3_671b", cut=dict(n_layers=4, mtp_depth=0), serve=None,
-         long_steps=True),
+         long_steps=True, check_cut=dict(n_layers=1, n_dense_layers=1)),
     dict(arch="mamba2_2p7b", cut={}, serve=dict(batch=4, prompt_len=32, gen=32),
          long_steps=False),
     dict(arch="recurrentgemma_9b", cut={}, serve=dict(batch=2, prompt_len=32, gen=32),
          long_steps=False),
+    # the attention families of the other head dims and groups (#8 and #9 at
+    # group 8 / head dim 256, group 2, 4 and 8 at 128, group 1 at 64)
+    dict(arch="gemma_2b", cut={}, serve=dict(batch=4, prompt_len=16, gen=16), long_steps=True),
+    dict(arch="granite_8b", cut={}, serve=dict(batch=4, prompt_len=16, gen=16),
+         long_steps=True),
+    dict(arch="internvl2_2b", cut={}, serve=dict(batch=4, prompt_len=16, gen=16),
+         long_steps=True),
+    # 48 layers of 32 kv heads: 32,768-token caches are 1.07 GB a layer at
+    # B 4 (51.5 GB); its steps at B 2
+    dict(arch="musicgen_large", cut={}, serve=dict(batch=4, prompt_len=16, gen=16),
+         long_steps=True, dec_b=2),
+    # 40 layers of bfloat16 (~61 GB with the embedding) and their
+    # 32,768-token caches (21 GB) do not fit one card beside what earlier
+    # phases hold (~30 GiB): 12 of 40 layers (21.1 GB, caches 6.4 GB; 16
+    # peaked at 74.3 GiB of the card's 79.6); its float32 copy 2 layers
+    # (14 GB)
+    dict(arch="command_r_35b", cut=dict(n_layers=12), serve=dict(batch=4, prompt_len=16, gen=16),
+         long_steps=True, check_cut=dict(n_layers=2)),
 )
 FAMILY_DEC_B = 4            # batch of the long-context decode steps
 FAMILY_CHECK_PROMPT = 128   # tokens of the prefill-vs-streamed-decode check
@@ -1678,15 +1698,43 @@ def family_widths(cfg) -> tuple[int, ...]:
     return tuple(sorted(widths))
 
 
-def families_phase(args, checks, dev, card, paths) -> dict:
-    """granite-moe-1b, DeepSeek-V3 (cut to 4 layers), mamba2-2.7b and
-    recurrentgemma-9b at full width on the card through the port's models,
-    one model at a time: serve(), prefill, decode steps, the MoE and #10
-    checks, prefill against streamed decode on a float32 copy.  Launch
-    counts land in ``paths`` under ``llm <arch> ...``."""
+def token_shape(cfg, b: int, s: int) -> tuple[int, ...]:
+    """Token ids of ``b`` sequences of ``s`` steps (codebooks last for audio)."""
+    return (b, s, cfg.n_codebooks) if cfg.frontend == "audio_codebooks" else (b, s)
+
+
+def logits_shape(cfg, b: int) -> tuple[int, ...]:
+    """Last-token logits of ``b`` sequences (one head a codebook for audio)."""
+    if cfg.frontend == "audio_codebooks":
+        return (b, 1, cfg.n_codebooks, cfg.padded_vocab)
+    return (b, 1, cfg.padded_vocab)
+
+
+def prefill_batch(cfg, toks, gen_, patches: int | None = None) -> dict:
+    """A prefill batch of the token ids ``toks``: a vision model's stub
+    frontend takes ``patches`` patch embeddings drawn from ``gen_`` (its
+    published count by default) in front of them, in the token budget."""
+    if cfg.frontend != "vision_patches":
+        return {"tokens": toks}
+    n = cfg.n_patches if patches is None else patches
+    vis = torch.randn((toks.shape[0], n, cfg.d_model), generator=gen_, device=toks.device)
+    return {"tokens": toks[:, n:], "vision_embeds": vis.to(toks.device)}
+
+
+def families_phase(args, checks, dev, card, paths, sparse_inputs=None) -> dict:
+    """granite-moe-1b, DeepSeek-V3 (cut to 4 layers), mamba2-2.7b,
+    recurrentgemma-9b, gemma-2b, granite-8b, internvl2-2b, musicgen-large
+    and command-r-35b (cut to 12 layers) at full width on the card through
+    the port's models, one model at a time: serve(), prefill, decode
+    steps, the MoE and #10 checks,
+    prefill against streamed decode on a float32 copy.  Launch counts land
+    in ``paths`` under ``llm <arch> ...``; ``sparse_inputs``, where given,
+    receives each attention family's #9 inputs of one sparse step's first
+    layer (q, k and v blocks read in place, ids, pos, group)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _lib, ops
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.models.modules import count_params, rmsnorm_init
@@ -1744,45 +1792,48 @@ def families_phase(args, checks, dev, card, paths) -> dict:
             sv = fam["serve"]
             b, steps_run = sv["batch"], sv["prompt_len"] + sv["gen"] - 1
             serve_mod.serve(arch=arch, smoke=False, batch=b, prompt_len=4, gen=2,
-                            seed=args.seed, params=params, device=dev)  # warm-up
+                            seed=args.seed, params=params, device=dev, cfg=cfg)  # warm-up
             for sparse in (False, True) if n_attn else (False,):
                 label = "sparse" if sparse else "dense"
                 out, counts, plain, wall = counted(f"llm {arch} serve {label}", lambda: (
                     serve_mod.serve(arch=arch, smoke=False, mqr_sparse=sparse,
-                                    seed=args.seed, params=params, device=dev, **sv)))
+                                    seed=args.seed, params=params, device=dev, cfg=cfg,
+                                    **sv)))
                 r[f"serve_{label}_tok_s"] = b * (sv["prompt_len"] + sv["gen"]) / wall
                 print(f"  {arch} serve {label}: B {b}, prompt {sv['prompt_len']}, gen "
                       f"{sv['gen']}: {steps_run} steps in {wall:.3f} s, "
                       f"{r[f'serve_{label}_tok_s']:.1f} tok/s (host clock)  [{card}]",
                       flush=True)
-                checks.expect(out.shape == (b, sv["gen"]) and bool((out >= 0).all())
+                want_shape = token_shape(cfg, b, sv["gen"])
+                checks.expect(out.shape == want_shape and bool((out >= 0).all())
                               and bool((out < cfg.vocab_size).all()),
-                              f"{arch} serve {label}: tokens ({b}, {sv['gen']}) in the vocab")
+                              f"{arch} serve {label}: tokens {want_shape} in the vocab")
                 expect_counts(f"{arch} serve {label}", counts, plain, {
                     "rmsnorm_bf16": norms * steps_run, "flash_attention_bf16": 0,
                     "mqr_sparse_attention_bf16": n_attn * steps_run if sparse else 0})
 
         # -- prefill (1, --prefill) -----------------------------------------
         gen_ = torch.Generator(device=dev).manual_seed(args.seed + 11)
-        toks = torch.randint(0, cfg.vocab_size, (1, args.prefill), generator=gen_, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, token_shape(cfg, 1, args.prefill),
+                             generator=gen_, device=dev)
+        batch = prefill_batch(cfg, toks, gen_)
         last, counts, plain, _ = counted(f"llm {arch} prefill", lambda: in_mode(
-            lambda: T.prefill(params, cfg, {"tokens": toks})))
-        checks.expect(tuple(last.shape) == (1, 1, cfg.padded_vocab)
+            lambda: T.prefill(params, cfg, batch)))
+        checks.expect(tuple(last.shape) == logits_shape(cfg, 1)
                       and bool(last.float().isfinite().all()),
                       f"{arch} prefill of {args.prefill:,} tokens: finite last-token logits")
         expect_counts(f"{arch} prefill", counts, plain, {
             "rmsnorm_bf16": norms, "flash_attention_bf16": n_attn,
             "mqr_sparse_attention_bf16": 0})
-        r["prefill_ms"] = wall_ms(lambda: in_mode(
-            lambda: T.prefill(params, cfg, {"tokens": toks})), 3)
+        r["prefill_ms"] = wall_ms(lambda: in_mode(lambda: T.prefill(params, cfg, batch)), 3)
         print(f"  {arch} prefill (1, {args.prefill:,}): {r['prefill_ms']:.2f} ms (median of "
               f"3, host clock to a synchronize)  [{card}]", flush=True)
-        del last
+        del last, batch
 
         # -- decode steps: over --kv-len caches (attention, MLA), or at the
         # serving batch from fresh recurrent state
         if fam["long_steps"]:
-            bd, s_len = FAMILY_DEC_B, args.kv_len
+            bd, s_len = fam.get("dec_b", FAMILY_DEC_B), args.kv_len
             pos = s_len - 37
         else:
             bd, s_len, pos = fam["serve"]["batch"], 128, 0
@@ -1793,7 +1844,8 @@ def families_phase(args, checks, dev, card, paths) -> dict:
                     for c in layer.values():
                         for t_ in c.values():
                             t_.normal_(generator=gen_)
-        tok = torch.randint(0, cfg.vocab_size, (bd, 1), generator=gen_, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, token_shape(cfg, bd, 1), generator=gen_,
+                            device=dev)
 
         def step(sparse):
             return in_mode(lambda: T.decode_step(params, cfg, tok, caches, pos,
@@ -1803,7 +1855,7 @@ def families_phase(args, checks, dev, card, paths) -> dict:
             label = "sparse" if sparse else "dense"
             logits, counts, plain, _ = counted(f"llm {arch} decode step {label}",
                                                lambda: step(sparse))
-            checks.expect(tuple(logits.shape) == (bd, 1, cfg.padded_vocab)
+            checks.expect(tuple(logits.shape) == logits_shape(cfg, bd)
                           and bool(logits.float().isfinite().all()),
                           f"{arch} decode step {label} (B {bd}, {s_len:,}-token caches): "
                           f"finite logits")
@@ -1811,6 +1863,20 @@ def families_phase(args, checks, dev, card, paths) -> dict:
                 "rmsnorm_bf16": norms, "flash_attention_bf16": 0,
                 "mqr_sparse_attention_bf16": n_attn if sparse else 0})
             r[f"{label}_step_ms"] = wall_ms(lambda: step(sparse))
+        if sparse_inputs is not None and fam["long_steps"] and n_attn:
+            # #9's inputs in the first layer of one more sparse step, for the
+            # kernel phase (the cache's k and v of that layer, read in place)
+            with recorded_selection(attn) as seen:
+                step(True)
+            rec, hkv, dh = seen[0], cfg.n_kv_heads, cfg.head_dim_
+            nb = s_len // cfg.mqr_block
+            v0 = caches["all"][0]["l0"]["v"]
+            sparse_inputs[arch] = dict(
+                q=rec["q"].reshape(bd * cfg.n_heads, dh).to(v0.dtype),
+                kb=rec["k"].view(bd * hkv, nb, cfg.mqr_block, dh),
+                vb=v0.view(bd * hkv, nb, cfg.mqr_block, dh), ids=rec["ids"], pos=pos,
+                group=cfg.n_heads // hkv)
+            del seen, rec
         r["dense_window_ms"], r["dense_busy_ms"] = busy_share(lambda: step(False))
         r["idle_share"] = max(0.0, 1 - r["dense_busy_ms"] / r["dense_window_ms"])
         print(f"  {arch} decode step, B {bd}, {s_len:,}-token caches, pos {pos} (median of "
@@ -1885,14 +1951,15 @@ def families_phase(args, checks, dev, card, paths) -> dict:
         # (MLA and a dense FFN), with the MoE layer checked above
         del params
         free_card()
-        if arch == "deepseek_v3_671b":
-            check_cfg = dataclasses.replace(check_cfg, n_layers=1, n_dense_layers=1)
+        check_cfg = dataclasses.replace(check_cfg, **fam.get("check_cut", {}))
         p32 = T.init_params(args.seed, check_cfg, device=dev)
         short = toks[:, :FAMILY_CHECK_PROMPT]
         c = T.init_caches(check_cfg, 1, FAMILY_CHECK_PROMPT, device=dev)
         for i in range(FAMILY_CHECK_PROMPT):
             lg = in_mode(lambda: T.decode_step(p32, check_cfg, short[:, i:i + 1], c, i)[0])
-        pre = in_mode(lambda: T.prefill(p32, check_cfg, {"tokens": short}))
+        # a vision model's prompt without patches: decode steps take tokens only
+        pre, *_ = counted(f"llm {arch} float32 prefill", lambda: in_mode(lambda: T.prefill(
+            p32, check_cfg, prefill_batch(check_cfg, short, gen_, patches=0))))
         diff = float((pre - lg).abs().max())
         r["prefill_vs_decode_f32"] = diff
         checks.expect(diff < FAMILY_PREFILL_GATE,
@@ -3568,10 +3635,11 @@ def run(args, second) -> int:
     llm_out = {}
     checks.phase("LLM serving (llama3.2-1B, full width)", lambda: llm_out.update(
         llm_phase(args, checks, dev, card, paths)))
-    families_out = {}
+    families_out, family_sparse = {}, {}
     checks.phase("LLM families (granite-moe-1b, DeepSeek-V3 cut, mamba2-2.7b, "
-                 "recurrentgemma-9b; full width)", lambda: families_out.update(
-                     families_phase(args, checks, dev, card, paths)))
+                 "recurrentgemma-9b, gemma-2b, granite-8b, internvl2-2b, musicgen-large, "
+                 "command-r-35b cut; full width)", lambda: families_out.update(
+                     families_phase(args, checks, dev, card, paths, family_sparse)))
 
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
@@ -3932,33 +4000,87 @@ def run(args, second) -> int:
                 mutant=("with the first selected block left out",
                         lambda: ops.mqr_sparse_attention_torch(
                             qd, kb, vb, ids[:, 1:].contiguous(), pos)))
-        if "g4" in llm_out:
-            # #9 as the model calls it: kv rows read in place by `group` query
-            # heads each, at the model's ids; bytes count each distinct (kv
-            # row, block) the ids select once
-            g4 = llm_out["g4"]
-            qd, kb, vb, ids, pos, grp = (g4[k] for k in ("q", "kb", "vb", "ids", "pos", "group"))
+        # #8 at gemma-2b's prefill shape: 8 heads of head dim 256
+        for dt in (torch.float32, torch.bfloat16):
+            tag = "f32" if dt == torch.float32 else "bf16"
+            es = torch.empty((), dtype=dt).element_size()
+            g256 = torch.Generator(device=dev).manual_seed(args.seed + 2)
+            q, k, v = (torch.randn((8, args.prefill, 256), generator=g256, device=dev).to(dt)
+                       for _ in range(3))
+            bh, s_len, hd = q.shape
+            v_cut = v.clone()
+            v_cut[:, -64:] = 0
+            kernel_row(
+                f"flash_attention_{tag}_d256", csrc + "flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:86",
+                lambda: ops.flash_attention(q, k, v), lambda: ops.flash_attention_torch(q, k, v),
+                nbytes=4 * bh * s_len * hd * es,
+                ops_count=2 * 2 * bh * (s_len * (s_len + 1) // 2) * hd,
+                launches=sum(c.get(f"flash_attention_{tag}", 0) for p, c in paths.items()
+                             if p.startswith("llm gemma_2b ")),
+                tol=tol["flash_attention"][dt], peak_ops=flash_peak[dt],
+                mutant=("with the values of the last 64 keys zeroed",
+                        lambda: ops.flash_attention_torch(q, k, v_cut)),
+                library_fn=lambda: sdpa(q[None], k[None], v[None], is_causal=True))
+            del q, k, v, v_cut
+
+        # #9 as the models call it: kv rows read in place by `group` query
+        # heads each, at the model's ids; bytes count each distinct (kv row,
+        # block) the ids select once.  No single PyTorch call computes #9's
+        # function (a softmax over blocks chosen per row by an id table, read
+        # in place); a gather of the selected blocks and SDPA over them with
+        # the causal mask (two calls) is timed beside it as context only.
+        def sparse_row(name, inp, launches):
+            qd, kb, vb, ids, pos, grp = (inp[k] for k in ("q", "kb", "vb", "ids", "pos",
+                                                           "group"))
             (bh_dec, hd_dec), kk, nb_, bs = qd.shape, ids.shape[1], kb.shape[1], kb.shape[2]
+            es = qd.element_size()
             kv_rows = torch.arange(bh_dec, device=ids.device)[:, None] // grp
             distinct = int(torch.unique(kv_rows * nb_ + ids.long()).numel())
-            print(f"  #9 with group {grp}: {distinct} distinct (kv row, block) pairs of "
-                  f"{bh_dec * kk} selected", flush=True)
+            rows_ = kv_rows.expand(-1, kk)
+
+            def gather_sdpa():
+                kg = kb[rows_, ids.long()].reshape(bh_dec, 1, kk * bs, hd_dec)
+                vg = vb[rows_, ids.long()].reshape(bh_dec, 1, kk * bs, hd_dec)
+                kpos = ids.long()[:, :, None] * bs + torch.arange(bs, device=ids.device)
+                mask = (kpos <= pos).reshape(bh_dec, 1, 1, kk * bs)
+                return sdpa(qd[:, None, None, :], kg, vg, attn_mask=mask)
+
+            two_calls = device_ms(gather_sdpa)
+            print(f"  {name}: group {grp}, head dim {hd_dec}, {bh_dec} query rows x {kk} ids "
+                  f"of {nb_} blocks of {bs}: {distinct} distinct (kv row, block) pairs of "
+                  f"{bh_dec * kk} selected; a gather of the selected blocks + SDPA with the "
+                  f"causal mask (two calls, context only) {two_calls:.4f} ms on the device",
+                  flush=True)
             kernel_row(
-                f"mqr_sparse_attention_bf16_group{grp}", csrc + "mqr_sparse_attention.cu",
+                name, csrc + "mqr_sparse_attention.cu",
                 "src/repro/kernels/mqr_sparse_attention.py:105",
                 lambda: ops.mqr_sparse_attention(qd, kb, vb, ids, pos, group=grp),
                 lambda: ops.mqr_sparse_attention_torch(qd, kb, vb, ids, pos, group=grp),
-                nbytes=distinct * 2 * bs * hd_dec * 2 + bh_dec * (2 * hd_dec * 2 + kk * 4),
-                ops_count=bh_dec * kk * bs * hd_dec * 4,
-                launches=sum(paths[p].get("mqr_sparse_attention_bf16", 0)
-                             for p in paths if p.startswith("llm ")),
-                tol=tol["mqr_sparse_attention"][torch.bfloat16],
+                nbytes=distinct * 2 * bs * hd_dec * es + bh_dec * (2 * hd_dec * es + kk * 4),
+                ops_count=bh_dec * kk * bs * hd_dec * 4, launches=launches,
+                tol=tol["mqr_sparse_attention"][qd.dtype],
                 mutant=("with the first selected block left out",
                         lambda: ops.mqr_sparse_attention_torch(
                             qd, kb, vb, ids[:, 1:].contiguous(), pos, group=grp)))
 
-        # Edge cases, correctness only, within the same limits: #8 at D 128,
-        # at S not a multiple of its 128-row tile and at S 64; #10 where no
+        def model_launches(arch):
+            """#9's bf16 launches on a model's own paths (llama: those of the
+            LLM serving phase)."""
+            prefixes = tuple(f"llm {f['arch']} " for f in FAMILIES)
+            return sum(c.get("mqr_sparse_attention_bf16", 0) for p, c in paths.items()
+                       if (p.startswith(f"llm {arch} ") if arch != LLM_ARCH else
+                           p.startswith("llm ") and not p.startswith(prefixes)))
+
+        if "g4" in llm_out:
+            sparse_row(f"mqr_sparse_attention_bf16_group{llm_out['g4']['group']}",
+                       llm_out["g4"], model_launches(LLM_ARCH))
+        for arch, inp in family_sparse.items():
+            sparse_row(f"mqr_sparse_attention_bf16_{arch}", inp, model_launches(arch))
+
+        # Edge cases, correctness only, within the same limits: #8 at D 128
+        # and 256, at S not a multiple of its 128-row tile and at S 64; #9
+        # (below); #10 where no
         # row can be read in 16-byte vectors (d 2050; a base one element off
         # 16-byte alignment), at 1 and 4,097 rows.
         gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
@@ -3973,7 +4095,9 @@ def run(args, second) -> int:
         for dt in (torch.float32, torch.bfloat16):
             tag = "f32" if dt == torch.float32 else "bf16"
             for (bh, s_len, hd), blk in (((4, 512, 128), 128), ((3, 320, 64), 64),
-                                         ((2, 200, 64), 8), ((2, 64, 64), 64)):
+                                         ((2, 200, 64), 8), ((2, 64, 64), 64),
+                                         ((2, 200, 256), 8), ((3, 320, 256), 64),
+                                         ((2, 64, 256), 64)):
                 q, k, v = (torch.randn((bh, s_len, hd), generator=gen, device=dev).to(dt)
                            for _ in range(3))
                 edge(f"flash_attention_{tag} ({bh}, {s_len}, {hd}), block_q = block_k = {blk}",
@@ -3990,6 +4114,48 @@ def run(args, second) -> int:
             w = attn_out["norm_scale"]
             edge(f"rmsnorm_{tag} ({rows}, {d}) on a base one element off 16-byte alignment",
                  ops.rmsnorm(x, w), ops.rmsnorm_torch(x, w), tol["rmsnorm"][dt])
+            # #9 at group 1 / D 64, 2 / 64, 4 / 128 and 8 / 256, 2 kv rows:
+            # ids repeated, out of range (negative and past nb, pos past and
+            # before them), a first block wholly past pos, every key masked,
+            # K 1, nb 1, a group's heads with identical and with disjoint
+            # ids, bs 16 and 64, every one of 256 blocks of 16
+            for grp, hd in ((1, 64), (2, 64), (4, 128), (8, 256)):
+                bh = 2 * grp
+
+                def blocks_of(nb, bs):
+                    return tuple(torch.randn((2, nb, bs, hd), generator=gen, device=dev).to(dt)
+                                 for _ in range(2))
+
+                def rows(lists):  # query row r takes lists[r % len(lists)]
+                    return torch.tensor([lists[r % len(lists)] for r in range(bh)],
+                                        dtype=torch.int32, device=dev)
+
+                q = torch.randn((bh, hd), generator=gen, device=dev).to(dt)
+                kv8, kv1 = blocks_of(8, 128), blocks_of(1, 128)
+                cases = [
+                    ("ids repeated", kv8, rows([[3, 3, 1, 3], [0, 5, 5, 2]]), 8 * 128 - 40),
+                    ("ids out of range", kv8, rows([[9, 0, -2], [1, 40, -100]]), 8 * 128 + 100),
+                    ("ids out of range, pos before them", kv8,
+                     rows([[9, 0, -2], [1, 40, -100]]), 5 * 128),
+                    ("first block past pos", kv8, rows([[7, 2, 0], [6, 7, 1]]), 3 * 128 + 5),
+                    ("every key masked", kv8, rows([[5, 6], [7, 4]]), 3 * 128),
+                    ("K 1", kv8, rows([[3], [6]]), 8 * 128 - 1),
+                    ("identical ids in a group", kv8, rows([[1, 4, 6, 2]]), 8 * 128 - 1),
+                    ("disjoint ids in a group", kv8,
+                     torch.tensor([[(4 * r + j) % 8 for j in range(2)] for r in range(bh)],
+                                  dtype=torch.int32, device=dev), 8 * 128 - 1),
+                    ("nb 1", kv1, rows([[0, 0]]), 128 - 3),
+                    ("bs 16", blocks_of(16, 16), rows([[3, 9, 15, 0], [2, 2, 7, 11]]), 16 * 16 - 7),
+                    ("bs 64", blocks_of(16, 64), rows([[3, 9, 15, 0], [2, 2, 7, 11]]), 16 * 64 - 7),
+                    ("all 256 blocks of 16", blocks_of(256, 16),
+                     torch.arange(256, dtype=torch.int32, device=dev).expand(bh, 256).contiguous(),
+                     256 * 16 - 9),
+                ]
+                for label, (kb, vb), ids, pos in cases:
+                    edge(f"mqr_sparse_attention_{tag} group {grp}, D {hd}: {label}",
+                         ops.mqr_sparse_attention(q, kb, vb, ids, pos, group=grp),
+                         ops.mqr_sparse_attention_torch(q, kb, vb, ids, pos, group=grp),
+                         tol["mqr_sparse_attention"][dt])
 
     checks.phase("attention kernels vs plain versions", attention_kernel_phase)
 

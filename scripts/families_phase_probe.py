@@ -3,11 +3,10 @@
 
     python scripts/families_phase_probe.py [--seed 0] [--prefill 4096] [--kv-len 32768]
 
-Builds the port's kernels, then runs ``chip_smoke.families_phase``
-(granite-moe-1b, DeepSeek-V3 cut to 4 layers, mamba2-2.7b and
-recurrentgemma-9b at full width) and prints its checks, numbers and the
-launch counts of each run.  Exits 1 if a check failed.  Needs one CUDA card
-with 80 GB.
+Builds the port's kernels, then runs ``chip_smoke.families_phase`` (the
+configs of ``chip_smoke.FAMILIES`` at full width) and prints its checks,
+numbers and the launch counts of each run.  Exits 1 if a check failed.
+Needs one CUDA card with 80 GB.
 """
 import argparse
 import json

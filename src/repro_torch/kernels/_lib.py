@@ -62,8 +62,9 @@ _SIGNATURES = {
     "repro_quantize_cm": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _P]),
     "repro_pair_sweep": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _LL, _LL, _P]),
     "repro_rmsnorm": (_I, [_P, _P, _P, _LL, _I, _I, _I, _F, _P]),
-    "repro_mqr_sparse_attention": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
-                                        _I, _I, _I, _F, _P]),
+    "repro_mqr_sparse_attention_workspace": (_LL, [_LL, _I, _I, _I, _I, _I, _I]),
+    "repro_mqr_sparse_attention": (_I, [_P, _P, _P, _P, _P, _LL, _P, _P, _LL, _I, _I, _I, _I,
+                                        _I, _I, _F, _P]),
     "repro_flash_attention": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P]),
 }
 

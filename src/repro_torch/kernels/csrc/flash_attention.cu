@@ -5,7 +5,7 @@
 // broadcast to BH; scale 1/sqrt(D); online softmax in float32 with the
 // reference's finite mask value -1e30 and its running max starting there;
 // p rounded to v's type before P.V, as the reference casts it; the output
-// is acc / max(l, 1e-30) in q's type.  D is 64 or 128; any S.
+// is acc / max(l, 1e-30) in q's type.  D is 64, 128 or 256; any S.
 //
 // What bounds it on an H100: operations.  The causal QK^T and P.V products
 // are about 2*BH*S^2*D FLOPs against 4*BH*S*D elements of q, k, v and out.
@@ -29,13 +29,15 @@
 //   accumulate), warp-specialised.  Warpgroup 0 is the producer: one thread
 //   issues TMA loads (cp.async.bulk.tensor over a 3-D tensor map of
 //   (BH, S, D), so rows past S, or before 0, come back as zeros and never
-//   from another head) of Q once and of K and V tiles of 128 keys into a
-//   ring of stages (4 at D = 64, 2 at D = 128), each completed on an
-//   mbarrier and handed back by the consumers on another.  Consumer
-//   warpgroups own 64 query rows each: three at D = 64 (a 192-row block, so
-//   each K/V tile read from L2 feeds 192 rows), two at D = 128, whose
-//   accumulators need the registers (setmaxnreg: 24/160 and 40/232 for
-//   producer/consumers).  S = Q.K^T reads Q and K from shared memory through
+//   from another head) of Q once and of K and V tiles of 128 keys (64 at
+//   D = 256) into a ring of stages (4 at D = 64, 2 at D = 128 and 256),
+//   each completed on an mbarrier and handed back by the consumers on
+//   another.  Consumer warpgroups own 64 query rows each: three at D = 64
+//   (a 192-row block, so each K/V tile read from L2 feeds 192 rows), two at
+//   D = 128 and 256, whose accumulators need the registers (setmaxnreg:
+//   24/160 and 40/232 for producer/consumers; at D = 256 the 64 x 256
+//   output accumulator is 128 registers a thread, so its key tiles are
+//   64 keys, whose logits and P take 48).  S = Q.K^T reads Q and K from shared memory through
 //   descriptors (128-byte swizzle, as TMA writes it; K as stored is the
 //   K-major B operand); P.V takes P from registers (the S accumulators
 //   rounded to bf16) and V as the MN-major B operand.  The consumers take
@@ -51,11 +53,14 @@
 //   tiles: at D = 64 a 32 x 8 grid over 256 query rows, each thread an
 //   8 x 8 block of logits and of the output in registers (16 FMAs per
 //   16-byte shared read); at D = 128 a 16 x 16 grid over 64 rows, 4 x 4
-//   logits and 4 x 8 outputs.  Q and K are kept transposed in shared
-//   memory, (D, rows) and (D, keys), so QK^T reads them 16 bytes at a time;
-//   V is read 16 bytes along D.  K and V tiles are double-buffered with
-//   cp.async (K transposed by 4-byte copies, V by 16-byte ones), one
-//   barrier per tile.  A row's max and sum stay in registers (shuffles
+//   logits and 4 x 8 outputs (4 x 16 at D = 256).  Q and K are kept
+//   transposed in shared memory, (D, rows) and (D, keys), so QK^T reads
+//   them 16 bytes at a time; V is read 16 bytes along D.  K and V tiles are
+//   double-buffered with cp.async (K transposed by 4-byte copies, V by
+//   16-byte ones), one barrier per tile.  At D = 256 two buffers of each do
+//   not fit beside Q: one K and one V buffer, each refilled as soon as the
+//   product that reads it is done (K's next tile loads during the softmax
+//   and P.V, V's during the next QK^T).  A row's max and sum stay in registers (shuffles
 //   across the threads of the row, all in one warp); p goes through a
 //   slice of shared memory private to each warp, so it needs only
 //   __syncwarp.
@@ -224,6 +229,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64, f32) = d * accumulate + A (64 x 16, shared, K-major) . B (64 x 16, shared,
+// K-major)^T.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -246,7 +269,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
 
 namespace hop {
 
-constexpr int BN = 128;         // keys per K/V tile
 constexpr int ROW_BYTES = 128;  // one swizzled row of a 64-column slab
 constexpr int BAR_TURN = 1;     // named barriers 1..NWG: the consumers' turns (0 is __syncthreads)
 
@@ -256,6 +278,7 @@ struct Cfg {
   // tile read from L2 feeds 192 rows), two at D = 128, whose accumulators
   // need the registers.  Warpgroup 0 is the producer.
   static constexpr int NWG = D == 64 ? 3 : 2;
+  static constexpr int BN = D == 256 ? 64 : 128;  // keys per K/V tile
   static constexpr int BM = 64 * NWG;  // query rows per block
   static constexpr int THREADS = 128 * (NWG + 1);
   static constexpr int REG_LOAD = NWG == 3 ? 24 : 40;    // setmaxnreg: 65,536 registers in all
@@ -283,7 +306,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   const uint32_t sV = sK + C::STAGES * C::KV_BYTES;
   const uint32_t bQ = sV + C::STAGES * C::KV_BYTES;
   const uint32_t bK = bQ + 8, bV = bK + 8 * C::STAGES, bE = bV + 8 * C::STAGES;
-  constexpr int BM = C::BM, NWG = C::NWG;
+  constexpr int BM = C::BM, NWG = C::NWG, BN = C::BN;
   // Query tiles end at row S, heaviest (last) first: only the lightest one
   // starts before row 0 (TMA fills those rows with zeros; they are never
   // stored), so a partial tile costs one key tile, not a diagonal's worth.
@@ -342,10 +365,15 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   // S = Q.K^T for the tile in stage `st`, 16 columns of D a step
   auto issue_s = [&](int st) {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      wgmma_ss_n128(sacc, desc_sw128(qa + (ks / 4) * C::Q_SLAB + (ks % 4) * 32),
-                    desc_sw128(sK + st * C::KV_BYTES + (ks / 4) * C::KV_SLAB + (ks % 4) * 32),
-                    ks > 0);
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint64_t a = desc_sw128(qa + (ks / 4) * C::Q_SLAB + (ks % 4) * 32);
+      const uint64_t b = desc_sw128(sK + st * C::KV_BYTES + (ks / 4) * C::KV_SLAB + (ks % 4) * 32);
+      if constexpr (BN == 128) {
+        wgmma_ss_n128(sacc, a, b, ks > 0);
+      } else {
+        wgmma_ss_n64(sacc, a, b, ks > 0);
+      }
+    }
   };
   // O += P.V for the tile in stage `st`: V (keys, D) is the MN-major B operand
   auto issue_pv = [&](int st) {
@@ -583,8 +611,8 @@ int launch(const void* q, const void* k, const void* v, void* out, long long bh,
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   int rc = make_map(&mq, q, bh, s, D, C::BM);
-  if (rc == 0) rc = make_map(&mk, k, bh, s, D, BN);
-  if (rc == 0) rc = make_map(&mv, v, bh, s, D, BN);
+  if (rc == 0) rc = make_map(&mk, k, bh, s, D, C::BN);
+  if (rc == 0) rc = make_map(&mv, v, bh, s, D, C::BN);
   if (rc != 0) return rc;
   cudaError_t err = cudaFuncSetAttribute(flash_bf16<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
@@ -618,9 +646,11 @@ struct Cfg {
   static constexpr int RM = D == 64 ? 8 : 4;   // rows per thread
   static constexpr int BM = TY * RM;           // query rows per block: 256 or 64
   static constexpr int KPT = BN / TX;          // keys per thread: 8 or 4
-  static constexpr int CPT = D / TX;           // output columns per thread: 8
-  // Q^T (D, BM); two K^T tiles (D, LDK); two V tiles (BN, D); p (BM, LDP)
-  static constexpr int SMEM = (D * BM + 2 * D * LDK + 2 * BN * D + BM * LDP) * 4;
+  static constexpr int CPT = D / TX;           // output columns per thread: 8 (16 at D = 256)
+  static constexpr bool ONE_BUF = D == 256;    // one K and one V buffer (shared memory)
+  static constexpr int BUFS = ONE_BUF ? 1 : 2;
+  // Q^T (D, BM); K^T tiles (D, LDK); V tiles (BN, D); p (BM, LDP)
+  static constexpr int SMEM = (D * BM + BUFS * D * LDK + BUFS * BN * D + BM * LDP) * 4;
 };
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
@@ -645,6 +675,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// All but the most recent group of copies have landed.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // 4 n floats from 16-byte reads at p, p + stride, ...
 template <int N>
 __device__ __forceinline__ void ld_f4(float (&r)[N], const float* p, int stride) {
@@ -666,10 +701,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   using C = Cfg<D>;
   constexpr int BM = C::BM, RM = C::RM, TX = C::TX, TY = C::TY, KPT = C::KPT, CPT = C::CPT;
   extern __shared__ __align__(16) float sm[];
-  float* sQ = sm;                // (D, BM): Q transposed
-  float* sK = sQ + D * BM;       // two (D, LDK): K tiles transposed
-  float* sV = sK + 2 * D * LDK;  // two (BN, D)
-  float* sP = sV + 2 * BN * D;   // (BM, LDP): each warp reads back only its own rows
+  float* sQ = sm;                       // (D, BM): Q transposed
+  float* sK = sQ + D * BM;              // BUFS x (D, LDK): K tiles transposed
+  float* sV = sK + C::BUFS * D * LDK;   // BUFS x (BN, D)
+  float* sP = sV + C::BUFS * BN * D;    // (BM, LDP): each warp reads back only its own rows
   const long long n_qt = gridDim.x / nbh;
   const int qt = (int)(n_qt - 1 - blockIdx.x / nbh);
   const long long bh = blockIdx.x % nbh;
@@ -691,10 +726,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     sQ[(c4 + 2) * BM + row] = x.z;
     sQ[(c4 + 3) * BM + row] = x.w;
   }
-  auto stage = [&](int kt, int buf) {
+  auto stage_k = [&](int kt, int buf) {
     const int k0 = kt * BN;
     float* tK = sK + buf * D * LDK;
-    float* tV = sV + buf * BN * D;
     // K^T: a warp copies 4 keys x 8 columns a step (32-byte runs of global
     // memory; 32 distinct banks)
     for (int i = tid; i < BN * D; i += THREADS) {
@@ -704,11 +738,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       const bool valid = k0 + key < s;
       cp_async4(tK + col * LDK + key, kb + (long long)(valid ? k0 + key : 0) * D + col, valid);
     }
+  };
+  auto stage_v = [&](int kt, int buf) {
+    const int k0 = kt * BN;
+    float* tV = sV + buf * BN * D;
     for (int i = tid; i < BN * D / 4; i += THREADS) {
       const int key = i / (D / 4), c4 = (i % (D / 4)) * 4;
       const bool valid = k0 + key < s;
       cp_async16(tV + key * D + c4, vb + (long long)(valid ? k0 + key : 0) * D + c4, valid);
     }
+  };
+  auto stage = [&](int kt, int buf) {
+    stage_k(kt, buf);
+    stage_v(kt, buf);
     cp_async_commit();
   };
 
@@ -725,12 +767,24 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   const float c = scale * LOG2E;
   const int n_kv = min((q0 + BM - 1) / BN + 1, (s + BN - 1) / BN);
-  stage(0, 0);
+  if constexpr (C::ONE_BUF) {  // K and V as two groups of copies, each refilled on its own
+    stage_k(0, 0);
+    cp_async_commit();
+    stage_v(0, 0);
+    cp_async_commit();
+  } else {
+    stage(0, 0);
+  }
   for (int kt = 0; kt < n_kv; ++kt) {
-    const int buf = kt & 1, k0 = kt * BN;
-    cp_async_wait_all();
-    __syncthreads();  // tile kt is in, and every thread is done with the other buffer
-    if (kt + 1 < n_kv) stage(kt + 1, buf ^ 1);
+    const int buf = C::ONE_BUF ? 0 : kt & 1, k0 = kt * BN;
+    if constexpr (C::ONE_BUF) {
+      cp_async_wait_one();  // K of tile kt is in (its V may still be loading)
+      __syncthreads();
+    } else {
+      cp_async_wait_all();
+      __syncthreads();  // tile kt is in, and every thread is done with the other buffer
+      if (kt + 1 < n_kv) stage(kt + 1, buf ^ 1);
+    }
     const float* tK = sK + buf * D * LDK;
     const float* tV = sV + buf * BN * D;
 
@@ -748,6 +802,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < RM; ++i)
 #pragma unroll
         for (int j = 0; j < KPT; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    }
+    if constexpr (C::ONE_BUF) {
+      __syncthreads();  // every thread is done with K: load the next tile's
+      if (kt + 1 < n_kv) stage_k(kt + 1, 0);
+      cp_async_commit();  // possibly empty: one group a tile
     }
 
     // softmax: a row is spread over the TX lanes of its warp that share ty
@@ -788,6 +847,10 @@ __global__ void __launch_bounds__(THREADS, 1)
             make_float4(sc[i][4 * h], sc[i][4 * h + 1], sc[i][4 * h + 2], sc[i][4 * h + 3]);
     }
     __syncwarp();  // a warp reads back only the p rows it wrote
+    if constexpr (C::ONE_BUF) {
+      cp_async_wait_one();  // V of tile kt is in (the next K may still be loading)
+      __syncthreads();
+    }
 
 #pragma unroll 1
     for (int c4 = 0; c4 < BN; c4 += 4) {
@@ -806,6 +869,11 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
         }
       }
+    }
+    if constexpr (C::ONE_BUF) {
+      __syncthreads();  // every thread is done with V: load the next tile's
+      if (kt + 1 < n_kv) stage_v(kt + 1, 0);
+      cp_async_commit();
     }
   }
   float* ob = out + off;
@@ -851,7 +919,7 @@ int launch(const void* q, const void* k, const void* v, void* out, long long bh,
 extern "C" {
 
 // q, k, v, out: (bh, s, d), contiguous and 16-byte aligned, of dtype code
-// REPRO_F32 or REPRO_BF16; d is 64 or 128.  Returns 0 or the CUDA error of
+// REPRO_F32 or REPRO_BF16; d is 64, 128 or 256.  Returns 0 or the CUDA error of
 // the launch (cudaErrorNotSupported if the driver has no tensor-map encoder).
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                           long long bh, int s, int d, int dtype, float scale, void* stream) {
@@ -859,6 +927,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64) return launch<64>(q, k, v, out, bh, s, dtype, scale, st);
   if (d == 128) return launch<128>(q, k, v, out, bh, s, dtype, scale, st);
+  if (d == 256) return launch<256>(q, k, v, out, bh, s, dtype, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

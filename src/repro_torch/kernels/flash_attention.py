@@ -13,12 +13,14 @@ are zero-filled and never stored.
 bfloat16 runs on Hopper's tensor cores: a producer warpgroup loads Q once
 and K/V tiles of 128 keys into a ring of shared-memory stages with TMA
 (``cp.async.bulk.tensor`` over a 3-D tensor map of (BH, S, D), completed on
-mbarriers), and two or three consumer warpgroups of 64 query rows each run
+mbarriers; 64-key tiles at D = 256), and two or three consumer warpgroups
+of 64 query rows each run
 ``wgmma`` (bf16 in, float32 accumulate; P from registers), taking turns so
 that one's softmax overlaps another's products.  float32 runs on the CUDA
 cores in full float32 (no TF32): 8 x 8 register tiles of logits and
-outputs per thread (4 x 8 at D = 128), Q and K transposed in shared memory
-for 16-byte reads, K/V tiles double-buffered with ``cp.async``.
+outputs per thread (4 x 8 at D = 128, 4 x 16 at D = 256), Q and K
+transposed in shared memory for 16-byte reads, K/V tiles double-buffered
+with ``cp.async`` (one buffer each at D = 256, refilled as soon as read).
 """
 
 from __future__ import annotations
@@ -30,7 +32,13 @@ import torch
 from . import _lib
 
 NEG_INF = -1e30  # the reference's finite mask value
-HEAD_DIMS = (64, 128)  # the head dims the kernel is built for
+HEAD_DIMS = (64, 128, 256)  # the head dims the kernel is built for
+
+
+def check_head_dim(d: int) -> None:
+    """Raise ``ValueError`` for a head dim the card's kernel is not built for."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for D in {HEAD_DIMS}, got {d}")
 
 
 def flash_attention_torch(q, k, v, causal: bool = True) -> torch.Tensor:
@@ -50,7 +58,7 @@ def flash_attention_torch(q, k, v, causal: bool = True) -> torch.Tensor:
 def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Causal attention over q, k, v (BH, S, D) float32 or bfloat16, kv
     heads already broadcast -> (BH, S, D) in q's dtype.  S must be a
-    multiple of ``block_q`` and ``block_k``; on the card D is 64 or 128."""
+    multiple of ``block_q`` and ``block_k``; on the card D is 64, 128 or 256."""
     code = _lib.dtype_code(q, "q")
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
@@ -65,8 +73,7 @@ def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128) -> torch
         return flash_attention_torch(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel is built for D in {HEAD_DIMS}, got {d}")
+    check_head_dim(d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _lib.require_aligned(t, name)
     out = torch.empty_like(q)

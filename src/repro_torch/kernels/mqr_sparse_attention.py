@@ -15,8 +15,15 @@ the wrapper never reads ``ids`` or ``pos`` on the host.
 ``group`` maps query rows to kv rows for grouped-query attention: query
 row r reads kv row ``r // group`` of k and v blocks (BH / group, nb, bs, D),
 so a model's cache is read in place rather than copied once per query head
-(``group=1``, the default, is the reference's signature and the kernel as
-it was).
+(``group=1``, the default, is the reference's signature).
+
+On the card the kernel reads each distinct selected (kv row, block) once
+for all the query heads of its group that selected it, weighed by how
+often each head selected it, through rings of TMA bulk copies; one launch
+splits a group's blocks over enough thread blocks to fill the card and
+a second launch merges their partial softmaxes.
+The order of the sums is not the reference's walk over the ids (ROADMAP
+C30).
 """
 
 from __future__ import annotations
@@ -28,21 +35,24 @@ import torch
 from . import _lib
 
 NEG_INF = -1e30  # the reference's finite mask value (exp(NEG - NEG) = 1, never NaN)
-THREADS = 128    # the kernel's block: D must divide it
-TARGET_BLOCKS = 2048  # (b, h, chunk) blocks to aim for: enough loads in flight
+MAX_D = 256      # the kernel's widest head dim
+MAX_NB = 65_536  # blocks a kv row may hold on the card (the kernel's bitmap of ids)
 
 
 def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
 
 
-def split_k(bh: int, kk: int) -> tuple[int, int]:
-    """(chunk, splits): the kernel cuts each row's K ids into ``splits``
-    chunks of ``chunk`` ids (the last may be shorter, none is empty), so
-    that about ``TARGET_BLOCKS`` blocks run."""
-    want = max(1, min(kk, -(-TARGET_BLOCKS // max(bh, 1))))
-    chunk = -(-kk // want)
-    return chunk, -(-kk // chunk)
+def check_kernel_shape(d: int, nb: int, dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` for a shape the card's kernel does not take: D
+    must be a positive multiple of 16 bytes' worth of elements, at most
+    ``MAX_D``, and a kv row at most ``MAX_NB`` blocks."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    if d < 1 or d > MAX_D or d % vec:
+        raise ValueError(f"the kernel takes D a multiple of {vec} up to {MAX_D} in {dtype}, "
+                         f"got {d}")
+    if nb > MAX_NB:
+        raise ValueError(f"the kernel takes at most {MAX_NB} blocks a kv row, got {nb}")
 
 
 def mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos, group: int = 1) -> torch.Tensor:
@@ -71,12 +81,10 @@ def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos, group: int = 1) -> tor
     of k_blocks, v_blocks (BH / group, nb, bs, D) — query row r reads kv row
     ``r // group`` — keys past ``pos`` (inclusive causal limit: a Python int
     or a 0-d integer tensor) masked -> (BH, D) in q's dtype.  float32 or
-    bfloat16.  On the card D must divide 128 (and be a multiple of 8 in
-    bfloat16), the kernel splits each row's K ids into chunks
-    (:func:`split_k`) merged by a second launch (the pair counts as one
-    launch), and it takes a float32 workspace of BH * chunks * (D + 2).
-    A k/v block must fit one block's shared memory (bs = 128 at D = 128 in
-    float32 takes 134 KB); a larger one fails the launch, which raises."""
+    bfloat16.  On the card D is a multiple of 16 bytes' worth of elements
+    up to 256, nb at most 65,536 (:func:`check_kernel_shape`), and any bs
+    and K >= 1; the kernel takes a float32 workspace of partials, merged
+    by a second launch (the pair counts as one launch)."""
     code = _lib.dtype_code(q, "q")
     if k_blocks.dim() != 4:
         raise ValueError(f"k_blocks must be (BH, nb, bs, D), got {tuple(k_blocks.shape)}")
@@ -106,25 +114,27 @@ def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos, group: int = 1) -> tor
         return mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos, group)
     if dev.type != "cuda":
         raise ValueError(f"mqr_sparse_attention runs on cuda or cpu, not {dev}")
+    check_kernel_shape(d, nb, q.dtype)
     lib = _lib.load()
-    vec = 16 // q.element_size()
-    if THREADS % d or d % vec:
-        raise ValueError(f"the kernel needs D dividing {THREADS} and a multiple of {vec}, "
-                         f"got {d}")
     for name, t in (("k_blocks", k_blocks), ("v_blocks", v_blocks)):
         _lib.require_aligned(t, name)
+    # a tensor pos stays on the device (no host read); an int goes by value
     if isinstance(pos, torch.Tensor):
-        pos_dev = pos.to(device=dev, dtype=torch.int32)  # no host read
+        pos_dev = pos.to(device=dev, dtype=torch.int32)
+        pos_ptr, pos_value = pos_dev.data_ptr(), 0
     else:
-        pos_dev = torch.full((), pos, dtype=torch.int32, device=dev)
+        pos_ptr, pos_value = None, pos
     out = torch.empty((bh, d), dtype=q.dtype, device=dev)
     if bh:
-        chunk, splits = split_k(bh, ids.shape[1])
-        part = torch.empty((bh, splits, d + 2), dtype=torch.float32, device=dev)
+        n_part = lib.repro_mqr_sparse_attention_workspace(bh, nb, bs, ids.shape[1], d, group,
+                                                          code)
+        if n_part < 0:
+            _lib.check(int(-n_part), "mqr_sparse_attention")
+        part = torch.empty((n_part,), dtype=torch.float32, device=dev)
         rc = lib.repro_mqr_sparse_attention(
-            q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), ids.data_ptr(),
-            pos_dev.data_ptr(), part.data_ptr(), out.data_ptr(), bh, nb, bs, ids.shape[1], d,
-            chunk, splits, group, code, _scale(d), _lib.stream_of(q),
+            q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), ids.data_ptr(), pos_ptr,
+            pos_value, part.data_ptr(), out.data_ptr(), bh, nb, bs, ids.shape[1], d, group, code,
+            _scale(d), _lib.stream_of(q),
         )
         _lib.check(rc, "mqr_sparse_attention")
         _lib.counters.add("mqr_sparse_attention")

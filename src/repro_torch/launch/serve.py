@@ -45,12 +45,14 @@ def serve(
     params=None,
     prompts=None,
     device=None,
+    cfg=None,
 ):
     """Greedy generation of ``gen`` tokens after a ``prompt_len`` prompt for
     ``batch`` sequences; returns the generated tokens as numpy, (batch, gen)
-    ((batch, gen, K) for audio)."""
+    ((batch, gen, K) for audio).  ``cfg`` replaces the registry's config of
+    ``arch`` (a model cut in depth)."""
     dev = resolve_device(device)
-    cfg = registry.get_config(arch, smoke=smoke)
+    cfg = cfg or registry.get_config(arch, smoke=smoke)
     if params is None:
         params = T.init_params(seed, cfg, device=dev)
     max_len = prompt_len + gen

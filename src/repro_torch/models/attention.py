@@ -21,8 +21,9 @@ edges are the reference's: hidden (B, S, D); q (B, S, H, Dh); k, v
   the batched index selected.  On a CPU tensor each takes its kernel's
   plain version.  Windowed attention, the banded local path and dense
   decode are plain torch on every device, as the reference computes them
-  outside any kernel.  A head dim #8 is not built for (it takes 64 and
-  128) raises ``ValueError`` on the card.
+  outside any kernel.  A head dim #8 is not built for (it takes 64, 128
+  and 256) raises ``ValueError`` on the card; #9 takes any head dim up to
+  256 that is a multiple of 16 bytes' worth of elements.
 - **The logit scale.**  The reference divides logits by ``sqrt(Dh)``;
   kernels #8 and #9 multiply by ``1 / sqrt(Dh)``.  The two are the same
   float32 number only where sqrt(Dh) is a power of two (Dh 16, 64, 256);

@@ -17,7 +17,7 @@ import torch
 
 from repro.kernels import ops as ref_ops
 from repro.models.attention import flash_attention_jnp
-from repro_torch.kernels import ops
+from repro_torch.kernels import flash_attention, mqr_sparse_attention, ops
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 FLASH_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
@@ -46,7 +46,7 @@ def _close(got, want, tol):
 
 @pytest.mark.parametrize("against", AGAINST)
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("bh,s,d", [(2, 128, 64), (4, 256, 128), (1, 384, 128)])
+@pytest.mark.parametrize("bh,s,d", [(2, 128, 64), (4, 256, 128), (1, 384, 128), (2, 256, 256)])
 def test_flash_attention_sweep(against, dtype, bh, s, d):
     seed = bh * s + d
     (jq, tq), (jk, tk), (jv, tv) = (_both(_normal(seed + i, (bh, s, d)), dtype)
@@ -86,6 +86,19 @@ def test_flash_attention_rejects_mixed_or_unsupported_dtypes():
         ops.flash_attention(q, q.to(torch.bfloat16), q)
     with pytest.raises(TypeError):
         ops.flash_attention(q.to(torch.float16), q, q)
+
+
+@pytest.mark.parametrize("d,ok", [(64, True), (128, True), (256, True), (32, False),
+                                  (96, False), (512, False)])
+def test_flash_attention_head_dims_of_the_card_kernel(d, ok):
+    """The card's kernel is built for D 64, 128 and 256 (gemma-2b's head
+    dim); any other raises ``ValueError`` before a launch."""
+    assert (d in flash_attention.HEAD_DIMS) == ok
+    if ok:
+        flash_attention.check_head_dim(d)
+    else:
+        with pytest.raises(ValueError, match="built for D"):
+            flash_attention.check_head_dim(d)
 
 
 def test_flash_matches_model_attention_path():
@@ -224,6 +237,51 @@ def test_mqr_sparse_attention_group_reads_kv_row_r_over_group(dtype, group, pos)
     want = ref_ops.mqr_sparse_attention(jq, jnp.repeat(jk, group, 0), jnp.repeat(jv, group, 0),
                                         jnp.asarray(ids), jnp.asarray(pos, jnp.int32))
     _close(got, want, SPARSE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("group,d", [(8, 256), (2, 128)])
+def test_mqr_sparse_attention_group_at_model_head_dims(dtype, group, d):
+    """gemma-2b's shape (group 8, head dim 256) and internvl2's (group 2,
+    head dim 128): the plain version reading kv row r // group, with
+    repeated and shared ids, against the Pallas kernel in interpret mode on
+    the kv rows repeated ``group`` times."""
+    bh_kv, nb, bs, k = 2, 8, 128, 4
+    bh = bh_kv * group
+    rng = np.random.default_rng(group * d)
+    ids = np.stack([rng.permutation(nb)[:k] for _ in range(bh)]).astype(np.int32)
+    ids[group - 1] = ids[0]  # two heads of a group with the same ids
+    ids[1, 1] = ids[1, 0]  # a block selected twice by one head
+    pos = 5 * bs + 17
+    (jk, tk), (jv, tv) = (_both(_normal(d + i, (bh_kv, nb, bs, d)), dtype) for i in (0, 1))
+    jq, tq = _both(_normal(d + 2, (bh, d)), dtype)
+    got = ops.mqr_sparse_attention(tq, tk, tv, torch.from_numpy(ids), pos, group=group)
+    assert got.dtype == tq.dtype and got.shape == (bh, d)
+    want = ref_ops.mqr_sparse_attention(jq, jnp.repeat(jk, group, 0), jnp.repeat(jv, group, 0),
+                                        jnp.asarray(ids), jnp.asarray(pos, jnp.int32))
+    _close(got, want, SPARSE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,d,nb,ok", [
+    ("bfloat16", 64, 256, True), ("bfloat16", 256, 256, True), ("bfloat16", 8, 1, True),
+    ("float32", 4, 65_536, True), ("float32", 256, 256, True), ("bfloat16", 264, 256, False),
+    ("bfloat16", 12, 256, False), ("float32", 6, 256, False), ("float32", 512, 256, False),
+    ("bfloat16", 0, 256, False), ("bfloat16", 64, 65_537, False)])
+def test_mqr_sparse_attention_shapes_of_the_card_kernel(dtype, d, nb, ok):
+    """The card's kernel takes D a multiple of 16 bytes' worth of elements up
+    to 256 and at most 65,536 blocks a kv row; any other shape raises
+    ``ValueError`` before a launch (the CPU's plain version takes any)."""
+    td = DTYPES[dtype][1]
+    if ok:
+        mqr_sparse_attention.check_kernel_shape(d, nb, td)
+    else:
+        with pytest.raises(ValueError, match="the kernel takes"):
+            mqr_sparse_attention.check_kernel_shape(d, nb, td)
+    if d:
+        q = torch.zeros((2, d), dtype=td)
+        kb = torch.zeros((2, 1, 4, d), dtype=td)
+        ids = torch.zeros((2, 1), dtype=torch.int32)
+        assert ops.mqr_sparse_attention(q, kb, kb, ids, 3).shape == (2, d)
 
 
 def test_mqr_sparse_attention_checks_group():

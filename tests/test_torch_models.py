@@ -478,6 +478,37 @@ def test_decode_bf16_and_sparse_gates_within_and_between_packages():
     assert max_err(sparse, ref_dense) < 0.25
 
 
+# gemma-2b's attention shape at a small size: 2 layers, d_model 512, 2 query
+# heads of head dim 256 over 1 kv head (kernels #8 and #9 at D 256 on the card)
+HD256 = dict(dtype="float32", n_layers=2, d_model=512, n_heads=2, n_kv_heads=1, head_dim=256,
+             mqr_block=16, mqr_topk=2)
+
+
+def test_head_dim_256_model_prefill_matches_reference():
+    """forward_hidden, logits and prefill of the head-dim-256 model."""
+    ref_cfg, cfg = cfg_pair("gemma_2b", **HD256)
+    ref_p, p = params_pair(ref_cfg, cfg)
+    batch = _batch(ref_cfg, 2, 48, seed=12)
+    x, pos, _ = ref_T.embed_inputs(ref_p, ref_cfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    logits = ref_T.logits_fn(ref_p, ref_cfg, ref_T.forward_hidden(ref_p, ref_cfg, x, pos)[0])
+    px, ppos, _ = T.embed_inputs(p, cfg, {k: t(v) for k, v in batch.items()})
+    close32(T.logits_fn(p, cfg, T.forward_hidden(p, cfg, px, ppos)[0]), logits)
+    close32(T.prefill(p, cfg, {k: t(v) for k, v in batch.items()}), logits[:, -1:])
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_head_dim_256_model_decode_matches_reference(sparse):
+    """Teacher-forced decode of the head-dim-256 model, dense and mqr-KV
+    sparse (top-K 2 of up to 4 blocks of 16: #9's plain version with group
+    2 at D 256), every step's logits and the caches."""
+    got, want, c, ref_c, _ = _decode_pair("gemma_2b", "float32", b=2, s=64, sparse=sparse,
+                                          **{k: v for k, v in HD256.items() if k != "dtype"})
+    close32(got, want)
+    for i, layer in enumerate(c["all"]):
+        close_layer_cache("attn", layer["l0"],
+                          jax.tree.map(lambda a, i=i: a[i], ref_c["all"]["l0"]), (ATOL, RTOL))
+
+
 def test_unported_mixers_raise_not_implemented():
     """Every mixer and FFN of the ten configs is ported; what is left is
     training, which raises naming ROADMAP A4, and a mixer kind no config
