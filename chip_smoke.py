@@ -215,6 +215,18 @@ it and read just after):
      streamed through decode steps on a float32 model drawn from the seed
      (DeepSeek's first layer alone), and there MLA's sparse decode with
      top-K = every block within 0.05 of dense; peak device memory;
+     training (``train_phase``, after the card is freed and its peak
+     statistics reset): llama3.2-1B at full width, bf16, remat "full", 10
+     steps of ``launch.steps.make_train_step`` on ``SyntheticLM`` batches
+     of B 8 x S 1024 (finite losses, the last below the first; #8 forward
+     32, #8 backward 16, #10 forward 65 and #10 backward 33 launches a
+     step; no plain version), step ms, tokens/s and peak memory; a
+     ``CheckpointManager`` save at step 5 restored bit for bit into fresh
+     parameters and state and steps 5-9 resumed within 1e-5 of the
+     uninterrupted losses; one EF-int8 step; a float32 2-layer copy at
+     full width stepped on the card and on the CPU from the same
+     parameters and batch (loss and grad norm within 1e-4 relative, each
+     gradient within the float32 row-scaled limit);
  19. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
@@ -245,7 +257,14 @@ it and read just after):
      kernels in launch order) and its launches a level; #9 also as the
      model calls it (``group`` 4, the model's ids; its bound counts each
      distinct (kv row, block) once), and #8-#10's launches are those of
-     phases 17 and 18;
+     phases 17 and 18; the backward kernels of #8 and #10 against autograd
+     of their plain versions (``grad_kernel_checks``: #8 at (256, 1024,
+     64), D 128, S 320 and 200 in both types, its limit rejecting dk and
+     dv with a block of keys left out, the forward's log-sum-exp against
+     ``torch.logsumexp``, D 256 refused; #10 at (8192, 2048), d 2050 and
+     off alignment; each twice, bit-equal), timed beside their bounds and
+     the backward of SDPA and ``F.rms_norm``, their launches those of the
+     training phase;
  20. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
      memory, and a torch.profiler trace of one call per path (region
@@ -267,6 +286,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import multiprocessing
 import statistics
 import shutil
@@ -518,14 +538,19 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def worst_over_limit(got: torch.Tensor, want: torch.Tensor, rtol: float,
-                     row_rms: float) -> float:
+                     row_rms: float, floor: float = 0.0) -> float:
     """Largest ``|got - want| / (rtol |want| + row_rms * RMS of want's row)``
     over every entry; a check passes at 1 or below.  The limit follows the
     output's own scale, row by row: attention rows over many keys are small,
-    and a fixed absolute limit would be as large as they are.  NaN (an
+    and a fixed absolute limit would be as large as they are.  A row's RMS
+    is taken no smaller than ``floor`` x the RMS of all of ``want``: a
+    gradient row can cancel to zero (dq of the first query, whose one key
+    has p = 1), while its error follows the scale of its terms.  NaN (an
     empty row, or a non-finite entry) fails."""
     got, want = got.float(), want.float()
     rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    if floor:
+        rms = rms.clamp(min=floor * float(want.pow(2).mean().sqrt()))
     ratio = (got - want).abs() / (rtol * want.abs() + row_rms * rms)
     return float(ratio.max()) if ratio.isfinite().all() else float("nan")
 
@@ -1338,15 +1363,19 @@ PR16_BUILD_MS = 152.93   # 32 unbatched index builds of one decode step (PERF.md
 
 @contextlib.contextmanager
 def plain_attention_calls():
-    """Counts the calls of the plain versions of #8-#10 (looked up through
-    their modules, as their wrappers call them) made while the block runs:
-    yields a dict name -> calls."""
+    """Counts the calls of the plain versions of #8-#10 and of the backward
+    kernels of #8 and #10 (looked up through their modules, as their
+    wrappers call them) made while the block runs: yields a dict name ->
+    calls."""
     from repro_torch.kernels import flash_attention, mqr_sparse_attention, rmsnorm
 
     calls: dict[str, int] = {}
     saved = []
     for mod, name in ((rmsnorm, "rmsnorm_torch"), (flash_attention, "flash_attention_torch"),
-                      (mqr_sparse_attention, "mqr_sparse_attention_torch")):
+                      (mqr_sparse_attention, "mqr_sparse_attention_torch"),
+                      (flash_attention, "flash_attention_lse_torch"),
+                      (flash_attention, "flash_attention_bwd_torch"),
+                      (rmsnorm, "rmsnorm_bwd_torch")):
         plain = getattr(mod, name)
 
         def counted(*args, _plain=plain, _name=name, **kwargs):
@@ -1650,8 +1679,9 @@ FAMILY_PREFILL_GATE = 1e-2  # |prefill - streamed decode| last logits, float32 c
 MOE_GATE = (2e-2, 2e-2)     # bf16: |a - b| <= atol + rtol |b| (the reference's parity gate)
 
 
-def busy_share(fn) -> tuple[float, float]:
-    """One traced call of ``fn()``: (host window ms, device busy ms); the
+def busy_share(fn) -> tuple[float, float, list]:
+    """One traced call of ``fn()`` after a warm-up: (host window ms, device
+    busy ms, the device's kernels as (ms, count, name), largest first); the
     idle share is 1 - busy / window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -1664,12 +1694,15 @@ def busy_share(fn) -> tuple[float, float]:
         fn()
         sync()
         window = (time.perf_counter() - t) * 1e3
-    busy = 0.0
+    rows = []
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
-            busy += getattr(evt, "self_device_time_total", None) or getattr(
+            us = getattr(evt, "self_device_time_total", None) or getattr(
                 evt, "self_cuda_time_total", 0)
-    return window, busy / 1e3
+            if us > 0:
+                rows.append((us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return window, sum(r[0] for r in rows), rows
 
 
 def free_card():
@@ -1877,7 +1910,7 @@ def families_phase(args, checks, dev, card, paths, sparse_inputs=None) -> dict:
                 vb=v0.view(bd * hkv, nb, cfg.mqr_block, dh), ids=rec["ids"], pos=pos,
                 group=cfg.n_heads // hkv)
             del seen, rec
-        r["dense_window_ms"], r["dense_busy_ms"] = busy_share(lambda: step(False))
+        r["dense_window_ms"], r["dense_busy_ms"], _ = busy_share(lambda: step(False))
         r["idle_share"] = max(0.0, 1 - r["dense_busy_ms"] / r["dense_window_ms"])
         print(f"  {arch} decode step, B {bd}, {s_len:,}-token caches, pos {pos} (median of "
               f"{REPEATS}, host clock to a synchronize): dense {r['dense_step_ms']:.2f} ms"
@@ -1996,6 +2029,425 @@ def families_phase(args, checks, dev, card, paths, sparse_inputs=None) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"  the phase took {res['phase_s']:.1f} s", flush=True)
     return res
+
+
+TRAIN_STEPS = 10      # steps of the full-width run
+TRAIN_SAVE_AT = 5     # the checkpoint the resume starts from
+TRAIN_LR = 1e-3       # launch/train.py's default
+TRAIN_RESUME_RTOL = 1e-5
+PARITY_LAYERS, PARITY_S = 2, 256  # the float32 card-vs-CPU step
+
+
+def train_step_counts(cfg) -> dict:
+    """Launches of #8 and #10, forward and backward, in one bf16 train step
+    of an attention-only model under remat="full": the forward runs each
+    superblock twice (once, then again in the backward), the final norm
+    once."""
+    layers = cfg.n_layers
+    return {"flash_attention_bf16": 2 * layers, "flash_attention_bwd_bf16": layers,
+            "rmsnorm_bf16": 2 * (2 * layers) + 1, "rmsnorm_bwd_bf16": 2 * layers + 1}
+
+
+# kernel-name fragments of a train step's device time, by part (the rest
+# is elementwise, reductions and copies)
+TRAIN_PARTS = (("#8 backward", ("flash_bwd",)), ("#8 forward", ("flash_bf16", "flash_f32")),
+               ("#10 backward", ("rmsnorm_bwd",)), ("#10 forward", ("rmsnorm",)),
+               ("matrix products", ("gemm", "xmma", "cutlass", "nvjet")))
+
+
+def profile_train_step(fn) -> dict:
+    """One traced train step ``fn()`` (:func:`busy_share`): the host window,
+    the device's busy time and idle share, the device time of each part of
+    ``TRAIN_PARTS`` and the rest, and the ten largest kernels."""
+    window, busy, rows = busy_share(fn)
+    parts = {name: 0.0 for name, _ in TRAIN_PARTS}
+    parts["elementwise, reductions, copies"] = 0.0
+    for ms, _, key in rows:
+        part = next((name for name, frags in TRAIN_PARTS if any(f in key for f in frags)),
+                    "elementwise, reductions, copies")
+        parts[part] += ms
+    print(f"  one traced train step: host window {window:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {max(0.0, 1 - busy / window):.3f}; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()), flush=True)
+    for ms, count, key in rows[:10]:
+        print(f"    {ms:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return dict(window_ms=window, busy_ms=busy, parts_ms=parts)
+
+
+def train_launches(paths) -> dict:
+    """Launch counts summed over the training phase's runs (``train ...``
+    paths): the ``launches`` of the backward kernels' rows."""
+    out: dict = {}
+    for path, counts in paths.items():
+        if path.startswith("train "):
+            for k, n in counts.items():
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def train_phase(args, checks, dev, card, paths) -> dict:
+    """llama3.2-1B at full width trains on the card (bf16, remat "full"):
+    ``TRAIN_STEPS`` steps of ``launch.steps.make_train_step`` on
+    ``SyntheticLM`` batches of B 8 x S 1024 (finite losses, the last below
+    the first, #8 and #10 forward and backward launched the counted number
+    of times a step, no plain version), a save at step ``TRAIN_SAVE_AT``
+    through ``CheckpointManager`` restored bit for bit into fresh
+    parameters and state, the steps after it repeated within
+    ``TRAIN_RESUME_RTOL``, one EF-int8 step; then one float32 step of a
+    2-layer copy at full width on the card and on the CPU from the same
+    parameters and batch (loss and grad norm within 1e-4 relative, each
+    gradient within the §6 float32 row-scaled limit).  Launch counts land
+    in ``paths``."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as T
+    from repro_torch.models.modules import count_params, tree_leaves, tree_map
+    from repro_torch.optim import AdamWConfig, ef_int8_state, init_state
+
+    res: dict = {}
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # what earlier phases still hold
+    cfg = registry.get_config(LLM_ARCH)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 5 + 1),
+                          total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B, seed=args.seed))
+    batches = [to_device(data.batch(i), dev) for i in range(TRAIN_STEPS)]
+    params = T.init_params(args.seed, cfg, device=dev)
+    state = init_state(params, opt_cfg)
+    n_params = count_params(params)
+    print(f"  {LLM_ARCH}: {n_params:,} parameters ({cfg.dtype}), remat {cfg.remat} "
+          f"({cfg.remat_policy}); B {TRAIN_B} x S {TRAIN_S}, AdamW lr {TRAIN_LR}", flush=True)
+    step = step_lib.make_train_step(cfg, opt_cfg)
+    want_counts = train_step_counts(cfg)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    free_gb = shutil.disk_usage(tmp.name).free / 1e9
+    print(f"  checkpoint directory {tmp.name}: {free_gb:.1f} GB free", flush=True)
+    mgr = CheckpointManager(tmp.name, keep=1)
+
+    def snapshot():  # on the host, so the card's peak memory is the training's own
+        return [t.detach().to("cpu", copy=True) for t in tree_leaves(params) + [state.step]
+                + tree_leaves(state.m) + tree_leaves(state.v)]
+
+    losses, times, saved = [], [], None
+    with plain_attention_calls() as plain:
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_SAVE_AT:
+                saved = snapshot()
+                t = time.perf_counter()
+                mgr.save(i, {"params": params, "opt": state}, {"loss": losses[-1]})
+                res["save_handoff_s"] = time.perf_counter() - t
+            sync()
+            _lib.counters.reset()
+            t = time.perf_counter()
+            params, state, metrics = step(params, state, batches[i])
+            loss = float(metrics["loss"])
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            counts = paths[f"train step {i}"] = _lib.counters.snapshot()
+            losses.append(loss)
+            got = {k: counts.get(k, 0) for k in want_counts}
+            checks.expect(got == want_counts and math.isfinite(loss),
+                          f"train step {i}: loss {loss:.6f} finite; launches {got} "
+                          f"(expected {want_counts})")
+            print(f"  train step {i}: {times[-1]:.1f} ms, grad norm "
+                  f"{float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.3e}", flush=True)
+    t = time.perf_counter()
+    mgr.wait()
+    res["save_write_s"] = time.perf_counter() - t
+    checks.expect(not plain, f"no plain version of #8 or #10 called in training ({plain})")
+    checks.expect(losses[-1] < losses[0],
+                  f"the loss falls over {TRAIN_STEPS} steps: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    steady = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    res.update(losses=losses, step_ms=steady, first_step_ms=times[0],
+               tokens_per_s=TRAIN_B * TRAIN_S / steady * 1e3, peak_gib=peak - held,
+               held_gib=held, params=n_params)
+    print(f"  train: step {steady:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; first "
+          f"{times[0]:.1f} ms), {res['tokens_per_s']:,.0f} tokens/s, peak {peak - held:.2f} "
+          f"GiB above the {held:.2f} GiB earlier phases still hold ({card})", flush=True)
+
+    # -- resume from the checkpoint ---------------------------------------
+    del state, metrics, params
+    free_card()
+    fresh = T.init_params(args.seed + 1, cfg, device=dev)
+    t = time.perf_counter()
+    back = mgr.restore(TRAIN_SAVE_AT, {"params": fresh, "opt": init_state(fresh, opt_cfg)})
+    sync()
+    res["restore_s"] = time.perf_counter() - t
+    del fresh
+    params, state = back["params"], back["opt"]
+    del back
+    restored = tree_leaves(params) + [state.step] + tree_leaves(state.m) + tree_leaves(state.v)
+    same_all = len(restored) == len(saved) and all(
+        a.dtype == b.dtype and torch.equal(a.cpu(), b) for a, b in zip(restored, saved))
+    checks.expect(same_all, f"checkpoint of step {TRAIN_SAVE_AT}: {len(restored)} restored "
+                            f"tensors bit-equal to the saved ones (save handoff "
+                            f"{res['save_handoff_s']:.1f} s, write {res['save_write_s']:.1f} s "
+                            f"after it, restore {res['restore_s']:.1f} s)")
+    del saved, restored
+    free_card()
+    resumed = []
+    with plain_attention_calls() as plain:
+        for i in range(TRAIN_SAVE_AT, TRAIN_STEPS):
+            sync()
+            _lib.counters.reset()
+            params, state, metrics = step(params, state, batches[i])
+            resumed.append(float(metrics["loss"]))
+            paths[f"train resumed step {i}"] = _lib.counters.snapshot()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[TRAIN_SAVE_AT:]))
+    checks.expect(rel <= TRAIN_RESUME_RTOL and not plain,
+                  f"steps {TRAIN_SAVE_AT}-{TRAIN_STEPS - 1} resumed from the checkpoint repeat "
+                  f"the uninterrupted losses (worst relative difference {rel:.3g}, limit "
+                  f"{TRAIN_RESUME_RTOL:g})")
+    res["resume_rel"] = rel
+    tmp.cleanup()
+
+    # -- one EF-int8 step -------------------------------------------------
+    ef = ef_int8_state(params)
+    cstep = step_lib.make_train_step(cfg, opt_cfg, grad_compress=True)
+    sync()
+    _lib.counters.reset()
+    t = time.perf_counter()
+    params, state, ef, metrics = cstep(params, state, batches[0], ef)
+    loss = float(metrics["loss"])
+    sync()
+    res["compress_step_ms"] = (time.perf_counter() - t) * 1e3
+    counts = paths["train step grad_compress"] = _lib.counters.snapshot()
+    checks.expect(math.isfinite(loss) and math.isfinite(float(metrics["grad_norm"]))
+                  and all(counts.get(k, 0) == n for k, n in want_counts.items()),
+                  f"a grad_compress=True (EF-int8) step: loss {loss:.6f}, "
+                  f"{res['compress_step_ms']:.1f} ms")
+    res["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2**30 - held
+    del ef
+    res["profile"] = profile_train_step(lambda: step(params, state, batches[1]))
+    del params, state, metrics, batches
+    free_card()
+
+    # -- a float32 step on the card against the CPU -----------------------
+    pcfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS, dtype="float32")
+    cpu_p = T.init_params(args.seed, pcfg, device="cpu")
+    card_p = tree_map(lambda t: t.detach().to(dev, copy=True), cpu_p)
+    b_cpu = to_device(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=PARITY_S,
+                                             global_batch=1, seed=args.seed)).batch(0), "cpu")
+    b_card = {k: v.to(dev) for k, v in b_cpu.items()}
+
+    def loss_and_grads(p, b):
+        leaves = tree_leaves(p)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        loss, _ = T.loss_and_aux(p, pcfg, b)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)  # the mqr-KV probes: None
+        return loss.detach(), [g for g in grads if g is not None]
+
+    _lib.counters.reset()
+    with plain_attention_calls() as plain:
+        l_card, g_card = loss_and_grads(card_p, b_card)
+        sync()
+    paths["train parity float32"] = _lib.counters.snapshot()
+    t = time.perf_counter()
+    l_cpu, g_cpu = loss_and_grads(cpu_p, b_cpu)
+    res["parity_cpu_s"] = time.perf_counter() - t
+    worst = max(worst_over_limit(a.cpu(), b, *GRAD_TOL[torch.float32], GRAD_FLOOR)
+                for a, b in zip(g_card, g_cpu))
+    n_card = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in g_card)))
+    n_cpu = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g_cpu)))
+    l_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    n_rel = abs(n_card - n_cpu) / n_cpu
+    checks.expect(l_rel <= 1e-4 and n_rel <= 1e-4 and worst <= 1.0 and not plain,
+                  f"float32 {PARITY_LAYERS}-layer step at full width, B 1 x S {PARITY_S}, card "
+                  f"vs CPU: loss {float(l_card):.6f} vs {float(l_cpu):.6f} (rel {l_rel:.2g}), "
+                  f"grad norm rel {n_rel:.2g}, every gradient within (1e-4, 1e-4) row-scaled "
+                  f"(worst error / limit {worst:.3g}), no plain version on the card "
+                  f"(CPU side {res['parity_cpu_s']:.1f} s)")
+    res.update(parity_loss_rel=l_rel, parity_norm_rel=n_rel, parity_worst=worst)
+    del cpu_p, card_p, g_card, g_cpu
+    free_card()
+    return res
+
+
+# llama3.2-1B's training shapes: B 8, S 1024, 32 query heads of 64 (#8's
+# backward over (256, 1024, 64)), 8,192 rows of 2,048 (#10's backward).
+TRAIN_B, TRAIN_S = 8, 1024
+# the row-scaled limits of the forward kernels (PERF.md §6), per dtype; a
+# gradient row's RMS is floored at GRAD_FLOOR x its tensor's RMS
+GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}
+GRAD_FLOOR = 0.1
+FLASH_PEAK = {torch.float32: PEAK_OPS_PER_S, torch.bfloat16: 989e12}
+
+
+def grad_kernel_checks(checks, dev, seed: int, launches=None) -> list[dict]:
+    """The backward kernels of #8 and #10 (``ops.FlashAttention``,
+    ``ops.RMSNorm``) against autograd of their plain versions on the card,
+    each gradient within :func:`worst_over_limit`'s limits (#8's must
+    reject dk and dv with one block of keys left out), deterministic (two
+    runs bit-equal); #8's forward with its log-sum-exp bit-equal to the
+    serving forward and its lse within 1e-4 (1 + |lse|) of
+    ``torch.logsumexp``.  Times each backward kernel at llama3.2-1B's
+    training shape beside its plain version, its bound and the backward of
+    the PyTorch call (SDPA, ``F.rms_norm``) through ``torch.autograd.grad``.
+    Returns the kernel rows for the ``{"kernels": [...]}`` line, with
+    ``launches`` (name -> count on the training path) filled in."""
+    from repro_torch.kernels import ops
+
+    launches = launches or {}
+    csrc = "src/repro_torch/kernels/csrc/"
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    rows: list[dict] = []
+
+    def rand(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def plain_grads(fn, inputs, dout):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+    def within(label, got, want, tol) -> float:
+        worst = max(worst_over_limit(g, w, *tol, GRAD_FLOOR) for g, w in zip(got, want))
+        checks.expect(all(g.shape == w.shape and g.dtype == w.dtype for g, w in zip(got, want))
+                      and worst <= 1.0,
+                      f"{label}: every gradient within {tol[0]} |plain| + {tol[1]} x the row's "
+                      f"RMS (floored at {GRAD_FLOOR} x the tensor's) of autograd of the plain "
+                      f"version (worst error / limit {worst:.3g})")
+        return worst
+
+    def row(name, source, kernel_fn, plain_fn, library_fn, nbytes, ops_count, peak, err):
+        ms, by = device_timing(kernel_fn)
+        window = time_ms(kernel_fn)
+        plain_ms, plain_by = device_timing(plain_fn)
+        lib_ms, lib_by = device_timing(library_fn)
+        b_ms, b_by = bound_ms(nbytes, ops_count, peak)
+        rows.append(dict(name=name, route="cuda", source=source, replaces=(
+            "none (the reference trains through jnp under jax.grad); the backward of "
+            + ("src/repro/kernels/flash_attention.py:86" if "flash" in name
+               else "src/repro/kernels/rmsnorm.py:33")),
+            launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            timed_by={"ms": by, "plain_ms": plain_by, "library_ms": lib_by}))
+        peak_s = f" at {peak / 1e12:g} TFLOP/s" if b_by == "operations" else ""
+        print(f"  {name}: {ms:.4f} ms on the device, {window:.4f} ms in one call's event "
+              f"window (plain {plain_ms:.4f} ms, library backward {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}{peak_s}; {launches.get(name, 0)} calls on the "
+              f"training path)", flush=True)
+
+    # -- #8: dq, dk, dv --------------------------------------------------
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [((TRAIN_B * 32, TRAIN_S, 64), True), ((16, TRAIN_S, 128), False),
+             ((3, 320, 64), False), ((2, 200, 64), False), ((2, 200, 128), False)]
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        tol = GRAD_TOL[dt]
+        for (bh, s_len, hd), timed in cases:
+            label = f"flash_attention_bwd_{tag} ({bh}, {s_len}, {hd})"
+            q, k, v, do = (rand((bh, s_len, hd), dt) for _ in range(4))
+            block = 128 if s_len % 128 == 0 else 8
+            out_serve = ops.flash_attention(q, k, v, block_q=block, block_k=block)
+            out, lse = ops.flash_attention_lse(q, k, v, block_q=block, block_k=block)
+            logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(hd)
+            causal = torch.ones((s_len, s_len), dtype=torch.bool, device=dev).tril()
+            want_lse = torch.logsumexp(torch.where(causal, logits, -1e30), dim=-1)
+            del logits, causal
+            lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
+            checks.expect(same(out, out_serve) and lse_err <= 1e-4,
+                          f"{label}: the forward with lse equals the serving forward bit for "
+                          f"bit; lse within 1e-4 (1 + |lse|) of torch.logsumexp ({lse_err:.3g})")
+            got = ops.flash_attention_bwd(q, k, v, lse, do)
+            again = ops.flash_attention_bwd(q, k, v, lse, do)
+            checks.expect(all(same(a, b) for a, b in zip(got, again)),
+                          f"{label}: two runs bit-equal")
+            # bf16: autograd of the plain version on float32 copies of the
+            # same inputs, cast to bf16.  Autograd of the bf16 plain version
+            # rounds dO.V^T to bf16 (the backward of its cast of p), an
+            # error of |dO.V^T| / 256 that stays in rows whose dS cancels
+            # (rows over few keys); the kernel keeps dS in float32.
+            want = [g.to(dt) for g in plain_grads(
+                ops.flash_attention_torch, (q.float(), k.float(), v.float()), do.float())]
+            within(label, got, want, tol)
+            cut = (got[0], got[1].clone(), got[2].clone())
+            cut[1][:, 64:128] = 0  # dk and dv of the keys 64..127 left out
+            cut[2][:, 64:128] = 0
+            bad = max(worst_over_limit(g, w, *tol, GRAD_FLOOR) for g, w in zip(cut, want))
+            checks.expect(bad > 1.0, f"{label}: that limit rejects dk and dv with the keys "
+                                     f"64..127 left out (worst error / limit {bad:.3g})")
+            err = max(max_abs_err(g, w) for g, w in zip(got, want))
+            del again, cut, want, want_lse
+            if timed:
+                es = q.element_size()
+                q4, k4, v4 = (t[None].detach().clone().requires_grad_() for t in (q, k, v))
+                out4 = sdpa(q4, k4, v4, is_causal=True)
+                do4 = do[None]
+                row(f"flash_attention_bwd_{tag}", csrc + "flash_attention_bwd.cu",
+                    lambda: ops.flash_attention_bwd(q, k, v, lse, do),
+                    lambda: ops.flash_attention_bwd_torch(q, k, v, lse, do),
+                    lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True),
+                    # q, k, v, dO read and dq, dk, dv written once; lse read
+                    nbytes=7 * bh * s_len * hd * es + 4 * bh * s_len,
+                    # five causal products of S (S + 1) / 2 pairs of D multiply-adds
+                    ops_count=5 * bh * s_len * (s_len + 1) * hd,
+                    peak=FLASH_PEAK[dt], err=err)
+                del q4, k4, v4, out4
+            del q, k, v, do, out, lse, got
+    # the backward refuses D 256 on the card
+    try:
+        x256 = rand((1, 128, 256), torch.bfloat16)
+        o256, l256 = ops.flash_attention_lse(x256, x256, x256)
+        ops.flash_attention_bwd(x256, x256, x256, l256, x256)
+        refused = False
+    except ValueError:
+        refused = True
+    checks.expect(refused, "flash_attention_bwd refuses D 256 with ValueError")
+
+    # -- #10: dx, dscale ---------------------------------------------------
+    d = 2048
+    w_main = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+
+    def rms_norm(*a, **kw):  # a float32 weight on bfloat16 rows warns on every call
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.nn.functional.rms_norm(*a, **kw)
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        tol = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 3e-2)}[dt]
+        buf = rand((4097 * 2050 + 1,), dt)
+        w2050 = 1.0 + 0.1 * torch.randn((2050,), generator=gen, device=dev)
+        main = (rand((TRAIN_B * TRAIN_S, d), dt), w_main)
+        for label, (x, w), timed in (
+                (f"rmsnorm_bwd_{tag} ({TRAIN_B * TRAIN_S}, {d})", main, True),
+                (f"rmsnorm_bwd_{tag} (4097, 2050)", (rand((4097, 2050), dt), w2050), False),
+                (f"rmsnorm_bwd_{tag} (1, 2050)", (rand((1, 2050), dt), w2050), False),
+                (f"rmsnorm_bwd_{tag} (4097, 2050) on a base one element off 16-byte alignment",
+                 (buf[1:].view(4097, 2050), w2050), False)):
+            dy = rand(tuple(x.shape), dt)
+            got = ops.rmsnorm_bwd(x, w, dy)
+            again = ops.rmsnorm_bwd(x, w, dy)
+            checks.expect(all(same(a, b) for a, b in zip(got, again)),
+                          f"{label}: two runs bit-equal")
+            want = plain_grads(lambda a, b: ops.rmsnorm_torch(a, b), (x, w), dy)
+            # dscale is a float32 sum over every row of float32 terms in
+            # both, in another order: a float32 limit in both types
+            within(label + " dx", got[:1], want[:1], tol)
+            within(label + " dscale", (got[1][None],), (want[1][None],), (1e-4, 1e-4))
+            err = max(max_abs_err(g, wv) for g, wv in zip(got, want))
+            if timed:
+                rows_, es = x.shape[0], x.element_size()
+                xl, wl = x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()
+                yl = rms_norm(xl, (d,), weight=wl, eps=1e-6)
+                row(f"rmsnorm_bwd_{tag}", csrc + "rmsnorm_bwd.cu",
+                    lambda: ops.rmsnorm_bwd(x, w, dy),
+                    lambda: ops.rmsnorm_bwd_torch(x, w, dy),
+                    lambda: torch.autograd.grad(yl, (xl, wl), dy, retain_graph=True),
+                    # x and dy read, dx written; scale read, dscale written
+                    nbytes=3 * rows_ * d * es + 2 * d * 4, ops_count=8 * rows_ * d,
+                    peak=PEAK_OPS_PER_S, err=err)
+                del xl, wl, yl
+            del got, again, want, dy
+    return rows
 
 
 class Checks:
@@ -3641,6 +4093,12 @@ def run(args, second) -> int:
                  "command-r-35b cut; full width)", lambda: families_out.update(
                      families_phase(args, checks, dev, card, paths, family_sparse)))
 
+    # -- training: llama3.2-1B at full width, #8 and #10 backward ------------
+    train_out = {}
+    checks.phase("training (llama3.2-1B, full width; checkpoint, resume, EF-int8, "
+                 "float32 against the CPU)", lambda: train_out.update(
+                     train_phase(args, checks, dev, card, paths)))
+
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
 
@@ -4158,6 +4616,9 @@ def run(args, second) -> int:
                          tol["mqr_sparse_attention"][dt])
 
     checks.phase("attention kernels vs plain versions", attention_kernel_phase)
+    checks.phase("backward kernels of #8 and #10 vs autograd of the plain versions",
+                 lambda: kernels.extend(grad_kernel_checks(checks, dev, args.seed,
+                                                           train_launches(paths))))
 
     # -- 9. end-to-end timings and profile -----------------------------
     def timings():
@@ -4327,6 +4788,7 @@ def run(args, second) -> int:
             "attend_all_ms", "dense_plain_ms", "sparse_vs_dense")},
         llm={f: v for f, v in llm_out.items() if isinstance(v, (int, float))},
         families=families_out,
+        train={f: v for f, v in train_out.items()},
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

@@ -1,11 +1,13 @@
-"""Snapshots and crash-consistent durability for the spatial index.
+"""Snapshots and crash-consistent durability for the spatial index, and
+checkpoints of training state.
 
-Counterpart of ``repro.checkpoint`` for the index: the snapshot format
-(:mod:`repro_torch.checkpoint.spatial`) and :class:`DurableIndex`
-(snapshot + mutation WAL).  The reference's ``CheckpointManager`` serves
-its training loop, which is not ported yet.
+Counterpart of ``repro.checkpoint``: the snapshot format
+(:mod:`repro_torch.checkpoint.spatial`), :class:`DurableIndex` (snapshot +
+mutation WAL) and :class:`CheckpointManager` (the training loop's npz
+checkpoints, ``launch/train.py``).
 """
 
+from .checkpoint import CheckpointManager
 from .durable import DurableIndex, MutationResult, live_ids, mutation_workload
 from .spatial import (
     FORMAT_VERSION,
@@ -16,6 +18,7 @@ from .spatial import (
 )
 
 __all__ = [
+    "CheckpointManager",
     "DurableIndex",
     "MutationResult",
     "live_ids",

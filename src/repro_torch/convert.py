@@ -9,7 +9,9 @@ included — can be swept by the port.  :func:`kvindex_from_numpy` and
 :func:`inc_kvindex_from_numpy` do the same for the reference's ``KVIndex``
 and ``IncKVIndex``, group pyramid included, so block selection can be held
 to the reference on identical state.  :func:`params_from_numpy` turns a
-transformer's parameter pytree (numpy leaves) into the port's parameters.
+transformer's parameter pytree (numpy leaves) into the port's parameters,
+and :func:`opt_state_from_numpy` the reference's AdamW state into the
+port's.
 This module imports nothing of the JAX package.
 """
 
@@ -151,11 +153,15 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     other than the port's ``init_params`` would make raises."""
     from repro_torch.models.transformer import param_shapes
 
-    dev = resolve_device(device)
-    want = param_shapes(cfg)
+    return _unstack(tree, param_shapes(cfg), resolve_device(device), "params")
+
+
+def _unstack(tree, want: dict, dev, name: str) -> dict:
+    """A parameter-shaped pytree (numpy leaves, stacked as the reference's)
+    as the port's tree of ``want``'s (shape, dtype) leaves."""
     if not isinstance(tree, dict) or set(tree) != set(want):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
-        raise ValueError(f"params: keys {got}, the port's model wants {sorted(want)}")
+        raise ValueError(f"{name}: keys {got}, the port's model wants {sorted(want)}")
     out = {}
     for key, spec in want.items():
         if key in STACKED:
@@ -164,12 +170,41 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
             leaves = [np.asarray(v) for v in _flat(stacked)]
             if any(a.ndim == 0 or a.shape[0] != n for a in leaves):
                 what = "depths" if key == "mtp" else "superblocks"
-                raise ValueError(f"params/{key}: every leaf must stack {n} {what}")
-            out[key] = [_tree(_index(stacked, i), spec[i], dev, f"params/{key}[{i}]")
+                raise ValueError(f"{name}/{key}: every leaf must stack {n} {what}")
+            out[key] = [_tree(_index(stacked, i), spec[i], dev, f"{name}/{key}[{i}]")
                         for i in range(n)]
         else:
-            out[key] = _tree(tree[key], spec, dev, f"params/{key}")
+            out[key] = _tree(tree[key], spec, dev, f"{name}/{key}")
     return out
+
+
+def _retyped(want, dtype):
+    """``want``'s (shape, dtype) leaves with every dtype set to ``dtype``."""
+    if isinstance(want, dict):
+        return {k: _retyped(v, dtype) for k, v in want.items()}
+    if isinstance(want, list):
+        return [_retyped(v, dtype) for v in want]
+    return want[0], dtype
+
+
+def opt_state_from_numpy(state, cfg, device=None):
+    """The port's ``optim.AdamWState`` from the reference's ``AdamWState``
+    (``step``, ``m``, ``v``) with numpy leaves (``jax.tree.map(np.asarray,
+    state)``): ``m`` and ``v`` unstacked as :func:`params_from_numpy`
+    unstacks the parameters, in the moments' own dtype (float32 or
+    bfloat16, the reference's ``moments_dtype``); ``step`` a 0-d int32."""
+    from repro_torch.models.modules import DTYPES
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim.adamw import AdamWState
+
+    dev = resolve_device(device)
+    step, m, v = state
+    names = {np.asarray(a).dtype.name for a in _flat(m) + _flat(v)}
+    if len(names) != 1 or next(iter(names)) not in DTYPES:
+        raise TypeError(f"opt state moments: dtypes {sorted(names)}, want one of {sorted(DTYPES)}")
+    want = _retyped(param_shapes(cfg), DTYPES[names.pop()])
+    return AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                      m=_unstack(m, want, dev, "opt/m"), v=_unstack(v, want, dev, "opt/v"))
 
 
 def _flat(tree) -> list:

@@ -1,6 +1,7 @@
-"""Fault injection for the durability and serving paths (counterpart of
-``repro.ft``'s ``failures`` module; ``elastic`` and ``straggler`` serve the
-training loop, which is not ported yet)."""
+"""Fault injection and straggler monitoring (counterpart of ``repro.ft``):
+``failures`` serves the durability, serving and training paths,
+``straggler`` the training loop (``launch/train.py``).  ``elastic`` (mesh
+re-planning) is ROADMAP A4b."""
 
 from .failures import (  # noqa: F401
     KILL_SITES,
@@ -9,5 +10,7 @@ from .failures import (  # noqa: F401
     InjectedFailure,
     KillPoint,
 )
+from .straggler import StragglerEvent, StragglerMonitor  # noqa: F401
 
-__all__ = ["KILL_SITES", "FailureInjector", "FaultPlan", "InjectedFailure", "KillPoint"]
+__all__ = ["KILL_SITES", "FailureInjector", "FaultPlan", "InjectedFailure", "KillPoint",
+           "StragglerEvent", "StragglerMonitor"]

@@ -15,8 +15,10 @@ where it launches its kernel and nowhere else.  A sweep with uint16
 parent slots is also counted under its own ``..._u16p`` name, so a run
 can show that the uint16-parent instantiation ran; a symmetric (self-join)
 pair sweep is also counted under ``pair_sweep_sym``.  The attention and norm
-kernels (#8-#10) are also counted per element type (``flash_attention_bf16``
-and so on).
+kernels (#8-#10) and the backward kernels of #8 and #10
+(``flash_attention_bwd``, ``rmsnorm_bwd``: one count a call, which is two
+launches) are also counted per element type (``flash_attention_bf16`` and
+so on).
 """
 
 from __future__ import annotations
@@ -65,7 +67,11 @@ _SIGNATURES = {
     "repro_mqr_sparse_attention_workspace": (_LL, [_LL, _I, _I, _I, _I, _I, _I]),
     "repro_mqr_sparse_attention": (_I, [_P, _P, _P, _P, _P, _LL, _P, _P, _LL, _I, _I, _I, _I,
                                         _I, _I, _F, _P]),
-    "repro_flash_attention": (_I, [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P]),
+    "repro_flash_attention": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P]),
+    "repro_flash_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F,
+                                       _P]),
+    "repro_rmsnorm_bwd_blocks": (_LL, [_LL]),
+    "repro_rmsnorm_bwd": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P]),
 }
 
 # Element types that cross the C interface as a code (``ReproDtype`` in

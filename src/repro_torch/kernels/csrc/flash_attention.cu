@@ -6,6 +6,9 @@
 // reference's finite mask value -1e30 and its running max starting there;
 // p rounded to v's type before P.V, as the reference casts it; the output
 // is acc / max(l, 1e-30) in q's type.  D is 64, 128 or 256; any S.
+// Optionally (training) it also stores each row's log-sum-exp m + log(l),
+// float32 (BH, S), for the backward kernels of flash_attention_bwd.cu; a
+// null pointer (serving) stores nothing.
 //
 // What bounds it on an H100: operations.  The causal QK^T and P.V products
 // are about 2*BH*S^2*D FLOPs against 4*BH*S*D elements of q, k, v and out.
@@ -66,8 +69,8 @@
 //   __syncwarp.
 // Not yet: a persistent grid with a tile scheduler (the block start-up and
 // the last wave are not overlapped), TMA stores of the output, skipping the
-// key tiles that are wholly masked for one warpgroup, fp8, and the backward
-// pass (the reference has none).
+// key tiles that are wholly masked for one warpgroup, and fp8.  The backward
+// pass is flash_attention_bwd.cu (the reference has none).
 #include "common.cuh"
 
 #include <type_traits>
@@ -297,8 +300,8 @@ struct Cfg {
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     flash_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int nbh,
-               int s, float scale) {
+               const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+               float* __restrict__ lse, int nbh, int s, float scale) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -548,6 +551,11 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   for (int g = 0; g < C::SLABS; ++g) fence_regs(o[g]);
 
   const float L0 = fmaxf(l0, 1e-30f), L1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && (lane & 3) == 0) {  // the quad's lanes share the rows' m and l
+    float* lb = lse + (long long)bh * s;
+    if (row0 >= 0 && row0 < s) lb[row0] = m0 + logf(L0);
+    if (row0 + 8 >= 0 && row0 + 8 < s) lb[row0 + 8] = m1 + logf(L1);
+  }
   __nv_bfloat16* ob = out + (long long)bh * s * D;
 #pragma unroll
   for (int g = 0; g < C::SLABS; ++g)
@@ -604,8 +612,8 @@ int make_map(CUtensorMap* map, const void* base, long long bh, int s, int d, int
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, long long bh, int s,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, long long bh,
+           int s, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   const long long blocks = (long long)((s + C::BM - 1) / C::BM) * bh;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -618,7 +626,7 @@ int launch(const void* q, const void* k, const void* v, void* out, long long bh,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   flash_bf16<D><<<(unsigned int)blocks, C::THREADS, C::SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, (int)bh, s, scale);
+      mq, mk, mv, (__nv_bfloat16*)out, lse, (int)bh, s, scale);
   REPRO_LAUNCH_CHECK();
   return 0;
 }
@@ -696,8 +704,8 @@ __device__ __forceinline__ void ld_f4(float (&r)[N], const float* p, int stride)
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, long long nbh, int s,
-              float scale) {
+              const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+              long long nbh, int s, float scale) {
   using C = Cfg<D>;
   constexpr int BM = C::BM, RM = C::RM, TX = C::TX, TY = C::TY, KPT = C::KPT, CPT = C::CPT;
   extern __shared__ __align__(16) float sm[];
@@ -882,6 +890,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int row = q0 + row_of(i);
     if (row >= s) continue;
     const float L = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[bh * s + row] = m[i] + logf(L);  // the row's TX lanes agree
 #pragma unroll
     for (int h = 0; h < CPT / 4; ++h)
       *reinterpret_cast<float4*>(ob + (long long)row * D + 4 * TX * h + tx * 4) =
@@ -891,15 +900,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, long long bh, int s,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, long long bh,
+           int s, float scale, cudaStream_t stream) {
   const long long blocks = (long long)((s + Cfg<D>::BM - 1) / Cfg<D>::BM) * bh;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(flash_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
   flash_f32<D><<<(unsigned int)blocks, THREADS, Cfg<D>::SMEM, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, bh, s, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, bh, s, scale);
   REPRO_LAUNCH_CHECK();
   return 0;
 }
@@ -907,10 +916,10 @@ int launch(const void* q, const void* k, const void* v, void* out, long long bh,
 }  // namespace fp32
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, long long bh, int s,
-           int dtype, float scale, cudaStream_t stream) {
-  if (dtype == REPRO_BF16) return hop::launch<D>(q, k, v, out, bh, s, scale, stream);
-  if (dtype == REPRO_F32) return fp32::launch<D>(q, k, v, out, bh, s, scale, stream);
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, long long bh,
+           int s, int dtype, float scale, cudaStream_t stream) {
+  if (dtype == REPRO_BF16) return hop::launch<D>(q, k, v, out, lse, bh, s, scale, stream);
+  if (dtype == REPRO_F32) return fp32::launch<D>(q, k, v, out, lse, bh, s, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -919,15 +928,17 @@ int launch(const void* q, const void* k, const void* v, void* out, long long bh,
 extern "C" {
 
 // q, k, v, out: (bh, s, d), contiguous and 16-byte aligned, of dtype code
-// REPRO_F32 or REPRO_BF16; d is 64, 128 or 256.  Returns 0 or the CUDA error of
-// the launch (cudaErrorNotSupported if the driver has no tensor-map encoder).
-int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
+// REPRO_F32 or REPRO_BF16; d is 64, 128 or 256.  lse: (bh, s) float32, or
+// null to store no log-sum-exp.  Returns 0 or the CUDA error of the launch
+// (cudaErrorNotSupported if the driver has no tensor-map encoder).
+int repro_flash_attention(const void* q, const void* k, const void* v, void* out, void* lse,
                           long long bh, int s, int d, int dtype, float scale, void* stream) {
   if (bh == 0 || s == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64) return launch<64>(q, k, v, out, bh, s, dtype, scale, st);
-  if (d == 128) return launch<128>(q, k, v, out, bh, s, dtype, scale, st);
-  if (d == 256) return launch<256>(q, k, v, out, bh, s, dtype, scale, st);
+  float* l = (float*)lse;
+  if (d == 64) return launch<64>(q, k, v, out, l, bh, s, dtype, scale, st);
+  if (d == 128) return launch<128>(q, k, v, out, l, bh, s, dtype, scale, st);
+  if (d == 256) return launch<256>(q, k, v, out, l, bh, s, dtype, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,16 @@ cores in full float32 (no TF32): 8 x 8 register tiles of logits and
 outputs per thread (4 x 8 at D = 128, 4 x 16 at D = 256), Q and K
 transposed in shared memory for 16-byte reads, K/V tiles double-buffered
 with ``cp.async`` (one buffer each at D = 256, refilled as soon as read).
+
+Training goes through :class:`FlashAttention`, a ``torch.autograd.Function``:
+its forward launches the same kernel and also stores each row's
+log-sum-exp (:func:`flash_attention_lse`); its backward launches
+``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`: two launches,
+dQ with Di = rowsum(P o dP), then dK and dV; no atomics, so the result is
+the same on every run).  The backward takes D 64 and 128 on the card.  When
+no input needs a gradient (serving, ``torch.inference_mode()``), the
+Function launches exactly what :func:`flash_attention` launches.  On a CPU
+tensor each takes its plain version (``*_torch``).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ from . import _lib
 
 NEG_INF = -1e30  # the reference's finite mask value
 HEAD_DIMS = (64, 128, 256)  # the head dims the kernel is built for
+BWD_HEAD_DIMS = (64, 128)  # the head dims the backward kernel is built for
 
 
 def check_head_dim(d: int) -> None:
@@ -41,24 +52,70 @@ def check_head_dim(d: int) -> None:
         raise ValueError(f"the kernel is built for D in {HEAD_DIMS}, got {d}")
 
 
-def flash_attention_torch(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Plain version: q, k, v (BH, S, D) -> (BH, S, D); float32 logits and
-    softmax, p cast to v's dtype before P.V, output in q's dtype."""
+def check_bwd_head_dim(d: int) -> None:
+    """Raise ``ValueError`` for a head dim the card's backward kernel is not
+    built for (D 256 waits for a tiling that fits shared memory, ROADMAP)."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel is built for D in {BWD_HEAD_DIMS}, got {d}")
+
+
+def _masked_logits(q, k) -> torch.Tensor:
+    """float32 logits q.k^T / sqrt(D), -1e30 where key > query."""
     s, d = q.shape[1], q.shape[2]
     logits = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32))
     logits = logits * (1.0 / math.sqrt(d))
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    return torch.where(mask, logits, NEG_INF)
+
+
+def flash_attention_torch(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Plain version: q, k, v (BH, S, D) -> (BH, S, D); float32 logits and
+    softmax, p cast to v's dtype before P.V, output in q's dtype."""
     if causal:
-        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
-        logits = torch.where(mask, logits, NEG_INF)
+        logits = _masked_logits(q, k)
+    else:
+        logits = torch.einsum("bqd,bkd->bqk", q.to(torch.float32), k.to(torch.float32))
+        logits = logits * (1.0 / math.sqrt(q.shape[2]))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bqk,bkd->bqd", p.to(v.dtype).to(torch.float32), v.to(torch.float32))
     return out.to(q.dtype)
 
 
-def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """Causal attention over q, k, v (BH, S, D) float32 or bfloat16, kv
-    heads already broadcast -> (BH, S, D) in q's dtype.  S must be a
-    multiple of ``block_q`` and ``block_k``; on the card D is 64, 128 or 256."""
+def flash_attention_lse_torch(q, k, v):
+    """Plain version of :func:`flash_attention_lse`: the output of
+    :func:`flash_attention_torch` and each row's log-sum-exp m + log(l)
+    (BH, S) float32, as the kernel forms it from its running max m and sum
+    l."""
+    logits = _masked_logits(q, k)
+    m = logits.amax(dim=-1)
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    return flash_attention_torch(q, k, v), lse
+
+
+def flash_attention_bwd_torch(q, k, v, lse, dout):
+    """Plain version of :func:`flash_attention_bwd`: P recomputed from
+    ``lse``, dP = dO.V^T, Di = rowsum(P o dP), dS = P o (dP - Di); dV from
+    P rounded to v's dtype (the p the forward multiplied V by).  float32
+    math, gradients in q's dtype.  Di equals rowsum(dO o O) in exact
+    arithmetic; it is not taken from the forward's output, whose rounding
+    to bfloat16 would reach every dS of the row."""
+    f = torch.float32
+    scale = 1.0 / math.sqrt(q.shape[2])
+    qf, kf, vf, df = (t.to(f) for t in (q, k, v, dout))
+    s = q.shape[1]
+    keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    p = torch.where(keep, torch.exp(logits - lse[..., None]), 0.0)
+    dv = torch.einsum("bqk,bqd->bkd", p.to(v.dtype).to(f), df)
+    dp = torch.einsum("bqd,bkd->bqk", df, vf)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _check_qkv(q, k, v, block_q: int, block_k: int) -> int:
+    """Validate a forward call; returns q's dtype code."""
     code = _lib.dtype_code(q, "q")
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
@@ -69,20 +126,103 @@ def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128) -> torch
         raise ValueError(f"S = {s} must be a multiple of block_q = {block_q} "
                          f"and block_k = {block_k}")
     _lib.require_device({"k": k, "v": v}, q.device)
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    return code
+
+
+def _launch(q, k, v, code: int, lse) -> torch.Tensor:
+    """Kernel #8 on the card, storing each row's log-sum-exp into ``lse``
+    unless it is None."""
+    bh, s, d = q.shape
     check_head_dim(d)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _lib.require_aligned(t, name)
     out = torch.empty_like(q)
     if out.numel():
         rc = _lib.load().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d, code,
-            1.0 / math.sqrt(d), _lib.stream_of(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, s, d, code, 1.0 / math.sqrt(d),
+            _lib.stream_of(q),
         )
         _lib.check(rc, "flash_attention")
         _lib.counters.add("flash_attention")
         _lib.counters.add(f"flash_attention_{_lib.DTYPE_NAMES[q.dtype]}")
     return out
+
+
+def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Causal attention over q, k, v (BH, S, D) float32 or bfloat16, kv
+    heads already broadcast -> (BH, S, D) in q's dtype.  S must be a
+    multiple of ``block_q`` and ``block_k``; on the card D is 64, 128 or 256."""
+    code = _check_qkv(q, k, v, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v)
+    return _launch(q, k, v, code, None)
+
+
+def flash_attention_lse(q, k, v, *, block_q: int = 128, block_k: int = 128):
+    """:func:`flash_attention` and each row's log-sum-exp of the scaled,
+    masked logits -> (out, lse (BH, S) float32): the same kernel, which
+    also stores lse (the forward of :class:`FlashAttention`)."""
+    code = _check_qkv(q, k, v, block_q, block_k)
+    if q.device.type == "cpu":
+        return flash_attention_lse_torch(q, k, v)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, code, lse), lse
+
+
+def flash_attention_bwd(q, k, v, lse, dout):
+    """The backward of causal attention: q, k, v, the forward's ``lse``
+    and the output's gradient ``dout`` -> (dq, dk, dv) in q's dtype.  On
+    the card D is 64 or 128 (``ValueError`` otherwise)."""
+    code = _lib.dtype_code(q, "q")
+    if q.dim() != 3:
+        raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
+    bh, s, d = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        _lib.require(t, name, q.dtype, (bh, s, d))
+    _lib.require(lse, "lse", torch.float32, (bh, s))
+    _lib.require_device({"k": k, "v": v, "lse": lse, "dout": dout}, q.device)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_torch(q, k, v, lse, dout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
+    check_bwd_head_dim(d)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if dq.numel():
+        delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+        rc = _lib.load().repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            bh, s, d, code, 1.0 / math.sqrt(d), _lib.stream_of(q),
+        )
+        _lib.check(rc, "flash_attention_bwd")
+        _lib.counters.add("flash_attention_bwd")
+        _lib.counters.add(f"flash_attention_bwd_{_lib.DTYPE_NAMES[q.dtype]}")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal attention with a gradient, q, k, v (BH, S, D) as
+    :func:`flash_attention` takes them: the forward keeps q, k, v and the
+    rows' log-sum-exp, the backward runs :func:`flash_attention_bwd`.
+    Models call :meth:`call`, which is :func:`flash_attention` itself when
+    no gradient is wanted."""
+
+    @staticmethod
+    def call(q, k, v) -> torch.Tensor:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return FlashAttention.apply(q, k, v)
+        return flash_attention(q, k, v)
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_lse(q, k, v)
+        ctx.save_for_backward(q, k, v, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, lse, dout.contiguous())

@@ -18,7 +18,16 @@ from .build import build_levels_torch as build_levels_torch  # noqa: F401
 from .build import device_schedule as device_schedule  # noqa: F401
 from .build import hilbert_keys as hilbert_keys  # noqa: F401
 from .build import hilbert_permute as hilbert_permute  # noqa: F401
+from .flash_attention import FlashAttention as FlashAttention  # noqa: F401
 from .flash_attention import flash_attention as flash_attention  # noqa: F401
+from .flash_attention import flash_attention_bwd as flash_attention_bwd  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    flash_attention_bwd_torch as flash_attention_bwd_torch,
+)
+from .flash_attention import flash_attention_lse as flash_attention_lse  # noqa: F401
+from .flash_attention import (  # noqa: F401
+    flash_attention_lse_torch as flash_attention_lse_torch,
+)
 from .flash_attention import flash_attention_torch as flash_attention_torch  # noqa: F401
 from .join_scan import fused_join as fused_join  # noqa: F401
 from .join_scan import join_epilogue as join_epilogue  # noqa: F401
@@ -50,7 +59,10 @@ from .quantize import quantize_cm as quantize_cm  # noqa: F401
 from .quantize import quantize_cm_torch as quantize_cm_torch  # noqa: F401
 from .quantize import quantize_rows as quantize_rows  # noqa: F401
 from .quantize import quantize_schedule as quantize_schedule  # noqa: F401
+from .rmsnorm import RMSNorm as RMSNorm  # noqa: F401
 from .rmsnorm import rmsnorm as rmsnorm  # noqa: F401
+from .rmsnorm import rmsnorm_bwd as rmsnorm_bwd  # noqa: F401
+from .rmsnorm import rmsnorm_bwd_torch as rmsnorm_bwd_torch  # noqa: F401
 from .rmsnorm import rmsnorm_torch as rmsnorm_torch  # noqa: F401
 
 # The plain versions under the reference's oracle names (``repro.kernels.ops``

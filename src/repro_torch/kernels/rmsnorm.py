@@ -11,6 +11,12 @@ its share of ``scale`` in registers.  A row that cannot be read in 16-byte
 vectors (D not a multiple of 4 floats or 8 bfloat16, or a base off 16-byte
 alignment, which a contiguous view may have) takes a scalar path, so x
 needs no alignment.
+
+Training goes through :class:`RMSNorm`, a ``torch.autograd.Function``
+whose forward is :func:`rmsnorm` and whose backward launches
+``csrc/rmsnorm_bwd.cu`` (:func:`rmsnorm_bwd`: dx row by row, and dscale
+from per-block partial sums added in block order, so the same on every
+run).  On a CPU tensor each takes its plain version (``*_torch``).
 """
 
 from __future__ import annotations
@@ -53,3 +59,68 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
         _lib.counters.add("rmsnorm")
         _lib.counters.add(f"rmsnorm_{_lib.DTYPE_NAMES[x.dtype]}")
     return out
+
+
+def rmsnorm_bwd_torch(x, scale, dy, eps: float = 1e-6):
+    """Plain version of :func:`rmsnorm_bwd`: with r = rsqrt(mean(x^2) + eps)
+    and g = scale * dy, dx = r g - x r^3 mean(x g) and dscale = sum over
+    rows of dy x r, in float32; dx in x's dtype, dscale in scale's."""
+    xf, gf = x.to(torch.float32), dy.to(torch.float32)
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    g = scale.to(torch.float32) * gf
+    dx = r * g - xf * (r * r * r) * (xf * g).mean(dim=-1, keepdim=True)
+    dscale = (gf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
+    """The backward of :func:`rmsnorm`: x (..., D) and the output's gradient
+    ``dy`` (x's shape and dtype) -> (dx in x's dtype, dscale (D,) in
+    scale's dtype)."""
+    x_code = _lib.dtype_code(x, "x")
+    s_code = _lib.dtype_code(scale, "scale")
+    if x.dim() < 1:
+        raise ValueError("x must have at least one dimension")
+    d = x.shape[-1]
+    _lib.require(x, "x", x.dtype)
+    _lib.require(dy, "dy", x.dtype, tuple(x.shape))
+    _lib.require(scale, "scale", scale.dtype, (d,))
+    _lib.require_device({"scale": scale, "dy": dy}, x.device)
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_torch(x, scale, dy, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd runs on cuda or cpu, not {x.device}")
+    dx, dscale = torch.empty_like(x), torch.empty_like(scale)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return dx, dscale.zero_()
+    lib = _lib.load()
+    partial = torch.empty((lib.repro_rmsnorm_bwd_blocks(rows), d), dtype=torch.float32,
+                          device=x.device)
+    rc = lib.repro_rmsnorm_bwd(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+        partial.data_ptr(), rows, d, x_code, s_code, float(eps), _lib.stream_of(x),
+    )
+    _lib.check(rc, "rmsnorm_bwd")
+    _lib.counters.add("rmsnorm_bwd")
+    _lib.counters.add(f"rmsnorm_bwd_{_lib.DTYPE_NAMES[x.dtype]}")
+    return dx, dscale
+
+
+class RMSNorm(torch.autograd.Function):
+    """RMSNorm with a gradient: the forward is :func:`rmsnorm`, the backward
+    :func:`rmsnorm_bwd` (x is kept, r is recomputed from it).  With no
+    gradient wanted it launches the forward kernel alone and builds no
+    graph."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float = 1e-6):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        return dx, dscale, None

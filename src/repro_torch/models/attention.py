@@ -18,7 +18,9 @@ edges are the reference's: hidden (B, S, D); q (B, S, H, Dh); k, v
   past every real query, so causality masks them and the result is
   exact); the mqr-KV sparse decode runs kernel #9
   (``ops.mqr_sparse_attention``) with ``group = H / Hkv`` over the blocks
-  the batched index selected.  On a CPU tensor each takes its kernel's
+  the batched index selected.  In training #8 runs through
+  ``ops.FlashAttention``, whose backward is #8's backward kernel (D 64 and
+  128 on the card).  On a CPU tensor each takes its kernel's
   plain version.  Windowed attention, the banded local path and dense
   decode are plain torch on every device, as the reference computes them
   outside any kernel.  A head dim #8 is not built for (it takes 64, 128
@@ -97,8 +99,10 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     qh, kh, vh = (_heads_first(t, g) for t, g in ((q, 1), (k, group), (v, group)))
     if pad:
         qh, kh, vh = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (qh, kh, vh))
-    # on the card a head dim the kernel is not built for raises, naming it
-    out = ops.flash_attention(qh.contiguous(), kh.contiguous(), vh.contiguous())
+    # on the card a head dim the kernel is not built for raises, naming it;
+    # under autograd the backward is #8's backward kernel, and the gradients
+    # of the broadcast kv heads sum onto their kv head
+    out = ops.FlashAttention.call(qh.contiguous(), kh.contiguous(), vh.contiguous())
     return out[:, :s].reshape(b, h, s, dh).permute(0, 2, 1, 3)
 
 

@@ -7,8 +7,9 @@ reference's rule (a normal truncated at ±2σ, fan-in scaled) but draw from a
 the reference's parameters across with ``repro_torch.convert``.
 
 :func:`rmsnorm` is where the models meet kernel #10: on a CUDA tensor the
-model calls the hand-written kernel (``ops.rmsnorm``), where the reference
-computes its own jnp.  Its plain version, which a CPU tensor takes, is the
+model calls the hand-written kernel (``ops.rmsnorm``, and in training its
+backward kernel through ``ops.RMSNorm``), where the reference computes its
+own jnp under ``jax.grad``.  Its plain version, which a CPU tensor takes, is the
 same function as the reference's ``rmsnorm`` (float32 math, output in x's
 dtype); ``tests/test_torch_models.py`` holds the two together.
 """
@@ -90,8 +91,9 @@ def rmsnorm_init(dim: int, device=None, dtype=torch.float32) -> torch.Tensor:
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x * rsqrt(mean(x^2) + eps) * scale in float32, in x's dtype: kernel
-    #10 on the card, its plain version on the CPU (the reference's math)."""
-    return ops.rmsnorm(x.contiguous(), scale, eps)
+    #10 on the card, its plain version on the CPU (the reference's math);
+    under autograd its backward is #10's backward kernel (``ops.RMSNorm``)."""
+    return ops.RMSNorm.apply(x.contiguous(), scale, eps)
 
 
 def act_fn(kind: str):
@@ -138,6 +140,15 @@ def tree_cast(tree, dtype):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_cast(v, dtype) for v in tree)
     return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def tree_map(fn, tree):
+    """``fn`` over every leaf of a nested dict / list, keeping the nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def tree_leaves(tree) -> list:

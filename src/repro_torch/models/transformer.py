@@ -7,8 +7,13 @@ nested dicts of tensors, except that ``params["blocks"]`` (and DeepSeek's
 ``params["blocks_dense"]``, the leading layers with a dense FFN) is a list
 with one dict a superblock where the reference stacks them on a leading
 axis for ``jax.lax.scan``, and ``params["mtp"]`` a list with one dict a
-multi-token-prediction depth; here the superblocks run in a plain loop, in
-inference mode (no remat: training waits, ROADMAP A4).  Caches likewise:
+multi-token-prediction depth; here the superblocks run in a plain loop.
+In training (a gradient wanted and ``cfg.remat``) each superblock and the
+tail run under ``torch.utils.checkpoint`` (non-reentrant): ``remat_policy``
+``"full"`` keeps only each superblock's input, ``"dots"`` also keeps the
+outputs of its plain matrix products (``aten.mm``/``addmm``, the
+reference's ``dots_with_no_batch_dims_saveable``) through
+``create_selective_checkpoint_contexts``.  Caches likewise:
 ``caches["all"]`` (DeepSeek: ``"dense"`` and ``"moe"``) is a list of
 per-superblock dicts, written in place by :func:`decode_step`; attention
 caches are (B, Hkv, S, Dh) (C24), the others keep the reference's layout.
@@ -16,23 +21,32 @@ caches are (B, Hkv, S, Dh) (C24), the others keep the reference's layout.
 Every mixer (``attn``, ``local``, ``mla``, ``mamba2``, ``rglru``) and FFN
 (``swiglu``, ``geglu``, ``mlp_gelu``, ``moe``, ``none``) of the ten
 configs is ported, with both stub frontends (audio codebooks, vision
-patches).  ``loss_and_aux`` waits for training and raises
-``NotImplementedError`` (A4); the MTP parameters are created as the
-reference's, which applies them only in training.
+patches), and the training loss :func:`loss_and_aux`.  The MTP parameters
+are created as the reference's, which never applies them (its
+``loss_and_aux`` ignores ``params["mtp"]``): their gradients are ``None``
+here and zeros under ``jax.grad``, and ``optim.apply_updates`` updates them
+as zeros (ROADMAP C28, C31).
 
 On the card every RMSNorm runs kernel #10, causal attention kernel #8 and
 the mqr-KV sparse decode of the ``attn`` mixer kernel #9 (``attention``,
-``modules``); the MLA, SSD, RG-LRU and MoE paths are plain torch, as the
-reference computes them outside any kernel.  Every entry point takes
+``modules``); in training #8 and #10 run their backward kernels; the MLA,
+SSD, RG-LRU and MoE paths are plain torch, as the reference computes them
+outside any kernel.  Every entry point takes
 ``device``: the card unless ``"cpu"`` is asked for.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels.ops import resolve_device
 
@@ -53,8 +67,6 @@ from .modules import (
     shard,
     tree_leaves,
 )
-
-NOT_PORTED = "is not ported yet (ROADMAP A4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,8 +311,8 @@ def _init_params(gen, cfg: ModelConfig) -> Params:
         tflags = tuple(moe for _ in cfg.tail_pattern)
         params["tail"] = _init_superblock(gen, cfg, tflags, cfg.tail_pattern)
     if cfg.mtp_depth:
-        # DeepSeek-V3 MTP: one extra block and a projection a depth; the
-        # reference applies them only in training (A4).
+        # DeepSeek-V3 MTP: one extra block and a projection a depth, created
+        # as the reference's, which never applies them (C28)
         params["mtp"] = [{"proj": dense_init(gen, 2 * d, (d,), dt),
                           "block": _init_superblock(gen, cfg, (moe,), pattern)}
                          for _ in range(cfg.mtp_depth)]
@@ -360,13 +372,36 @@ def _superblock(block_params, cfg, x, positions, moe_flags, pattern):
     return x, aux_load
 
 
+# the plain matrix products remat_policy="dots" keeps (no batch dims, as the
+# reference's dots_with_no_batch_dims_saveable)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, under activation checkpointing when a gradient is
+    wanted and ``cfg.remat``: policy ``"dots"`` saves the plain matrix
+    products, any other (``"full"``) nothing inside, as the reference's."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_dots))
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _stack(blocks, cfg, x, positions, moe_flags):
     """Every superblock of a stack in turn -> (x, load (E,) float32 summed
     over the stack; (1,) zeros without MoE), as the reference's scan."""
     e = cfg.n_experts if cfg.ffn_kind == "moe" else 1
     load = torch.zeros((e,), dtype=torch.float32, device=x.device)
     for block_params in blocks:
-        x, aux_load = _superblock(block_params, cfg, x, positions, moe_flags, cfg.block_pattern)
+        x, aux_load = _remat(cfg, _superblock, block_params, cfg, x, positions, moe_flags,
+                             cfg.block_pattern)
         if aux_load is not None:
             load = load + aux_load
     return x, load
@@ -425,7 +460,8 @@ def forward_hidden(params, cfg, x, positions):
                          tuple(moe for _ in cfg.block_pattern))
     if cfg.tail_pattern:
         tflags = tuple(moe for _ in cfg.tail_pattern)
-        x, _ = _superblock(params["tail"], cfg, x, positions, tflags, cfg.tail_pattern)
+        x, _ = _remat(cfg, _superblock, params["tail"], cfg, x, positions, tflags,
+                      cfg.tail_pattern)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), load
 
 
@@ -440,8 +476,34 @@ def logits_fn(params, cfg, hidden):
 
 
 def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """The training loss waits for the training slice."""
-    raise NotImplementedError(f"{cfg.name}: loss_and_aux (training) {NOT_PORTED}")
+    """Next-token cross-entropy (+ MoE load stats), as the reference's:
+    ``batch["labels"]`` aligns with ``batch["tokens"]`` shifted by the
+    caller (the data pipeline); a label below 0 is ignored.  The logsumexp
+    runs over the padded vocab in float32 (the pad columns included, as in
+    the reference); a vision model's patch positions get label -1; audio
+    takes the mean over its codebooks.  Returns (loss, {"expert_load": (E,),
+    "n_tokens": the count of valid positions}).  The label's logit is
+    gathered where the reference reduces a one-hot: the same value."""
+    x, positions, mask = embed_inputs(params, cfg, batch)
+    hidden, load = forward_hidden(params, cfg, x, positions)
+    logits = logits_fn(params, cfg, hidden).to(torch.float32)
+    labels = batch["labels"].long()
+    if cfg.frontend == "vision_patches":
+        b, p = labels.shape[0], cfg.n_patches
+        labels = torch.cat([torch.full((b, p), -1, dtype=labels.dtype, device=labels.device),
+                            labels], dim=1)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if cfg.frontend == "audio_codebooks":
+        # labels (B, S, K); logits (B, S, K, V)
+        nll = (logz - ll).mean(dim=-1)  # mean over codebooks
+        valid = mask & (labels >= 0).all(dim=-1)
+    else:
+        nll = logz - ll
+        valid = mask & (labels >= 0)
+    n_tokens = valid.sum()
+    loss = torch.sum(nll * valid) / torch.clamp(n_tokens, min=1)
+    return loss, {"expert_load": load, "n_tokens": n_tokens}
 
 
 # ---------------------------------------------------------------------------

@@ -100,6 +100,11 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "        assert back.region(q).hits.equal(dur.region(q).hits)\n"
         "    assert back.stats.rung_dispatches == {'torch': 1}\n"
         "assert any(e['name'] == 'serve.rung' for e in trace.get_tracer().events())\n"
+        "from repro_torch.launch.train import train\n"
+        "with tempfile.TemporaryDirectory() as ck:\n"
+        "    losses = train(steps=3, batch=2, seq=16, d_model=32, n_layers=1, log_every=0,\n"
+        "                   ckpt_dir=ck, ckpt_every=2, grad_compress=True, device='cpu')\n"
+        "assert losses.shape == (3,) and np.isfinite(losses).all()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"

@@ -36,8 +36,9 @@ from repro_torch.models import transformer as T
 
 CPU = "cpu"
 PORTED = registry.ARCHS
-# What the port still lacks: training (ROADMAP A4).
-UNPORTED = ("loss_and_aux",)
+# What the port still lacks of the model: nothing (training, loss_and_aux,
+# is held to the reference in tests/test_torch_train.py).
+UNPORTED = ()
 # the float32 tolerance: |port - jax| <= ATOL + RTOL |jax|
 ATOL, RTOL = 1e-5, 1e-4
 # the recurrent families' (SSD chunk sums, the RG-LRU scan)
@@ -111,7 +112,7 @@ def test_configs_and_param_count_equal_reference(arch):
 @pytest.mark.parametrize("arch", registry.ARCHS)
 def test_init_params_shapes_equal_reference(arch):
     ref_cfg, cfg = ref_registry.get_config(arch, True), registry.get_config(arch, True)
-    for name in UNPORTED:  # training is what is left (ROADMAP A4)
+    for name in UNPORTED:  # nothing of the model is left to port
         with pytest.raises(NotImplementedError, match="ROADMAP A4"):
             getattr(T, name)({}, cfg, {})
     want = jax.eval_shape(lambda: ref_T.init_params(jax.random.PRNGKey(0), ref_cfg))
@@ -510,14 +511,19 @@ def test_head_dim_256_model_decode_matches_reference(sparse):
 
 
 def test_unported_mixers_raise_not_implemented():
-    """Every mixer and FFN of the ten configs is ported; what is left is
-    training, which raises naming ROADMAP A4, and a mixer kind no config
-    has raises ValueError, as in the reference."""
+    """Every mixer and FFN of the ten configs is ported, and training
+    (``loss_and_aux``) runs for each: nothing raises ``NotImplementedError``
+    any more; a mixer kind no config has raises ValueError, as in the
+    reference."""
+    assert UNPORTED == ()
     for arch in registry.ARCHS:
         cfg = registry.get_config(arch, smoke=True)
-        for name in UNPORTED:
-            with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-                getattr(T, name)({}, cfg, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
+        b = _batch(cfg, 1, 16, seed=1)
+        b["labels"] = b["tokens"]
+        with torch.no_grad():
+            loss, aux = T.loss_and_aux(T.init_params(0, cfg, device=CPU), cfg,
+                                       {k: t(v) for k, v in b.items()})
+        assert torch.isfinite(loss) and int(aux["n_tokens"]) > 0
     bad = dataclasses.replace(registry.get_config("llama32_1b", smoke=True),
                               block_pattern=("conv",))
     with pytest.raises(ValueError, match="conv"):
