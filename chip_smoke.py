@@ -226,7 +226,10 @@ it and read just after):
      uninterrupted losses; one EF-int8 step; a float32 2-layer copy at
      full width stepped on the card and on the CPU from the same
      parameters and batch (loss and grad norm within 1e-4 relative, each
-     gradient within the float32 row-scaled limit);
+     gradient within the float32 row-scaled limit); then gemma-2b at full
+     width, bf16, 3 steps of B 2 x S 1024 (#8's backward at head dim 256,
+     18 a step; finite losses, the counted launches, no plain version),
+     step ms and peak memory;
  19. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
@@ -238,8 +241,10 @@ it and read just after):
      timed on the device (the profiler's kernel time, mean of 7 calls
      after warm-up; one call's CUDA-event window, which also holds the
      host's time to launch, printed beside it; a row's ``timed_by`` says,
-     for each of its times, ``"events"`` where every trace lost
-     activities and the median event window stands in), beside
+     for each of its times, ``"graph"`` where every trace lost activities
+     and replays of a CUDA graph of the calls stand in, ``"events"`` where
+     the calls could not be captured either and the median event window
+     stands in), beside
      the least time the card needs for the same bytes and operations (for
      the streaming sweep, the tile and parent bytes of the tiles it read;
      for #5, the real slots read and every output byte written, with the
@@ -259,11 +264,13 @@ it and read just after):
      distinct (kv row, block) once), and #8-#10's launches are those of
      phases 17 and 18; the backward kernels of #8 and #10 against autograd
      of their plain versions (``grad_kernel_checks``: #8 at (256, 1024,
-     64), D 128, S 320 and 200 in both types, its limit rejecting dk and
-     dv with a block of keys left out, the forward's log-sum-exp against
-     ``torch.logsumexp``, D 256 refused; #10 at (8192, 2048), d 2050 and
-     off alignment; each twice, bit-equal), timed beside their bounds and
-     the backward of SDPA and ``F.rms_norm``, their launches those of the
+     64) and gemma-2b's (16, 1024, 256), D 128, S 320 and 200 at D 64,
+     128 and 256 in both types, its limit rejecting dk and dv with a block
+     of keys left out, the forward's log-sum-exp against
+     ``torch.logsumexp``, D 96 refused; #10's vector path at (8192, 2048),
+     (4097, 256) and (300, 4096), its scalar path at d 2050 and off
+     alignment; each twice, bit-equal), timed beside their bounds and the
+     backward of SDPA and ``F.rms_norm``, their launches those of the
      training phase;
  20. end-to-end times of builds, region and point batches (first call,
      which includes autotuning, apart from the steady state), peak device
@@ -384,14 +391,15 @@ def complete(counts, repeats: int) -> bool:
 
 def device_timing(fn, repeats: int = REPEATS) -> tuple[float, str]:
     """Mean device time of ``fn()`` in ms, and how it was timed
-    (``"profiler"`` or ``"events"``): every kernel, copy and fill it
+    (``"profiler"``, ``"graph"`` or ``"events"``): every kernel, copy and fill it
     launched, from the profiler's trace of ``repeats`` calls after a
     warm-up, traced again (up to TRACE_ATTEMPTS times) while the trace
     lost activities.  An event window around one call also holds the
     host's time to reach the launch (the wrapper's checks and allocation),
     which for a kernel of tens of microseconds is as long as the kernel.
-    Falls back to :func:`time_ms` if the profiler sees no device time, or
-    lost activities in every trace."""
+    Falls back to :func:`graph_ms` if the profiler lost activities in every
+    trace, and to :func:`time_ms` if the profiler sees no device time or
+    the calls cannot be captured in a graph."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -409,6 +417,11 @@ def device_timing(fn, repeats: int = REPEATS) -> tuple[float, str]:
             break
         print("  (the profiler lost device activities; tracing again)", flush=True)
     else:
+        ms = graph_ms(fn, repeats)
+        if ms is not None:
+            print("  (every trace lost device activities; timing replays of a CUDA graph)",
+                  flush=True)
+            return ms, "graph"
         print("  (every trace lost device activities; timing with CUDA events)", flush=True)
         return time_ms(fn, repeats), "events"
     total_us = 0.0
@@ -419,6 +432,41 @@ def device_timing(fn, repeats: int = REPEATS) -> tuple[float, str]:
         print("  (the profiler saw no device time; timing with CUDA events)", flush=True)
         return time_ms(fn, repeats), "events"
     return total_us / repeats / 1e3, "profiler"
+
+
+def graph_ms(fn, repeats: int = REPEATS):
+    """Mean device time of ``fn()`` in ms from CUDA events around replays of
+    a CUDA graph that captured ``repeats`` calls: the device's time alone,
+    with no host time between the launches (an event window around one
+    eager call of a kernel of tens of microseconds is mostly the wrapper's
+    host time).  None if the calls cannot be captured."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(repeats):
+                fn()
+    except Exception as exc:  # a call the graph cannot hold: the caller falls back
+        print(f"  (a CUDA graph could not capture the calls: {exc})", flush=True)
+        sync()
+        return None
+    graph.replay()
+    sync()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / repeats)
+    del graph
+    return statistics.median(times)
 
 
 def device_ms(fn, repeats: int = REPEATS) -> float:
@@ -2050,7 +2098,7 @@ def train_step_counts(cfg) -> dict:
 
 # kernel-name fragments of a train step's device time, by part (the rest
 # is elementwise, reductions and copies)
-TRAIN_PARTS = (("#8 backward", ("flash_bwd",)), ("#8 forward", ("flash_bf16", "flash_f32")),
+TRAIN_PARTS = (("#8 backward", ("bwd_dq", "bwd_dkdv")), ("#8 forward", ("flash_bf16", "flash_f32")),
                ("#10 backward", ("rmsnorm_bwd",)), ("#10 forward", ("rmsnorm",)),
                ("matrix products", ("gemm", "xmma", "cutlass", "nvjet")))
 
@@ -2085,6 +2133,38 @@ def train_launches(paths) -> dict:
     return out
 
 
+def run_train_steps(checks, paths, step, params, state, batches, want, label, before=None):
+    """One call of ``step`` a batch, each timed between syncs with the
+    launch counts reset before it and stored in ``paths`` as ``<label> step
+    <i>``; each step's loss must be finite and its launches ``want``, and no
+    plain version of #8 or #10 may run.  ``before(i, params, state,
+    losses)`` runs ahead of step i, untimed.  Returns the parameters, the state, the last metrics,
+    the losses and the step times in ms."""
+    from repro_torch.kernels import _lib
+
+    losses, times, metrics = [], [], None
+    with plain_attention_calls() as plain:
+        for i, batch in enumerate(batches):
+            if before is not None:
+                before(i, params, state, losses)
+            sync()
+            _lib.counters.reset()
+            t = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            loss = float(metrics["loss"])
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            counts = paths[f"{label} step {i}"] = _lib.counters.snapshot()
+            losses.append(loss)
+            got = {k: counts.get(k, 0) for k in want}
+            checks.expect(got == want and math.isfinite(loss),
+                          f"{label} step {i}: {times[-1]:.1f} ms, loss {loss:.6f} finite, grad "
+                          f"norm {float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.3e}; "
+                          f"launches {got} (expected {want})")
+    checks.expect(not plain, f"no plain version of #8 or #10 called in {label} ({plain})")
+    return params, state, metrics, losses, times
+
+
 def train_phase(args, checks, dev, card, paths) -> dict:
     """llama3.2-1B at full width trains on the card (bf16, remat "full"):
     ``TRAIN_STEPS`` steps of ``launch.steps.make_train_step`` on
@@ -2096,8 +2176,11 @@ def train_phase(args, checks, dev, card, paths) -> dict:
     ``TRAIN_RESUME_RTOL``, one EF-int8 step; then one float32 step of a
     2-layer copy at full width on the card and on the CPU from the same
     parameters and batch (loss and grad norm within 1e-4 relative, each
-    gradient within the §6 float32 row-scaled limit).  Launch counts land
-    in ``paths``."""
+    gradient within the §6 float32 row-scaled limit); then
+    ``GEMMA_TRAIN_STEPS`` steps of gemma-2b at full width (bf16, B
+    ``GEMMA_TRAIN_B`` x S 1024: #8's backward at head dim 256; finite
+    losses, the counted launches, no plain version; step ms and peak
+    memory).  Launch counts land in ``paths``."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import registry
     from repro_torch.data import DataConfig, SyntheticLM
@@ -2130,46 +2213,40 @@ def train_phase(args, checks, dev, card, paths) -> dict:
     print(f"  checkpoint directory {tmp.name}: {free_gb:.1f} GB free", flush=True)
     mgr = CheckpointManager(tmp.name, keep=1)
 
-    def snapshot():  # on the host, so the card's peak memory is the training's own
+    def snapshot(params, state):  # on the host, so the card's peak memory is the training's own
         return [t.detach().to("cpu", copy=True) for t in tree_leaves(params) + [state.step]
                 + tree_leaves(state.m) + tree_leaves(state.v)]
 
-    losses, times, saved = [], [], None
-    with plain_attention_calls() as plain:
-        for i in range(TRAIN_STEPS):
-            if i == TRAIN_SAVE_AT:
-                saved = snapshot()
-                t = time.perf_counter()
-                mgr.save(i, {"params": params, "opt": state}, {"loss": losses[-1]})
-                res["save_handoff_s"] = time.perf_counter() - t
-            sync()
-            _lib.counters.reset()
+    saved = []
+
+    def save_at(i, params, state, losses):
+        if i == TRAIN_SAVE_AT:
+            saved.extend(snapshot(params, state))
             t = time.perf_counter()
-            params, state, metrics = step(params, state, batches[i])
-            loss = float(metrics["loss"])
-            sync()
-            times.append((time.perf_counter() - t) * 1e3)
-            counts = paths[f"train step {i}"] = _lib.counters.snapshot()
-            losses.append(loss)
-            got = {k: counts.get(k, 0) for k in want_counts}
-            checks.expect(got == want_counts and math.isfinite(loss),
-                          f"train step {i}: loss {loss:.6f} finite; launches {got} "
-                          f"(expected {want_counts})")
-            print(f"  train step {i}: {times[-1]:.1f} ms, grad norm "
-                  f"{float(metrics['grad_norm']):.4f}, lr {float(metrics['lr']):.3e}", flush=True)
+            mgr.save(i, {"params": params, "opt": state}, {"loss": losses[-1]})
+            res["save_handoff_s"] = time.perf_counter() - t
+
+    params, state, metrics, losses, times = run_train_steps(
+        checks, paths, step, params, state, batches, want_counts, "train", before=save_at)
     t = time.perf_counter()
     mgr.wait()
     res["save_write_s"] = time.perf_counter() - t
-    checks.expect(not plain, f"no plain version of #8 or #10 called in training ({plain})")
     checks.expect(losses[-1] < losses[0],
                   f"the loss falls over {TRAIN_STEPS} steps: {losses[0]:.4f} -> {losses[-1]:.4f}")
     steady = statistics.median(times[1:])
+    # the checkpoint is written in the background from step TRAIN_SAVE_AT on,
+    # and its host work slows the steps beside it
+    before = statistics.median(times[1:TRAIN_SAVE_AT])
+    beside = statistics.median(times[TRAIN_SAVE_AT:])
     peak = torch.cuda.max_memory_allocated() / 2**30
     res.update(losses=losses, step_ms=steady, first_step_ms=times[0],
                tokens_per_s=TRAIN_B * TRAIN_S / steady * 1e3, peak_gib=peak - held,
-               held_gib=held, params=n_params)
-    print(f"  train: step {steady:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; first "
-          f"{times[0]:.1f} ms), {res['tokens_per_s']:,.0f} tokens/s, peak {peak - held:.2f} "
+               held_gib=held, params=n_params, step_ms_before_save=before,
+               step_ms_beside_save=beside)
+    print(f"  train: step {steady:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}; of steps "
+          f"1-{TRAIN_SAVE_AT - 1} {before:.1f}, of steps {TRAIN_SAVE_AT}-{TRAIN_STEPS - 1} beside "
+          f"the checkpoint's write {beside:.1f}; first {times[0]:.1f} ms), {res['tokens_per_s']:,.0f} tokens/s "
+          f"({TRAIN_B * TRAIN_S / before * 1e3:,.0f} before the save), peak {peak - held:.2f} "
           f"GiB above the {held:.2f} GiB earlier phases still hold ({card})", flush=True)
 
     # -- resume from the checkpoint ---------------------------------------
@@ -2268,12 +2345,42 @@ def train_phase(args, checks, dev, card, paths) -> dict:
     res.update(parity_loss_rel=l_rel, parity_norm_rel=n_rel, parity_worst=worst)
     del cpu_p, card_p, g_card, g_cpu
     free_card()
+
+    # -- gemma-2b at full width: #8's backward at head dim 256 -------------
+    gcfg = registry.get_config(GEMMA_ARCH)
+    g_opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=GEMMA_TRAIN_STEPS)
+    g_data = SyntheticLM(DataConfig(vocab_size=gcfg.vocab_size, seq_len=TRAIN_S,
+                                    global_batch=GEMMA_TRAIN_B, seed=args.seed))
+    torch.cuda.reset_peak_memory_stats()
+    g_held = torch.cuda.memory_allocated() / 2**30
+    params = T.init_params(args.seed, gcfg, device=dev)
+    state = init_state(params, g_opt)
+    g_step = step_lib.make_train_step(gcfg, g_opt)
+    hd = gcfg.head_dim
+    want_g = dict(train_step_counts(gcfg), **{f"flash_attention_bwd_bf16_d{hd}": gcfg.n_layers})
+    g_batches = [to_device(g_data.batch(i), dev) for i in range(GEMMA_TRAIN_STEPS)]
+    params, state, metrics, g_losses, g_times = run_train_steps(
+        checks, paths, g_step, params, state, g_batches, want_g, f"train {GEMMA_ARCH}")
+    g_peak = torch.cuda.max_memory_allocated() / 2**30 - g_held
+    g_ms = statistics.median(g_times[1:]) if len(g_times) > 1 else g_times[0]
+    res.update(gemma_losses=g_losses, gemma_step_ms=g_ms, gemma_first_step_ms=g_times[0],
+               gemma_tokens_per_s=GEMMA_TRAIN_B * TRAIN_S / g_ms * 1e3, gemma_peak_gib=g_peak,
+               gemma_params=count_params(params))
+    print(f"  {GEMMA_ARCH}: {res['gemma_params']:,} parameters; step {g_ms:.1f} ms (median of "
+          f"steps 1-{GEMMA_TRAIN_STEPS - 1}; first {g_times[0]:.1f} ms), "
+          f"{res['gemma_tokens_per_s']:,.0f} tokens/s, peak {g_peak:.2f} GiB above the "
+          f"{g_held:.2f} GiB held before it ({card})", flush=True)
+    del params, state, metrics, g_batches
+    free_card()
     return res
 
 
 # llama3.2-1B's training shapes: B 8, S 1024, 32 query heads of 64 (#8's
 # backward over (256, 1024, 64)), 8,192 rows of 2,048 (#10's backward).
 TRAIN_B, TRAIN_S = 8, 1024
+# gemma-2b's: B 2, S 1024, 8 query heads of 256 (#8's backward over (16,
+# 1024, 256)); a few steps, after llama's run
+GEMMA_ARCH, GEMMA_TRAIN_B, GEMMA_TRAIN_STEPS = "gemma_2b", 2, 3
 # the row-scaled limits of the forward kernels (PERF.md §6), per dtype; a
 # gradient row's RMS is floored at GRAD_FLOOR x its tensor's RMS
 GRAD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}
@@ -2316,29 +2423,35 @@ def grad_kernel_checks(checks, dev, seed: int, launches=None) -> list[dict]:
                       f"version (worst error / limit {worst:.3g})")
         return worst
 
-    def row(name, source, kernel_fn, plain_fn, library_fn, nbytes, ops_count, peak, err):
+    def row(name, source, kernel_fn, plain_fn, library_fn, nbytes, ops_count, peak, err,
+            counter=None):
         ms, by = device_timing(kernel_fn)
         window = time_ms(kernel_fn)
         plain_ms, plain_by = device_timing(plain_fn)
         lib_ms, lib_by = device_timing(library_fn)
         b_ms, b_by = bound_ms(nbytes, ops_count, peak)
+        n = launches.get(counter or name, 0)
         rows.append(dict(name=name, route="cuda", source=source, replaces=(
             "none (the reference trains through jnp under jax.grad); the backward of "
             + ("src/repro/kernels/flash_attention.py:86" if "flash" in name
                else "src/repro/kernels/rmsnorm.py:33")),
-            launches=launches.get(name, 0), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            launches=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             timed_by={"ms": by, "plain_ms": plain_by, "library_ms": lib_by}))
         peak_s = f" at {peak / 1e12:g} TFLOP/s" if b_by == "operations" else ""
         print(f"  {name}: {ms:.4f} ms on the device, {window:.4f} ms in one call's event "
               f"window (plain {plain_ms:.4f} ms, library backward {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}{peak_s}; {launches.get(name, 0)} calls on the "
+              f"{b_ms:.4f} ms by {b_by}{peak_s}, {b_ms / ms:.1%} of it; {n} calls on the "
               f"training path)", flush=True)
 
     # -- #8: dq, dk, dv --------------------------------------------------
+    # the timed rows: llama3.2-1B's training shape (row name without a
+    # suffix) and gemma-2b's (``_d256``); launches per head dim
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    cases = [((TRAIN_B * 32, TRAIN_S, 64), True), ((16, TRAIN_S, 128), False),
-             ((3, 320, 64), False), ((2, 200, 64), False), ((2, 200, 128), False)]
+    cases = [((TRAIN_B * 32, TRAIN_S, 64), ""), ((16, TRAIN_S, 128), None),
+             ((3, 320, 64), None), ((2, 200, 64), None), ((2, 200, 128), None),
+             ((GEMMA_TRAIN_B * 8, TRAIN_S, 256), "_d256"), ((3, 320, 256), None),
+             ((2, 200, 256), None)]
     for dt in (torch.float32, torch.bfloat16):
         tag = "f32" if dt == torch.float32 else "bf16"
         tol = GRAD_TOL[dt]
@@ -2376,12 +2489,12 @@ def grad_kernel_checks(checks, dev, seed: int, launches=None) -> list[dict]:
                                      f"64..127 left out (worst error / limit {bad:.3g})")
             err = max(max_abs_err(g, w) for g, w in zip(got, want))
             del again, cut, want, want_lse
-            if timed:
+            if timed is not None:
                 es = q.element_size()
                 q4, k4, v4 = (t[None].detach().clone().requires_grad_() for t in (q, k, v))
                 out4 = sdpa(q4, k4, v4, is_causal=True)
                 do4 = do[None]
-                row(f"flash_attention_bwd_{tag}", csrc + "flash_attention_bwd.cu",
+                row(f"flash_attention_bwd_{tag}{timed}", csrc + "flash_attention_bwd.cu",
                     lambda: ops.flash_attention_bwd(q, k, v, lse, do),
                     lambda: ops.flash_attention_bwd_torch(q, k, v, lse, do),
                     lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True),
@@ -2389,18 +2502,17 @@ def grad_kernel_checks(checks, dev, seed: int, launches=None) -> list[dict]:
                     nbytes=7 * bh * s_len * hd * es + 4 * bh * s_len,
                     # five causal products of S (S + 1) / 2 pairs of D multiply-adds
                     ops_count=5 * bh * s_len * (s_len + 1) * hd,
-                    peak=FLASH_PEAK[dt], err=err)
+                    peak=FLASH_PEAK[dt], err=err, counter=f"flash_attention_bwd_{tag}_d{hd}")
                 del q4, k4, v4, out4
             del q, k, v, do, out, lse, got
-    # the backward refuses D 256 on the card
+    # the backward refuses a head dim it is not built for, before any launch
     try:
-        x256 = rand((1, 128, 256), torch.bfloat16)
-        o256, l256 = ops.flash_attention_lse(x256, x256, x256)
-        ops.flash_attention_bwd(x256, x256, x256, l256, x256)
+        x96 = rand((1, 128, 96), torch.bfloat16)
+        ops.flash_attention_bwd(x96, x96, x96, torch.zeros((1, 128), device=dev), x96)
         refused = False
     except ValueError:
         refused = True
-    checks.expect(refused, "flash_attention_bwd refuses D 256 with ValueError")
+    checks.expect(refused, "flash_attention_bwd refuses D 96 with ValueError")
 
     # -- #10: dx, dscale ---------------------------------------------------
     d = 2048
@@ -2417,8 +2529,13 @@ def grad_kernel_checks(checks, dev, seed: int, launches=None) -> list[dict]:
         buf = rand((4097 * 2050 + 1,), dt)
         w2050 = 1.0 + 0.1 * torch.randn((2050,), generator=gen, device=dev)
         main = (rand((TRAIN_B * TRAIN_S, d), dt), w_main)
+        w256 = 1.0 + 0.1 * torch.randn((256,), generator=gen, device=dev)
+        w4096 = 1.0 + 0.1 * torch.randn((4096,), generator=gen, device=dev)
         for label, (x, w), timed in (
                 (f"rmsnorm_bwd_{tag} ({TRAIN_B * TRAIN_S}, {d})", main, True),
+                (f"rmsnorm_bwd_{tag} (4097, 256), several rows a block",
+                 (rand((4097, 256), dt), w256), False),
+                (f"rmsnorm_bwd_{tag} (300, 4096)", (rand((300, 4096), dt), w4096), False),
                 (f"rmsnorm_bwd_{tag} (4097, 2050)", (rand((4097, 2050), dt), w2050), False),
                 (f"rmsnorm_bwd_{tag} (1, 2050)", (rand((1, 2050), dt), w2050), False),
                 (f"rmsnorm_bwd_{tag} (4097, 2050) on a base one element off 16-byte alignment",
@@ -4096,7 +4213,7 @@ def run(args, second) -> int:
     # -- training: llama3.2-1B at full width, #8 and #10 backward ------------
     train_out = {}
     checks.phase("training (llama3.2-1B, full width; checkpoint, resume, EF-int8, "
-                 "float32 against the CPU)", lambda: train_out.update(
+                 "float32 against the CPU; gemma-2b, full width)", lambda: train_out.update(
                      train_phase(args, checks, dev, card, paths)))
 
     # -- 8. kernels against their plain versions -----------------------

@@ -43,12 +43,19 @@ def main(argv=None) -> int:
     card = chip_smoke.nvidia_smi_line()
     print(card, flush=True)
     if args.ptxas:
-        for src in ("flash_attention_bwd.cu", "rmsnorm_bwd.cu"):
+        for src in ("flash_attention_bwd.cu", "rmsnorm_bwd.cu", "flash_attention.cu"):
             out = subprocess.run(
                 [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_lib.CSRC), "-c",
                  str(_lib.CSRC / src), "-o", "/dev/null"],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            print(f"== {src} (rc {out.returncode})\n{out.stdout}", flush=True)
+            log = ROOT / "build" / f"ptxas_{src}.txt"
+            log.parent.mkdir(exist_ok=True)
+            log.write_text(out.stdout)
+            keep = [ln for ln in out.stdout.splitlines()
+                    if "error" in ln or "Compiling entry" in ln or "Used" in ln
+                    or "spill" in ln]
+            print(f"== {src} (rc {out.returncode}; the whole log in {log})\n"
+                  + "\n".join(keep), flush=True)
     t = time.perf_counter()
     _lib.load()
     print(f"build {time.perf_counter() - t:.1f} s", flush=True)

@@ -70,6 +70,7 @@ _SIGNATURES = {
     "repro_flash_attention": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P]),
     "repro_flash_attention_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F,
                                        _P]),
+    "repro_flash_attention_bwd_workspace": (_LL, [_LL, _I]),
     "repro_rmsnorm_bwd_blocks": (_LL, [_LL]),
     "repro_rmsnorm_bwd": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P]),
 }

@@ -66,7 +66,7 @@
 //   out = sum_s 2^(m_s - M) acc_s / max(sum_s 2^(m_s - M) l_s, 1e-30),
 //   M = max_s m_s.  An empty share keeps m = -1e30, l = 0 and weighs
 //   nothing.  The host never reads ids or pos.
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -83,39 +83,6 @@ constexpr int STAGE_MIN = 2048;    // bytes of one k (or v) sub-tile: at least,
 constexpr int STAGE_MAX = 8192;    // and at most (also at most 32 keys)
 constexpr int MERGE_THREADS = 128;
 constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` contiguous bytes global -> shared by the TMA unit; they count
-// towards the barrier's expected transaction count.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 template <int BYTES> struct Vec;
 template <> struct Vec<4> { using type = uint32_t; };
@@ -171,14 +138,6 @@ template <int OFF>
 __device__ __forceinline__ void scatter_level(float (&v)[32]) {
 #pragma unroll
   for (int i = 0; i < OFF; ++i) v[i] += __shfl_xor_sync(FULL, v[i + OFF], OFF);
-}
-
-// 2^x on the SFU, one instruction (a result below 2^-126 flushes to 0,
-// which no sum can see beside the max's 2^0 = 1).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Exclusive prefix of v over the block; every thread gets the block's total.
@@ -273,7 +232,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int w = tid; w < nwords; w += THREADS) s_bits[w] = 0u;
   if (tid == 0) {
     s_misc[0] = 0;
-    for (int i = 0; i < WARPS * STAGES; ++i) mbar_init(smem_u32(bars + i), 1);
+    for (int i = 0; i < WARPS * STAGES; ++i) mbar_init(smem_addr(bars + i), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -339,7 +298,7 @@ __global__ void __launch_bounds__(THREADS)
   const float scale2 = scale * 1.4426950408889634f;
   float m = REPRO_NEG, lsum = 0.0f;
   unsigned char* my_ring = ring + (size_t)warp * STAGES * 2 * sub_bytes;
-  const uint32_t my_bars = smem_u32(bars + warp * STAGES);
+  const uint32_t my_bars = smem_addr(bars + warp * STAGES);
   float* w_buf = s_w + warp * 32;
   const long long first = u0 + warp;
   const int n_mine = first < u1 ? (int)((u1 - 1 - first) / WARPS + 1) : 0;
@@ -353,8 +312,8 @@ __global__ void __launch_bounds__(THREADS)
     const uint32_t bar = my_bars + 8 * st;
     unsigned char* dst = my_ring + (size_t)st * 2 * sub_bytes;
     mbar_expect_tx(bar, (uint32_t)(2 * sub_bytes));
-    bulk_load(smem_u32(dst), kb + off, (uint32_t)sub_bytes, bar);
-    bulk_load(smem_u32(dst + sub_bytes), vb + off, (uint32_t)sub_bytes, bar);
+    bulk_load(smem_addr(dst), kb + off, (uint32_t)sub_bytes, bar);
+    bulk_load(smem_addr(dst + sub_bytes), vb + off, (uint32_t)sub_bytes, bar);
   };
   if (lane == 0)
     for (int it = 0; it < min(STAGES, n_mine); ++it) issue(it);

@@ -27,10 +27,14 @@ its forward launches the same kernel and also stores each row's
 log-sum-exp (:func:`flash_attention_lse`); its backward launches
 ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`: two launches,
 dQ with Di = rowsum(P o dP), then dK and dV; no atomics, so the result is
-the same on every run).  The backward takes D 64 and 128 on the card.  When
-no input needs a gradient (serving, ``torch.inference_mode()``), the
-Function launches exactly what :func:`flash_attention` launches.  On a CPU
-tensor each takes its plain version (``*_torch``).
+the same on every run).  bfloat16 runs all five products on the tensor
+cores (``wgmma``, TMA-fed as the forward; P and dS rounded to bf16 as
+their operands), float32 on the CUDA cores with register tiles and
+``cp.async`` double buffering.  The backward takes D 64, 128 and 256 on
+the card, as the forward does.  When no input needs a gradient (serving,
+``torch.inference_mode()``), the Function launches exactly what
+:func:`flash_attention` launches.  On a CPU tensor each takes its plain
+version (``*_torch``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from . import _lib
 
 NEG_INF = -1e30  # the reference's finite mask value
 HEAD_DIMS = (64, 128, 256)  # the head dims the kernel is built for
-BWD_HEAD_DIMS = (64, 128)  # the head dims the backward kernel is built for
+BWD_HEAD_DIMS = HEAD_DIMS  # the head dims the backward kernel is built for
 
 
 def check_head_dim(d: int) -> None:
@@ -54,7 +58,7 @@ def check_head_dim(d: int) -> None:
 
 def check_bwd_head_dim(d: int) -> None:
     """Raise ``ValueError`` for a head dim the card's backward kernel is not
-    built for (D 256 waits for a tiling that fits shared memory, ROADMAP)."""
+    built for."""
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"the backward kernel is built for D in {BWD_HEAD_DIMS}, got {d}")
 
@@ -175,7 +179,7 @@ def flash_attention_lse(q, k, v, *, block_q: int = 128, block_k: int = 128):
 def flash_attention_bwd(q, k, v, lse, dout):
     """The backward of causal attention: q, k, v, the forward's ``lse``
     and the output's gradient ``dout`` -> (dq, dk, dv) in q's dtype.  On
-    the card D is 64 or 128 (``ValueError`` otherwise)."""
+    the card D is 64, 128 or 256 (``ValueError`` otherwise)."""
     code = _lib.dtype_code(q, "q")
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, S, D), got {tuple(q.shape)}")
@@ -189,17 +193,22 @@ def flash_attention_bwd(q, k, v, lse, dout):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
     check_bwd_head_dim(d)
+    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        _lib.require_aligned(t, name)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if dq.numel():
-        delta = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-        rc = _lib.load().repro_flash_attention_bwd(
+        lib = _lib.load()
+        work = torch.empty((lib.repro_flash_attention_bwd_workspace(bh, s),),
+                           dtype=torch.float32, device=q.device)
+        rc = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), work.data_ptr(),
             bh, s, d, code, 1.0 / math.sqrt(d), _lib.stream_of(q),
         )
         _lib.check(rc, "flash_attention_bwd")
         _lib.counters.add("flash_attention_bwd")
         _lib.counters.add(f"flash_attention_bwd_{_lib.DTYPE_NAMES[q.dtype]}")
+        _lib.counters.add(f"flash_attention_bwd_{_lib.DTYPE_NAMES[q.dtype]}_d{d}")
     return dq, dk, dv
 
 

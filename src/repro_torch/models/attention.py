@@ -19,8 +19,8 @@ edges are the reference's: hidden (B, S, D); q (B, S, H, Dh); k, v
   exact); the mqr-KV sparse decode runs kernel #9
   (``ops.mqr_sparse_attention``) with ``group = H / Hkv`` over the blocks
   the batched index selected.  In training #8 runs through
-  ``ops.FlashAttention``, whose backward is #8's backward kernel (D 64 and
-  128 on the card).  On a CPU tensor each takes its kernel's
+  ``ops.FlashAttention``, whose backward is #8's backward kernel (D 64,
+  128 and 256 on the card).  On a CPU tensor each takes its kernel's
   plain version.  Windowed attention, the banded local path and dense
   decode are plain torch on every device, as the reference computes them
   outside any kernel.  A head dim #8 is not built for (it takes 64, 128

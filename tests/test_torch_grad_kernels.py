@@ -48,7 +48,8 @@ def close(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
-@pytest.mark.parametrize("shape", ((3, 128, 16), (2, 256, 64), (2, 128, 128), (1, 384, 32)))
+@pytest.mark.parametrize("shape", ((3, 128, 16), (2, 256, 64), (2, 128, 128), (1, 384, 32),
+                                   (2, 128, 256)))
 def test_flash_attention_function_matches_autograd_of_the_plain_version(shape, dtype):
     q, k, v, do = (rand(i, *shape, dtype=dtype) for i in range(4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -87,11 +88,64 @@ def test_flash_attention_backward_is_deterministic_and_checks_its_arguments():
         ops.flash_attention_bwd(q, k, v, lse[:, :64].contiguous(), do)
     with pytest.raises(TypeError, match="dout"):
         ops.flash_attention_bwd(q, k, v, lse, do.to(torch.bfloat16))
-    # the card's backward kernel takes D 64 and 128 (checked before any launch)
-    fa_mod.check_bwd_head_dim(64)
-    fa_mod.check_bwd_head_dim(128)
-    with pytest.raises(ValueError, match="256"):
-        fa_mod.check_bwd_head_dim(256)
+    # the card's backward kernel takes the forward's head dims, 64, 128 and
+    # 256 (checked before any launch)
+    assert fa_mod.BWD_HEAD_DIMS == fa_mod.HEAD_DIMS
+    for d in (64, 128, 256):
+        fa_mod.check_bwd_head_dim(d)
+    with pytest.raises(ValueError, match="96"):
+        fa_mod.check_bwd_head_dim(96)
+
+
+def worst_over_limit(got, want, rtol=2e-2, row_rms=3e-2, floor=0.1):
+    """``chip_smoke.worst_over_limit``: the largest |got - want| / (rtol |want|
+    + row_rms x the RMS of want's row, floored at ``floor`` x the tensor's)."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    rms = rms.clamp(min=floor * float(want.pow(2).mean().sqrt()))
+    return float(((got - want).abs() / (rtol * want.abs() + row_rms * rms)).max())
+
+
+def bf16_kernel_model(q, k, v, lse, dout):
+    """The bf16 numerics of ``csrc/flash_attention_bwd.cu`` in plain torch:
+    P = 2^(s c - lse log2e) with c = scale log2e (the kernel's ex2 form),
+    float32 sums of products of bf16 operands, Di = rowsum(P o dP) from the
+    unrounded P, dS = P o (dP - Di) rounded to bf16 before dS.K and dS^T.Q,
+    P rounded to bf16 before round(P)^T.dO; gradients stored in bf16."""
+    f, b = torch.float32, torch.bfloat16
+    s_len, d = q.shape[1], q.shape[2]
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=f)
+    c = scale * torch.tensor(math.log2(math.e), dtype=f)
+    qf, kf, vf, df = (t.to(f) for t in (q, k, v, dout))
+    keep = torch.ones((s_len, s_len), dtype=torch.bool).tril()
+    sc = torch.einsum("bqd,bkd->bqk", qf, kf)
+    p = torch.where(keep, torch.exp2(sc * c - (lse * c / scale)[..., None]), 0.0)
+    dp = torch.einsum("bqd,bkd->bqk", df, vf)
+    di = (p * dp).sum(-1, keepdim=True)
+    ds = (p * (dp - di)).to(b).to(f)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dv = torch.einsum("bqk,bqd->bkd", p.to(b).to(f), df)
+    return dq.to(b), dk.to(b), dv.to(b)
+
+
+@pytest.mark.parametrize("shape", ((32, 1024, 64), (2, 200, 128), (2, 192, 256)))
+def test_bf16_backward_design_rounding_fits_the_limits(shape):
+    """The card kernel's bf16 design (:func:`bf16_kernel_model`) against
+    autograd of the plain version on float32 copies of the same inputs,
+    within chip_smoke's bf16 row-scaled limits (2e-2, 3e-2; a row's RMS
+    floored at 0.1 x the tensor's); the same limits reject dk and dv with
+    the keys 64..127 zeroed."""
+    q, k, v, do = (rand(70 + i, *shape, dtype=torch.bfloat16) for i in range(4))
+    _, lse = ops.flash_attention_lse(q, k, v, block_q=8, block_k=8)
+    got = bf16_kernel_model(q, k, v, lse, do)
+    want = autograd(ops.flash_attention_torch, (q.float(), k.float(), v.float()), do.float())
+    worst = max(worst_over_limit(g, w) for g, w in zip(got, want))
+    assert worst <= 1.0, worst
+    cut = (got[0], got[1].clone(), got[2].clone())
+    cut[1][:, 64:128] = 0
+    cut[2][:, 64:128] = 0
+    assert max(worst_over_limit(g, w) for g, w in zip(cut, want)) > 1.0
 
 
 def test_no_graph_without_a_gradient():
