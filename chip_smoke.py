@@ -197,7 +197,17 @@ it and read just after):
      difference printed); a step with ``mqr_incremental=True`` launches #9
      16 times; ``prefill`` of (1, prefill) launches #8 16 times, and a
      256-token prompt's last logits through ``prefill`` lie within 0.25 of
-     the same prompt streamed through decode steps;
+     the same prompt streamed through decode steps; the dry run of the
+     decode steps (dense, sparse) and the prefill against one more of each
+     on the card (``dryrun_check``: ``launch.dryrun``'s step on ``meta``
+     under ``OpCost``, then the same step on the card under it: counted
+     FLOPs and bytes equal, the predicted peak within 10 % of
+     ``max_memory_allocated``; model FLOPs, the roofline bound, ``mfu``
+     and ``roofline_mfu`` printed); ``make_host_mesh()`` on a world-size-1
+     NCCL group, every parameter distributed with its ``param_shardings``
+     placements (local shards bit-equal), ``reshard_plan`` onto the same
+     mesh the identity; ``route_shards`` of 4,096 shard MBRs to 64 hosts
+     (``mesh_router_check``);
      LLM families, at full width, one model at a time (the card freed
      between): granite-moe-1b (24 layers, 32 experts top-8), DeepSeek-V3
      cut to its 3 dense layers and first MoE layer (61 do not fit one
@@ -229,7 +239,9 @@ it and read just after):
      gradient within the float32 row-scaled limit); then gemma-2b at full
      width, bf16, 3 steps of B 2 x S 1024 (#8's backward at head dim 256,
      18 a step; finite losses, the counted launches, no plain version),
-     step ms and peak memory;
+     step ms and peak memory; the dry run of a llama3.2-1B step (after the
+     EF-int8 step) and a gemma-2b step against one more on the card, as
+     the decode steps' (the five cells' seconds are printed, ~30 s);
  19. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
@@ -1572,6 +1584,14 @@ def llm_phase(args, checks, dev, card, paths) -> dict:
           f"index build of one layer ({bd * hkv} indexes in one pass) {res['build_ms']:.3f} ms, "
           f"beside PR 16's {PR16_BUILD_MS} ms for {bd * hkv} unbatched builds  [{card}]",
           flush=True)
+    # the dry run of both steps against one more of each on the card (a
+    # tensor pos and int32 tokens, as the dry run's inputs)
+    dry_args = (params, tok.to(torch.int32), caches,
+                torch.tensor(pos, dtype=torch.int32, device=dev))
+    res["dryrun"] = [checks.phase(f"  dry run vs the card: decode {label}", functools.partial(
+        dryrun_check, checks, f"{LLM_ARCH} decode B {bd} over {s_len:,} tokens, {label}", cfg,
+        "decode_32k", dry_args, res[f"{label}_step_ms"], card, batch=bd, seq=s_len,
+        tag=label)) for label in ("dense", "sparse")]
 
     # the model's ids == select_blocks on each (b, kv head)'s single-row index
     with recorded_selection(attn) as seen:
@@ -1660,6 +1680,10 @@ def llm_phase(args, checks, dev, card, paths) -> dict:
                   f"{counts.get('flash_attention_bf16', 0)} (one a layer), no plain version")
     res["prefill_ms"] = wall_ms(lambda: in_mode(
         lambda: T.prefill(params, cfg, {"tokens": toks})), 3)
+    res["dryrun"].append(checks.phase("  dry run vs the card: prefill", functools.partial(
+        dryrun_check, checks, f"{LLM_ARCH} prefill (1, {args.prefill:,})", cfg, "prefill_32k",
+        (params, {"tokens": toks.to(torch.int32)}), res["prefill_ms"], card, batch=1,
+        seq=args.prefill)))
     # prefill's last logits == the same prompt streamed through decode steps
     short = toks[:, :LLM_CHECK_PROMPT]
     c = T.init_caches(cfg, 1, LLM_CHECK_PROMPT, device=dev)
@@ -1678,6 +1702,8 @@ def llm_phase(args, checks, dev, card, paths) -> dict:
           f"{res['all_blocks_vs_dense']:.2e} (float32), {res['all_blocks_vs_dense_bf16']:.4f} "
           f"(bfloat16); prefill vs decode {diff:.4f}  [{card}]",
           flush=True)
+    res["mesh"] = checks.phase("  mesh and shard router", lambda: mesh_router_check(
+        checks, params, dev, card, args.seed))
     res["steps"] = {"dense": lambda _: step(False), "sparse": lambda _: step(True)}
     res["caches"] = caches
     res["phase_s"] = time.perf_counter() - t_phase
@@ -2165,6 +2191,135 @@ def run_train_steps(checks, paths, step, params, state, batches, want, label, be
     return params, state, metrics, losses, times
 
 
+# -- the dry run against the card, the mesh and the shard router -------------
+
+DRYRUN_PEAK_RTOL = 0.10  # the dry run's peak within 10 % of the card's
+ROUTER_SHARDS, ROUTER_HOSTS = 4096, 64
+
+
+def dryrun_check(checks, label, cfg, shape, card_args, measured_ms, card, *, batch, seq,
+                 tag="") -> dict:
+    """One cell of ``launch.dryrun`` against the card: the step of
+    ``dryrun.step_fn`` runs once on ``meta`` tensors (the prediction) and
+    once more, untimed, on ``card_args`` on the card, each under ``OpCost``.
+    Counted FLOPs and bytes must be equal, and the predicted peak within
+    ``DRYRUN_PEAK_RTOL`` of ``torch.cuda.max_memory_allocated()`` over the
+    card's step (both count the step's arguments and what it allocates;
+    what else the card holds is taken off the card's).  Prints model FLOPs,
+    counted FLOPs, the roofline bound, the phase's measured step
+    ``measured_ms``, ``mfu`` (model FLOPs over 989 TFLOP/s x the measured
+    step) and ``roofline_mfu`` (over the bound)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun, roofline
+
+    t = time.perf_counter()
+    kind = registry.SHAPES[shape]["kind"]
+    fn = dryrun.step_fn(cfg, shape, tag)
+    pred, _ = dryrun.run_step(fn, dryrun.cell_args(cfg, shape, batch, seq), kind)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    args_bytes = sum(dryrun.storage_set(card_args).values())
+    other = torch.cuda.memory_allocated() - args_bytes
+    got, out = dryrun.run_step(fn, card_args, kind)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - other
+    del out
+    model_flops = dryrun.model_flops(cfg, kind, batch, seq)
+    a = roofline.analyze({
+        "n_devices": 1, "model_flops": model_flops,
+        "cost": {"flops_per_device": pred.flops, "bytes_accessed_per_device": pred.bytes},
+        "collectives": {"total_wire_bytes": 0},
+        "memory": {"peak_bytes_per_device": pred.peak_bytes}})
+    bound_ms = max(a["t_compute_s"], a["t_memory_s"]) * 1e3
+    mfu = model_flops / (roofline.PEAK_FLOPS * measured_ms / 1e3)
+    rel = abs(pred.peak_bytes - peak) / peak
+    row = dict(label=label, model_flops=model_flops, flops=got.flops, bytes=got.bytes,
+               predicted_flops=pred.flops, predicted_bytes=pred.bytes,
+               predicted_peak_gib=pred.peak_bytes / 2**30, peak_gib=peak / 2**30,
+               arguments_gib=args_bytes / 2**30, args_predicted_gib=pred.live_bytes / 2**30,
+               peak_rel=rel, bound_ms=bound_ms, bound=a["bound"], measured_ms=measured_ms,
+               mfu=mfu, roofline_mfu=a["roofline_mfu"], kernels=got.kernels,
+               peak_by_op=[[k, v / 2**30] for k, v in pred.peak_by_op.most_common(6)])
+    same_count = got.flops == pred.flops and got.bytes == pred.bytes
+    if not same_count:
+        want = dict(pred.by_op(10_000)["bytes"])
+        have = dict(got.by_op(10_000)["bytes"])
+        diff = {k: have.get(k, 0) - want.get(k, 0) for k in set(want) | set(have)
+                if have.get(k, 0) != want.get(k, 0)}
+        print(f"    counted bytes by op, card - meta: {sorted(diff.items())[:12]}", flush=True)
+    checks.expect(same_count, f"dry run {label}: counted FLOPs {got.flops:,} and bytes "
+                              f"{got.bytes:,} on the card == the meta prediction "
+                              f"({pred.flops:,}, {pred.bytes:,})")
+    checks.expect(rel <= DRYRUN_PEAK_RTOL,
+                  f"dry run {label}: predicted peak {pred.peak_bytes / 2**30:.3f} GiB within "
+                  f"{DRYRUN_PEAK_RTOL:.0%} of the card's {peak / 2**30:.3f} GiB (rel {rel:.2e}; "
+                  f"arguments {args_bytes / 2**30:.3f} GiB, predicted "
+                  f"{pred.live_bytes / 2**30:.3f})")
+    row["seconds"] = time.perf_counter() - t
+    print(f"    {label}: model FLOPs {model_flops:.4e}, counted {got.flops:.4e}, bytes "
+          f"{got.bytes:.4e}; roofline bound {bound_ms:.3f} ms ({a['bound']}); measured "
+          f"step {measured_ms:.3f} ms; mfu {mfu:.4f}, roofline_mfu {a['roofline_mfu']:.4f}; "
+          f"peak by what made it (GiB): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in row["peak_by_op"])
+          + f"; {row['seconds']:.1f} s  [{card}]", flush=True)
+    return row
+
+
+def mesh_router_check(checks, params, dev, card, seed: int) -> dict:
+    """``make_host_mesh()`` on a world-size-1 NCCL group; every parameter of
+    ``params`` distributed with its ``param_shardings`` placements, each
+    local shard bit-equal to the full tensor; ``reshard_plan`` onto the
+    same mesh is the identity; the group destroyed.  Then ``route_shards``
+    of ``ROUTER_SHARDS`` ``uniform_squares`` MBRs to ``ROUTER_HOSTS`` hosts:
+    every shard routed once, each host's mean bounding-box area under half
+    the global one (host ms printed)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.core import datasets
+    from repro_torch.core import mbr as M
+    from repro_torch.data import route_shards
+    from repro_torch.ft import reshard_plan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
+
+    res: dict = {}
+    t = time.perf_counter()
+    mesh = make_host_mesh(dev)
+    try:
+        backend = dist.get_backend()
+        placements = rules.leaves_with_path(rules.param_shardings(params, mesh))
+        equal, sharded = True, 0
+        for (path, p), (_, pl) in zip(rules.leaves_with_path(params), placements):
+            local = distribute_tensor(p.detach(), mesh, pl).to_local()
+            equal &= local.shape == p.shape and torch.equal(local, p)
+            sharded += any(x.is_shard() for x in pl)
+            del local
+        pairs = rules.leaves_with_path(reshard_plan(params, mesh, mesh))
+        identity = all(old == new for _, (old, new) in pairs)
+    finally:
+        dist.destroy_process_group()
+    res["mesh_s"] = time.perf_counter() - t
+    checks.expect(backend == "nccl" and equal and identity,
+                  f"make_host_mesh(): a 1x1 {backend} DeviceMesh; {len(placements)} llama3.2-1B "
+                  f"parameters distributed ({sharded} with a Shard placement), each local shard "
+                  f"bit-equal to the full tensor; reshard_plan onto the same mesh is the "
+                  f"identity; group destroyed ({res['mesh_s']:.1f} s)")
+    mbrs = datasets.uniform_squares(ROUTER_SHARDS, seed=seed)
+    t = time.perf_counter()
+    routed = route_shards(mbrs, ROUTER_HOSTS)
+    res["router_ms"] = (time.perf_counter() - t) * 1e3
+    got = sorted(i for ids in routed.values() for i in ids)
+    areas = [M.area(M.merge_many(mbrs[ids])) for ids in routed.values() if ids]
+    share = float(np.mean(areas) / M.area(M.merge_many(mbrs)))
+    res["router_area_share"] = share
+    checks.expect(got == list(range(ROUTER_SHARDS)) and share < 0.5,
+                  f"route_shards: {ROUTER_SHARDS:,} shard MBRs to {ROUTER_HOSTS} hosts, each "
+                  f"routed once; a host's mean bounding-box area {share:.4f} of the global "
+                  f"(< 0.5); {res['router_ms']:.1f} ms on the host")
+    return res
+
+
 def train_phase(args, checks, dev, card, paths) -> dict:
     """llama3.2-1B at full width trains on the card (bf16, remat "full"):
     ``TRAIN_STEPS`` steps of ``launch.steps.make_train_step`` on
@@ -2301,6 +2456,9 @@ def train_phase(args, checks, dev, card, paths) -> dict:
                   f"a grad_compress=True (EF-int8) step: loss {loss:.6f}, "
                   f"{res['compress_step_ms']:.1f} ms")
     res["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2**30 - held
+    res["dryrun"] = [checks.phase("  dry run vs the card: llama3.2-1B train", lambda: dryrun_check(
+        checks, f"{LLM_ARCH} train B {TRAIN_B} x S {TRAIN_S}", cfg, "train_4k",
+        (params, state, batches[1]), steady, card, batch=TRAIN_B, seq=TRAIN_S))]
     del ef
     res["profile"] = profile_train_step(lambda: step(params, state, batches[1]))
     del params, state, metrics, batches
@@ -2370,6 +2528,9 @@ def train_phase(args, checks, dev, card, paths) -> dict:
           f"steps 1-{GEMMA_TRAIN_STEPS - 1}; first {g_times[0]:.1f} ms), "
           f"{res['gemma_tokens_per_s']:,.0f} tokens/s, peak {g_peak:.2f} GiB above the "
           f"{g_held:.2f} GiB held before it ({card})", flush=True)
+    res["dryrun"].append(checks.phase("  dry run vs the card: gemma-2b train", lambda: dryrun_check(
+        checks, f"{GEMMA_ARCH} train B {GEMMA_TRAIN_B} x S {TRAIN_S}", gcfg, "train_4k",
+        (params, state, g_batches[0]), g_ms, card, batch=GEMMA_TRAIN_B, seq=TRAIN_S)))
     del params, state, metrics, g_batches
     free_card()
     return res
@@ -4215,6 +4376,15 @@ def run(args, second) -> int:
     checks.phase("training (llama3.2-1B, full width; checkpoint, resume, EF-int8, "
                  "float32 against the CPU; gemma-2b, full width)", lambda: train_out.update(
                      train_phase(args, checks, dev, card, paths)))
+    dry_rows = [r for r in llm_out.get("dryrun", []) + train_out.get("dryrun", []) if r]
+    mesh_out = llm_out.get("mesh") or {}
+    dry_s = sum(r["seconds"] for r in dry_rows) + mesh_out.get("mesh_s", 0.0) \
+        + mesh_out.get("router_ms", 0.0) / 1e3
+    print(f"dry run against the card: {len(dry_rows)} cells; with the mesh and the router "
+          f"{dry_s:.1f} s in all; "
+          + "; ".join(f"{r['label']}: peak {r['predicted_peak_gib']:.3f} predicted, "
+                      f"{r['peak_gib']:.3f} GiB measured, mfu {r['mfu']:.4f}, roofline_mfu "
+                      f"{r['roofline_mfu']:.4f}" for r in dry_rows) + f"  [{card}]", flush=True)
 
     # -- 8. kernels against their plain versions -----------------------
     kernels = []
@@ -4905,7 +5075,8 @@ def run(args, second) -> int:
             "attend_all_ms", "dense_plain_ms", "sparse_vs_dense")},
         llm={f: v for f, v in llm_out.items() if isinstance(v, (int, float))},
         families=families_out,
-        train={f: v for f, v in train_out.items()},
+        train={f: v for f, v in train_out.items() if f != "dryrun"},
+        dryrun=dry_rows, mesh=mesh_out,
     )
     print("summary " + json.dumps(summary), flush=True)
     if checks.failures:

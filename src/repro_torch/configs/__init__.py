@@ -1,1 +1,1 @@
-from .registry import ARCHS, SHAPES, get_config  # noqa: F401
+from .registry import ARCHS, SHAPES, get_config, input_specs  # noqa: F401

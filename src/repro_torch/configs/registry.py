@@ -1,10 +1,11 @@
-"""Architecture registry: the assigned configs and their reduced smoke
-variants.
+"""Architecture registry: the assigned configs, their reduced smoke
+variants and per-shape input specs (tensors on the ``meta`` device, no
+allocation).
 
 Counterpart of ``repro.configs.registry``; the architecture modules beside
-it are copies of the reference's (data only).  The reference's
-``input_specs`` (ShapeDtypeStruct stand-ins for its XLA dry run) waits for
-that tool's H100 counterpart (ROADMAP A4).
+it are copies of the reference's (data only).  :func:`input_specs` gives
+the inputs of the dry run (``launch/dryrun.py``) where the reference gives
+``ShapeDtypeStruct`` stand-ins.
 
 Shapes (assignment):
   train_4k     seq_len=4096   global_batch=256   -> train_step
@@ -21,7 +22,9 @@ import dataclasses
 import importlib
 from typing import Dict
 
-from repro_torch.models.transformer import ModelConfig
+import torch
+
+from repro_torch.models.transformer import ModelConfig, init_caches
 
 ARCHS = (
     "mamba2_2p7b",
@@ -83,3 +86,37 @@ def scale_for_smoke(cfg: ModelConfig, **overrides) -> ModelConfig:
     base.update(mqr_block=16, mqr_topk=4, mqr_levels=4)
     base.update(overrides)
     return dataclasses.replace(cfg, **base)
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, global_batch=None, seq_len=None):
+    """``meta`` tensors standing in for every model input of a shape cell,
+    with the reference's shapes and dtypes; decode caches are
+    ``init_caches(..., device="meta")`` in the port's layout (C24)."""
+    sh = SHAPES[shape_name]
+    b = global_batch or sh["global_batch"]
+    s = seq_len or sh["seq_len"]
+    kind = sh["kind"]
+
+    def spec(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def tok_shape(seq):
+        if cfg.frontend == "audio_codebooks":
+            return (b, seq, cfg.n_codebooks)
+        return (b, seq)
+
+    if kind in ("train", "prefill"):
+        seq = s - cfg.n_patches if cfg.frontend == "vision_patches" else s
+        batch = {"tokens": spec(tok_shape(seq))}
+        if kind == "train":
+            batch["labels"] = spec(tok_shape(seq))
+        if cfg.frontend == "vision_patches":
+            batch["vision_embeds"] = spec((b, cfg.n_patches, cfg.d_model), torch.bfloat16)
+        return {"batch": batch}
+
+    # decode: one new token against caches of length s
+    return {
+        "tokens": spec(tok_shape(1)),
+        "caches": init_caches(cfg, b, s, device="meta"),
+        "pos": spec(()),
+    }

@@ -19,10 +19,17 @@ kernels (#8-#10) and the backward kernels of #8 and #10
 (``flash_attention_bwd``, ``rmsnorm_bwd``: one count a call, which is two
 launches) are also counted per element type (``flash_attention_bf16`` and
 so on).
+
+``reported`` is how #8-#10 and the backward kernels tell an active cost
+counter (``repro_torch.launch.op_cost.OpCost``) what a call costs: the
+wrapper gives the kernel's FLOPs and bytes from its shapes, on every
+device, and the plain ops it runs inside (on the CPU) are not counted
+again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -98,6 +105,29 @@ class LaunchCounters:
 
 
 counters = LaunchCounters()
+
+# the active cost counters (``OpCost`` adds itself while it counts)
+cost_sinks: list = []
+
+
+@contextlib.contextmanager
+def reported(name: str, flops: int, nbytes: int):
+    """One wrapper call of kernel ``name``: ``flops`` and ``nbytes`` go to
+    every active cost counter, which counts no operator run inside the
+    block.  Nothing happens when no counter is active."""
+    sinks = tuple(cost_sinks)
+    for sink in sinks:
+        sink.kernel_enter(name, flops, nbytes)
+    try:
+        yield
+    finally:
+        for sink in sinks:
+            sink.kernel_exit()
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    """Bytes of the tensors' elements."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 _lock = threading.Lock()
 _lib = None

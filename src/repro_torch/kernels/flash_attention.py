@@ -35,6 +35,15 @@ the card, as the forward does.  When no input needs a gradient (serving,
 ``torch.inference_mode()``), the Function launches exactly what
 :func:`flash_attention` launches.  On a CPU tensor each takes its plain
 version (``*_torch``).
+
+On a ``meta`` tensor (the dry run, ``repro_torch.launch.dryrun``) each
+wrapper runs the card's argument checks and returns empty outputs of the
+kernel's shapes and dtypes, with the workspace the card would allocate; no
+plain version runs there.  On every device each call reports its cost to
+an active ``OpCost`` (``_lib.reported``): the forward 2·BH·S(S+1)·D FLOPs
+(causal) and the bytes of q, k and v read and the output (and lse, when
+stored) written; the backward 5·BH·S(S+1)·D FLOPs and the bytes of q, k,
+v, dout and lse read and dq, dk and dv written.
 """
 
 from __future__ import annotations
@@ -130,9 +139,32 @@ def _check_qkv(q, k, v, block_q: int, block_k: int) -> int:
         raise ValueError(f"S = {s} must be a multiple of block_q = {block_q} "
                          f"and block_k = {block_k}")
     _lib.require_device({"k": k, "v": v}, q.device)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not {q.device}")
+    if q.device.type == "meta":
+        check_head_dim(d)
     return code
+
+
+def _causal_pairs(bh: int, s: int) -> int:
+    """BH·S(S+1): twice the (query, key) pairs a causal pass over (BH, S)
+    visits.  Each pair costs two products of length D (q.k and p.v), 4·D
+    FLOPs, so the forward is 2·D times this."""
+    return bh * s * (s + 1)
+
+
+def _forward_cost(q, k, v, lse: bool):
+    """(FLOPs, bytes) of one forward call (the module docstring's rule)."""
+    bh, s, d = q.shape
+    written = _lib.nbytes(q) + (bh * s * 4 if lse else 0)
+    return 2 * _causal_pairs(bh, s) * d, _lib.nbytes(q, k, v) + written
+
+
+def bwd_workspace_elements(bh: int, s: int) -> int:
+    """float32 elements of the backward kernel's workspace (Di and the
+    scaled lse, rows padded to 64): ``repro_flash_attention_bwd_workspace``
+    of ``csrc/flash_attention_bwd.cu``."""
+    return 2 * bh * (-(-s // 64) * 64)
 
 
 def _launch(q, k, v, code: int, lse) -> torch.Tensor:
@@ -160,9 +192,12 @@ def flash_attention(q, k, v, *, block_q: int = 128, block_k: int = 128) -> torch
     heads already broadcast -> (BH, S, D) in q's dtype.  S must be a
     multiple of ``block_q`` and ``block_k``; on the card D is 64, 128 or 256."""
     code = _check_qkv(q, k, v, block_q, block_k)
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v)
-    return _launch(q, k, v, code, None)
+    with _lib.reported("flash_attention", *_forward_cost(q, k, v, lse=False)):
+        if q.device.type == "cpu":
+            return flash_attention_torch(q, k, v)
+        if q.device.type == "meta":
+            return torch.empty_like(q)
+        return _launch(q, k, v, code, None)
 
 
 def flash_attention_lse(q, k, v, *, block_q: int = 128, block_k: int = 128):
@@ -170,10 +205,13 @@ def flash_attention_lse(q, k, v, *, block_q: int = 128, block_k: int = 128):
     masked logits -> (out, lse (BH, S) float32): the same kernel, which
     also stores lse (the forward of :class:`FlashAttention`)."""
     code = _check_qkv(q, k, v, block_q, block_k)
-    if q.device.type == "cpu":
-        return flash_attention_lse_torch(q, k, v)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, code, lse), lse
+    with _lib.reported("flash_attention", *_forward_cost(q, k, v, lse=True)):
+        if q.device.type == "cpu":
+            return flash_attention_lse_torch(q, k, v)
+        lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+        if q.device.type == "meta":
+            return torch.empty_like(q), lse
+        return _launch(q, k, v, code, lse), lse
 
 
 def flash_attention_bwd(q, k, v, lse, dout):
@@ -188,14 +226,27 @@ def flash_attention_bwd(q, k, v, lse, dout):
         _lib.require(t, name, q.dtype, (bh, s, d))
     _lib.require(lse, "lse", torch.float32, (bh, s))
     _lib.require_device({"k": k, "v": v, "lse": lse, "dout": dout}, q.device)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_torch(q, k, v, lse, dout)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"flash_attention_bwd runs on cuda, cpu or meta, not {q.device}")
+    cost = (5 * _causal_pairs(bh, s) * d, _lib.nbytes(q, k, v, dout, lse) + 3 * _lib.nbytes(q))
+    with _lib.reported("flash_attention_bwd", *cost):
+        if q.device.type == "cpu":
+            return flash_attention_bwd_torch(q, k, v, lse, dout)
+        return _bwd_launch(q, k, v, lse, dout, code)
+
+
+def _bwd_launch(q, k, v, lse, dout, code: int):
+    """#8's backward kernel on the card; on ``meta`` its outputs and
+    workspace, empty."""
+    bh, s, d = q.shape
     check_bwd_head_dim(d)
-    for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-        _lib.require_aligned(t, name)
+    if q.device.type == "cuda":
+        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+            _lib.require_aligned(t, name)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.device.type == "meta":
+        torch.empty((bwd_workspace_elements(bh, s),), dtype=torch.float32, device=q.device)
+        return dq, dk, dv
     if dq.numel():
         lib = _lib.load()
         work = torch.empty((lib.repro_flash_attention_bwd_workspace(bh, s),),

@@ -24,6 +24,15 @@ splits a group's blocks over enough thread blocks to fill the card and
 a second launch merges their partial softmaxes.
 The order of the sums is not the reference's walk over the ids (ROADMAP
 C30).
+
+On a ``meta`` tensor (the dry run) the wrapper runs the card's argument
+checks and returns an empty output, with a partials workspace sized as the
+card's for one resident block an SM (the card sizes it from its occupancy,
+which ``meta`` cannot ask); no plain version runs there.  On every device
+each call reports 4·BH·K·bs·D FLOPs to an active ``OpCost``
+(``_lib.reported``) and the bytes of q, of each query row's K selected
+blocks of k and v, and of the output: the walk's upper bound, which counts
+a block that several heads of a group select once for each.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from . import _lib
 NEG_INF = -1e30  # the reference's finite mask value (exp(NEG - NEG) = 1, never NaN)
 MAX_D = 256      # the kernel's widest head dim
 MAX_NB = 65_536  # blocks a kv row may hold on the card (the kernel's bitmap of ids)
+H100_SMS = 132   # SMs of the H100 SXM: the partials' size on ``meta``
 
 
 def _scale(d: int) -> float:
@@ -110,11 +120,46 @@ def mqr_sparse_attention(q, k_blocks, v_blocks, ids, pos, group: int = 1) -> tor
         pos = pos.reshape(())
     else:
         pos = int(pos)
-    if dev.type == "cpu":
-        return mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos, group)
-    if dev.type != "cuda":
-        raise ValueError(f"mqr_sparse_attention runs on cuda or cpu, not {dev}")
-    check_kernel_shape(d, nb, q.dtype)
+    if dev.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"mqr_sparse_attention runs on cuda, cpu or meta, not {dev}")
+    kk = ids.shape[1]
+    cost = (4 * bh * kk * bs * d,
+            (2 * bh * d + 2 * bh * kk * bs * d) * q.element_size())
+    with _lib.reported("mqr_sparse_attention", *cost):
+        if dev.type == "cpu":
+            return mqr_sparse_attention_torch(q, k_blocks, v_blocks, ids, pos, group)
+        check_kernel_shape(d, nb, q.dtype)
+        if dev.type == "meta":
+            return _meta_call(q, bs, kk, group)
+        return _launch(q, k_blocks, v_blocks, ids, pos, group, code)
+
+
+def _meta_call(q, bs: int, kk: int, group: int) -> torch.Tensor:
+    """The output and the partials of one call on ``meta``: the card's
+    plan (``plan_of`` in ``csrc/mqr_sparse_attention.cu``) with one
+    resident block an SM."""
+    bh, d = q.shape
+    gs = 8
+    while group % gs:
+        gs //= 2
+    row = d * q.element_size()
+    want = min(max(2048 // row, 32 // gs), 8192 // row, 32)  # STAGE_MIN, STAGE_MAX
+    tk = 1
+    while tk * 2 <= want and bs % (tk * 2) == 0:
+        tk *= 2
+    groups, n_ids = bh // gs, gs * kk
+    splits = max(1, H100_SMS // groups, -(-n_ids // 252))  # ITEM_CAP - 4 ids a share
+    splits = min(splits, n_ids * (bs // tk), 1024)          # MAX_SPLITS
+    if bh:
+        torch.empty((groups * splits * gs * (d + 4),), dtype=torch.float32, device=q.device)
+    return torch.empty((bh, d), dtype=q.dtype, device=q.device)
+
+
+def _launch(q, k_blocks, v_blocks, ids, pos, group: int, code: int) -> torch.Tensor:
+    """Kernel #9 on the card (two launches, counted as one)."""
+    bh, d = q.shape
+    nb, bs = k_blocks.shape[1:3]
+    dev = q.device
     lib = _lib.load()
     for name, t in (("k_blocks", k_blocks), ("v_blocks", v_blocks)):
         _lib.require_aligned(t, name)

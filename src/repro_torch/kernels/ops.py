@@ -98,7 +98,8 @@ def default_device() -> torch.device:
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> :func:`default_device`; otherwise the named device,
-    which must be ``cpu`` or an available ``cuda`` device."""
+    which must be ``cpu``, an available ``cuda`` device or ``meta``
+    (shapes and dtypes only: the dry run, ``launch/dryrun.py``)."""
     if device is None:
         return default_device()
     dev = torch.device(device)
@@ -107,6 +108,6 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError(f"device {dev} requested but CUDA is not available")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch runs on cuda or cpu, not {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch runs on cuda or cpu (or meta), not {dev}")
     return dev

@@ -17,6 +17,13 @@ whose forward is :func:`rmsnorm` and whose backward launches
 ``csrc/rmsnorm_bwd.cu`` (:func:`rmsnorm_bwd`: dx row by row, and dscale
 from per-block partial sums added in block order, so the same on every
 run).  On a CPU tensor each takes its plain version (``*_torch``).
+
+On a ``meta`` tensor (the dry run) each wrapper runs the card's argument
+checks and returns empty outputs of the kernel's shapes and dtypes (the
+backward with its partials, sized for an H100's 132 SMs); no plain version
+runs there.  On every device each call reports its bytes to an active
+``OpCost`` (``_lib.reported``; no FLOPs): x and scale read and the output
+written; the backward x, dy and scale read and dx and dscale written.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ from __future__ import annotations
 import torch
 
 from . import _lib
+
+H100_SMS = 132        # SMs of the H100 SXM: the backward's grid on ``meta``
+BWD_BLOCKS_PER_SM = 4  # ``BLOCKS_PER_SM`` of ``csrc/rmsnorm_bwd.cu``
 
 
 def rmsnorm_torch(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -45,12 +55,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     _lib.require(x, "x", x.dtype)
     _lib.require(scale, "scale", scale.dtype, (d,))
     _lib.require_device({"scale": scale}, x.device)
-    if x.device.type == "cpu":
-        return rmsnorm_torch(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rmsnorm runs on cuda, cpu or meta, not {x.device}")
+    with _lib.reported("rmsnorm", 0, 2 * _lib.nbytes(x) + _lib.nbytes(scale)):
+        if x.device.type == "cpu":
+            return rmsnorm_torch(x, scale, eps)
+        return _launch(x, scale, eps, x_code, s_code)
+
+
+def _launch(x, scale, eps: float, x_code: int, s_code: int) -> torch.Tensor:
+    """#10 on the card; on ``meta`` its output, empty."""
+    d = x.shape[-1]
     out = torch.empty_like(x)
-    if out.numel():
+    if out.numel() and x.device.type == "cuda":
         rc = _lib.load().repro_rmsnorm(
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.numel() // d, d,
             x_code, s_code, float(eps), _lib.stream_of(x),
@@ -86,14 +103,26 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6):
     _lib.require(dy, "dy", x.dtype, tuple(x.shape))
     _lib.require(scale, "scale", scale.dtype, (d,))
     _lib.require_device({"scale": scale, "dy": dy}, x.device)
-    if x.device.type == "cpu":
-        return rmsnorm_bwd_torch(x, scale, dy, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm_bwd runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"rmsnorm_bwd runs on cuda, cpu or meta, not {x.device}")
+    with _lib.reported("rmsnorm_bwd", 0, 3 * _lib.nbytes(x) + 2 * _lib.nbytes(scale)):
+        if x.device.type == "cpu":
+            return rmsnorm_bwd_torch(x, scale, dy, eps)
+        return _bwd_launch(x, scale, dy, eps, x_code, s_code)
+
+
+def _bwd_launch(x, scale, dy, eps: float, x_code: int, s_code: int):
+    """#10's backward kernel on the card; on ``meta`` its outputs and
+    partials, empty."""
+    d = x.shape[-1]
     dx, dscale = torch.empty_like(x), torch.empty_like(scale)
     rows = x.numel() // d if d else 0
     if rows == 0:
         return dx, dscale.zero_()
+    if x.device.type == "meta":
+        blocks = min(rows, H100_SMS * BWD_BLOCKS_PER_SM)
+        torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+        return dx, dscale
     lib = _lib.load()
     partial = torch.empty((lib.repro_rmsnorm_bwd_blocks(rows), d), dtype=torch.float32,
                           device=x.device)

@@ -128,8 +128,10 @@ def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
 
 
 def shard(x: torch.Tensor, *spec) -> torch.Tensor:
-    """The reference's sharding constraint; on one device a no-op.  Sharding
-    the models over several cards is ROADMAP A4."""
+    """The reference's sharding constraint; on one device a no-op.  The
+    rules exist (``repro_torch.sharding``); running the models sharded on
+    DTensor over a production ``DeviceMesh`` is the next slice (ROADMAP
+    A4d)."""
     return x
 
 

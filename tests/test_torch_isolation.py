@@ -105,6 +105,17 @@ def test_port_runs_with_jax_and_repro_unimportable():
         "    losses = train(steps=3, batch=2, seq=16, d_model=32, n_layers=1, log_every=0,\n"
         "                   ckpt_dir=ck, ckpt_every=2, grad_compress=True, device='cpu')\n"
         "assert losses.shape == (3,) and np.isfinite(losses).all()\n"
+        "from repro_torch.data import route_shards\n"
+        "assign = route_shards(datasets.uniform_squares(64, seed=7, side=30.0), 8)\n"
+        "assert sorted(i for ids in assign.values() for i in ids) == list(range(64))\n"
+        "from repro_torch.launch import dryrun\n"
+        "full = dryrun.registry.get_config\n"
+        "dryrun.registry.get_config = lambda arch, smoke=False: full(arch, smoke=True)\n"
+        "import contextlib, io\n"
+        "with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):\n"
+        "    rec = dryrun.run_cell('llama32_1b', 'decode_32k', 'card', out, ['head_dim=64'],\n"
+        "                          global_batch=2, seq_len=256, tag='sparse')\n"
+        "assert rec['cost']['kernels']['mqr_sparse_attention'][0] > 0\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
