@@ -207,7 +207,12 @@ it and read just after):
      NCCL group, every parameter distributed with its ``param_shardings``
      placements (local shards bit-equal), ``reshard_plan`` onto the same
      mesh the identity; ``route_shards`` of 4,096 shard MBRs to 64 hosts
-     (``mesh_router_check``);
+     (``mesh_router_check``); the sharded decode step
+     (``sharded_decode_check``): one dense step of B 4 over the long
+     caches with parameters, tokens and caches placed as DTensors on a
+     1x1 NCCL ``DeviceMesh`` (``launch.steps.place``, no copies), its
+     tokens equal to the unsharded step's, #10 through ``local_map`` 33
+     times and no plain version; both steps' times;
      LLM families, at full width, one model at a time (the card freed
      between): granite-moe-1b (24 layers, 32 experts top-8), DeepSeek-V3
      cut to its 3 dense layers and first MoE layer (61 do not fit one
@@ -241,7 +246,16 @@ it and read just after):
      18 a step; finite losses, the counted launches, no plain version),
      step ms and peak memory; the dry run of a llama3.2-1B step (after the
      EF-int8 step) and a gemma-2b step against one more on the card, as
-     the decode steps' (the five cells' seconds are printed, ~30 s);
+     the decode steps' (the five cells' seconds are printed, ~30 s); the
+     sharded train step (``sharded_step_check``, after the EF-int8 step):
+     copies of the trained parameters and state placed as DTensors on a
+     1x1 NCCL ``DeviceMesh``, two sharded steps against two unsharded
+     steps from the same state (the loss and every updated parameter bit
+     for bit, or within 1e-5 with the leaves named), #8, 8b, #10 and 10b
+     through ``local_map`` the counted number of times a step, no plain
+     version, a third sharded step under ``OpCost`` (collectives counted
+     and printed, its counted FLOPs and kernel reports equal to one more
+     unsharded step's), both steps' times; the group destroyed;
  19. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
@@ -1704,6 +1718,9 @@ def llm_phase(args, checks, dev, card, paths) -> dict:
           flush=True)
     res["mesh"] = checks.phase("  mesh and shard router", lambda: mesh_router_check(
         checks, params, dev, card, args.seed))
+    res["sharded"] = checks.phase("  sharded step: llama3.2-1B dense decode on a 1x1 NCCL mesh",
+                                  lambda: sharded_decode_check(checks, cfg, params, tok, caches,
+                                                               pos, dev, card, paths))
     res["steps"] = {"dense": lambda _: step(False), "sparse": lambda _: step(True)}
     res["caches"] = caches
     res["phase_s"] = time.perf_counter() - t_phase
@@ -2320,6 +2337,170 @@ def mesh_router_check(checks, params, dev, card, seed: int) -> dict:
     return res
 
 
+SHARDED_RTOL = 1e-5  # the fall-back limit of the sharded step (the resume limit)
+
+
+def _tree_copy(tree):
+    from repro_torch.models.modules import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def sharded_step_check(checks, cfg, opt_cfg, params, state, batch, want, dev, card,
+                       paths) -> dict:
+    """The train step sharded on a 1x1 NCCL ``DeviceMesh``
+    (``make_host_mesh()``): copies of ``params`` and ``state`` placed as
+    DTensors by ``launch.steps.place`` (``DTensor.from_local``: the mesh
+    holds each whole tensor, no second copy), ``batch`` likewise.  Two
+    sharded steps against two unsharded steps of ``params``, ``state`` from
+    the same state: the losses and every updated parameter equal bit for
+    bit, or within ``SHARDED_RTOL`` with the differing leaves printed; #8,
+    8b, #10 and 10b launched ``want`` times a sharded step (through
+    ``local_map``) and no plain version.  A third sharded step runs under
+    ``OpCost``: the collectives DTensor issues on the 1x1 mesh are counted
+    and printed, and its counted FLOPs and kernel reports must equal those
+    of one more unsharded step under ``OpCost`` (the mode counts the local
+    operators DTensor runs, not DTensor's own).  Both second steps are timed (host clock between syncs);
+    the difference is DTensor's host cost.  The group is destroyed."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.optim import AdamWState
+    from repro_torch.sharding import rules
+
+    res: dict = {}
+    t_all = time.perf_counter()
+    mesh = make_host_mesh(dev)
+    try:
+        step = step_lib.make_train_step(cfg, opt_cfg)
+        p2 = _tree_copy(params)
+        s2 = AdamWState(state.step.clone(), _tree_copy(state.m), _tree_copy(state.v))
+        dp = step_lib.place(p2, rules.param_shardings(p2, mesh), mesh)
+        ds = step_lib.place_opt_state(s2, p2, mesh)
+        db = step_lib.place(batch, rules.batch_shardings(batch, mesh), mesh)
+        no_copy = all(d.to_local().data_ptr() == t.data_ptr()
+                      for d, t in zip(tree_leaves(dp), tree_leaves(p2)))
+        del p2, s2
+        losses, ms, worst, differ = [], {"sharded": [], "unsharded": []}, 0.0, set()
+        for i in range(2):
+            sync()
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            loss = float(m["loss"])
+            sync()
+            ms["unsharded"].append((time.perf_counter() - t) * 1e3)
+            with plain_attention_calls() as plain:
+                sync()
+                _lib.counters.reset()
+                t = time.perf_counter()
+                dp, ds, dm = step(dp, ds, db)
+                d_loss = float(dm["loss"].to_local())
+                sync()
+                ms["sharded"].append((time.perf_counter() - t) * 1e3)
+                counts = paths[f"train sharded step {i}"] = _lib.counters.snapshot()
+            got = {k: counts.get(k, 0) for k in want}
+            checks.expect(got == want and not plain,
+                          f"sharded train step {i}: #8, 8b, #10, 10b launches {got} through "
+                          f"local_map (expected {want}), no plain version ({plain})")
+            losses.append((loss, d_loss))
+            for (path, a), b in zip(rules.leaves_with_path(dp), tree_leaves(params)):
+                a = a.to_local()
+                if not torch.equal(a, b):
+                    differ.add(path)
+                    worst = max(worst, float(((a.float() - b.float()).abs()
+                                              / b.float().abs().clamp(min=1e-30)).max()))
+            worst = max(worst, abs(d_loss - loss) / abs(loss))
+        bits = all(a == b for a, b in losses) and not differ
+        checks.expect(bits or worst <= SHARDED_RTOL,
+                      f"sharded train steps == unsharded from the same state: losses "
+                      f"{losses}, {'bit for bit' if bits else 'not bit for bit'}; "
+                      f"{len(differ)} of {len(tree_leaves(params))} parameters differ "
+                      f"({sorted(differ)[:6]}), worst relative difference {worst:.3g} "
+                      f"(limit {SHARDED_RTOL:g} where not bit for bit); parameters placed "
+                      f"with no copy: {no_copy}")
+        with OpCost(live=(dp, ds, db)) as cost:
+            dp, ds, dm = step(dp, ds, db)
+        with OpCost(live=(params, state, batch)) as base:
+            params, state, m = step(params, state, batch)
+        sync()
+        checks.expect(cost.flops == base.flops and cost.kernels == base.kernels,
+                      f"OpCost under DTensor (torch {torch.__version__}) counts what the device "
+                      f"runs: the sharded step's counted FLOPs {cost.flops:,} and kernel "
+                      f"reports == the unsharded step's ({base.flops:,}); bytes {cost.bytes:,} "
+                      f"vs {base.bytes:,}")
+        coll = {k: v for k, v in cost.collectives.items() if isinstance(v, dict) and v["count"]}
+        res.update(sharded_ms=ms["sharded"][-1], unsharded_ms=ms["unsharded"][-1],
+                   first_sharded_ms=ms["sharded"][0], bits=bits, worst_rel=worst,
+                   differ=sorted(differ), collectives=cost.collectives, launches=got,
+                   flops=cost.flops, bytes=cost.bytes, unsharded_bytes=base.bytes,
+                   no_copy=no_copy)
+        print(f"    sharded train step, 1x1 NCCL mesh, B {batch['tokens'].shape[0]} x S "
+              f"{batch['tokens'].shape[1]}: {ms['sharded'][-1]:.1f} ms (first "
+              f"{ms['sharded'][0]:.1f}) vs unsharded {ms['unsharded'][-1]:.1f} ms (first "
+              f"{ms['unsharded'][0]:.1f}); the difference is DTensor's host cost; "
+              f"collectives counted under OpCost: {coll or 'none'} (total operand bytes "
+              f"{cost.collectives['total_operand_bytes']:,}); counted FLOPs {cost.flops:.4e}; "
+              f"launches {got}; {time.perf_counter() - t_all:.1f} s  [{card}]", flush=True)
+        del dp, ds, dm, db
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def sharded_decode_check(checks, cfg, params, tok, caches, pos, dev, card, paths) -> dict:
+    """One dense decode step (``launch.steps.make_serve_step``) with the
+    parameters, tokens and caches placed as DTensors on a 1x1 NCCL
+    ``DeviceMesh`` (``from_local``, no copies; the caches written in place
+    on their local shards) against the unsharded step on the same inputs:
+    the greedy tokens equal, #10 through ``local_map`` once a norm, no
+    plain version.  Each step's time once warm (median of 3)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import rules
+
+    res: dict = {}
+    t_all = time.perf_counter()
+    serve = step_lib.make_serve_step(cfg)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        want = serve(params, tok, caches, pos_t)[0]
+        res["unsharded_ms"] = wall_ms(lambda: serve(params, tok, caches, pos_t), 3)
+    mesh = make_host_mesh(dev)
+    try:
+        dp = step_lib.place(params, rules.param_shardings(params, mesh), mesh)
+        dc = step_lib.place(caches, rules.cache_shardings(caches, mesh), mesh)
+        dt = step_lib.place({"t": tok}, rules.batch_shardings({"t": tok}, mesh), mesh)["t"]
+        with torch.no_grad(), plain_attention_calls() as plain:
+            serve(dp, dt, dc, pos_t)  # DTensor's sharding propagation, once
+            sync()
+            _lib.counters.reset()
+            got = serve(dp, dt, dc, pos_t)[0].to_local()
+            sync()
+            counts = paths["llm decode step sharded"] = _lib.counters.snapshot()
+            res["sharded_ms"] = wall_ms(lambda: serve(dp, dt, dc, pos_t), 3)
+        norms = 2 * cfg.n_layers + 1
+        checks.expect(torch.equal(got, want) and counts.get("rmsnorm_bf16", 0) == norms
+                      and not plain,
+                      f"sharded dense decode step (B {tok.shape[0]}, 1x1 NCCL mesh, caches "
+                      f"at pos {pos}): tokens equal the unsharded step's; #10 x "
+                      f"{counts.get('rmsnorm_bf16', 0)} through local_map (expected {norms}), "
+                      f"no plain version ({plain})")
+        del dp, dc, dt
+    finally:
+        dist.destroy_process_group()
+    print(f"    sharded decode step: {res['sharded_ms']:.2f} ms vs unsharded "
+          f"{res['unsharded_ms']:.2f} ms (median of 3, host clock to a synchronize); "
+          f"{time.perf_counter() - t_all:.1f} s  [{card}]", flush=True)
+    return res
+
+
 def train_phase(args, checks, dev, card, paths) -> dict:
     """llama3.2-1B at full width trains on the card (bf16, remat "full"):
     ``TRAIN_STEPS`` steps of ``launch.steps.make_train_step`` on
@@ -2461,6 +2642,10 @@ def train_phase(args, checks, dev, card, paths) -> dict:
         (params, state, batches[1]), steady, card, batch=TRAIN_B, seq=TRAIN_S))]
     del ef
     res["profile"] = profile_train_step(lambda: step(params, state, batches[1]))
+    res["sharded"] = checks.phase("  sharded step: llama3.2-1B train on a 1x1 NCCL mesh",
+                                  lambda: sharded_step_check(checks, cfg, opt_cfg, params, state,
+                                                             batches[2], want_counts, dev,
+                                                             card, paths))
     del params, state, metrics, batches
     free_card()
 

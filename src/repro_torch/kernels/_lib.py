@@ -20,6 +20,10 @@ kernels (#8-#10) and the backward kernels of #8 and #10
 launches) are also counted per element type (``flash_attention_bf16`` and
 so on).
 
+``on_local_shards`` is how #8 and #10 take DTensors: each is handed its
+local shard through ``local_map``, never a ``DTensor``, since the kernels
+launch by pointer.
+
 ``reported`` is how #8-#10 and the backward kernels tell an active cost
 counter (``repro_torch.launch.op_cost.OpCost``) what a call costs: the
 wrapper gives the kernel's FLOPs and bytes from its shapes, on every
@@ -123,6 +127,28 @@ def reported(name: str, flops: int, nbytes: int):
     finally:
         for sink in sinks:
             sink.kernel_exit()
+
+
+def on_local_shards(fn, args, in_placements, out_placements, in_grad_placements,
+                    n_out: int = 1):
+    """``fn`` on the local shards of the DTensors ``args``, through
+    ``torch.distributed.tensor.experimental.local_map``.  Each argument is
+    first redistributed to its entry of ``in_placements`` where its
+    placements differ (a collective, which an active ``OpCost`` counts):
+    a kernel is never handed a placement it cannot take.  The outputs are
+    wrapped with ``out_placements`` (``fn`` returns one tensor, or a tuple
+    of ``n_out`` tensors placed alike); ``in_grad_placements`` says how the
+    gradient of each local shard lies (``Partial`` where the shards'
+    gradients add up)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = args[0].device_mesh
+    args = [a if tuple(a.placements) == tuple(p) else a.redistribute(mesh, tuple(p))
+            for a, p in zip(args, in_placements)]
+    return local_map(fn, out_placements=(tuple(out_placements),) * n_out,
+                     in_placements=tuple(tuple(p) for p in in_placements),
+                     in_grad_placements=tuple(tuple(p) for p in in_grad_placements),
+                     device_mesh=mesh)(*args)
 
 
 def nbytes(*tensors: torch.Tensor) -> int:

@@ -36,6 +36,11 @@ the card, as the forward does.  When no input needs a gradient (serving,
 :func:`flash_attention` launches.  On a CPU tensor each takes its plain
 version (``*_torch``).
 
+The wrappers take plain tensors only.  The sharded step (DTensors on a
+``DeviceMesh``) reaches #8 through ``models.attention.causal_attention``,
+which hands it each rank's local (B·H, S, D) through ``local_map`` at the
+(B, S, H, D) level (``_lib.on_local_shards``).
+
 On a ``meta`` tensor (the dry run, ``repro_torch.launch.dryrun``) each
 wrapper runs the card's argument checks and returns empty outputs of the
 kernel's shapes and dtypes, with the workspace the card would allocate; no

@@ -18,6 +18,13 @@ whose forward is :func:`rmsnorm` and whose backward launches
 from per-block partial sums added in block order, so the same on every
 run).  On a CPU tensor each takes its plain version (``*_torch``).
 
+A ``DTensor`` x reaches the kernel through :meth:`RMSNorm.call`: its rows
+stay sharded on any leading dim, its last dim and ``scale`` are
+replicated (a sharded last dim or a ``Partial`` is redistributed first),
+and the kernel, or its plain version, runs on each local shard
+(``_lib.on_local_shards``); dscale is then ``Partial`` over the mesh dims
+that shard the rows.
+
 On a ``meta`` tensor (the dry run) each wrapper runs the card's argument
 checks and returns empty outputs of the kernel's shapes and dtypes (the
 backward with its partials, sized for an H100's 132 SMs); no plain version
@@ -29,6 +36,7 @@ written; the backward x, dy and scale read and dx and dscale written.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from . import _lib
 
@@ -141,6 +149,20 @@ class RMSNorm(torch.autograd.Function):
     :func:`rmsnorm_bwd` (x is kept, r is recomputed from it).  With no
     gradient wanted it launches the forward kernel alone and builds no
     graph."""
+
+    @staticmethod
+    def call(x, scale, eps: float = 1e-6) -> torch.Tensor:
+        """:meth:`apply` on x made contiguous; a ``DTensor`` x runs on its
+        local shards."""
+        if isinstance(x, DTensor):
+            last = x.dim() - 1
+            rows = tuple(p if p.is_shard() and p.dim != last else Replicate()
+                         for p in x.placements)
+            rep = (Replicate(),) * len(rows)
+            dscale = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+            return _lib.on_local_shards(lambda a, s: RMSNorm.call(a, s, eps), (x, scale),
+                                        (rows, rep), rows, (rows, dscale))
+        return RMSNorm.apply(x.contiguous(), scale, eps)
 
     @staticmethod
     def forward(ctx, x, scale, eps: float = 1e-6):

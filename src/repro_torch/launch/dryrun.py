@@ -15,17 +15,30 @@ Meshes:
 
 - ``card``: one H100 (1x1).  ``cost`` and ``memory`` come from the run on
   ``meta``; ``collectives`` are zero, and the record says so.
-- ``single`` (16x16) and ``multi`` (2x16x16): only what the sharding rules
-  fix exactly, the per-device argument bytes of parameters, moments, batch
-  and caches (``sharding.shard_shape``).  ``cost`` and ``collectives`` are
-  ``null``: counting per-device FLOPs and collective bytes needs the step
-  run sharded over a ``DeviceMesh`` (DTensor), which is ROADMAP A4d.
+- ``single`` (16x16) and ``multi`` (2x16x16): the step runs sharded, as
+  the reference's ``jax.jit(..., in_shardings=...)``: a real
+  ``DeviceMesh`` of 256 or 512 ranks on a fake process group
+  (``launch.mesh.fake_production_mesh``, seen from rank 0), the arguments
+  placed by ``launch.steps.place`` with the rules' placements as ``meta``
+  local shards, and ``OpCost`` counting what one device runs: per-device
+  FLOPs and bytes (``cost``), the peak of its live storages
+  (``memory.peak_bytes_per_device``) and the collectives DTensor issues
+  with their operand and ring-model wire bytes (``collectives``).
+  ``memory`` also keeps the rules' per-device argument bytes by kind
+  (``sharding.shard_shape``), which the placed shards equal.  These are
+  counts on the CPU, not times.  An arch or a path that does not run
+  sharded yet (any but the dense attention path,
+  ``transformer.runs_sharded``, and the mqr-KV sparse decode) keeps only
+  those argument bytes, ``cost`` and ``collectives`` ``null``,
+  and a note naming ROADMAP A4d.
 
 Usage (no card needed)::
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh card
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama32_1b \\
-        --shape train_4k --mesh single,multi --batch 8 --seq 1024
+        --mesh single,multi
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama32_1b \\
+        --shape train_4k --mesh single --batch 32 --seq 2048
 
 Records go to ``build/dryrun/`` (``--out``); it exits 1 listing the cells
 that failed.
@@ -42,21 +55,20 @@ import time
 import traceback
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import registry
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_card_mesh, make_production_mesh
-from repro_torch.launch.op_cost import OpCost, storage_bytes
+from repro_torch.launch.mesh import fake_production_mesh, make_card_mesh, make_production_mesh
+from repro_torch.launch.op_cost import OpCost, empty_collectives, storage_bytes
+from repro_torch.models import transformer as T
 from repro_torch.models.modules import tree_leaves
 from repro_torch.optim import adamw
 from repro_torch.sharding import rules
 
 MESHES = ("card", "single", "multi")
-_COLL_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-             "collective-permute")
-SHARDED_NOTE = ("per-device argument bytes from the sharding rules only; FLOPs, peak "
-                "memory and collective bytes need the step run sharded on a DeviceMesh "
-                "(ROADMAP A4d)")
+SHARDED_NOTE = ("per-device argument bytes from the sharding rules only: this arch or "
+                "path does not run sharded on a DeviceMesh yet (ROADMAP A4d)")
 
 
 def _apply_overrides(cfg, overrides):
@@ -147,12 +159,42 @@ def run_step(fn, args, kind: str):
     return cost, out
 
 
+def place_args(args, kind: str, mesh) -> tuple:
+    """:func:`cell_args` placed on ``mesh`` as the reference's dry run
+    places them (``in_shardings``): parameters and moments by
+    ``rules.param_shardings``, the batch and the decode tokens by
+    ``batch_spec``, caches by ``rules.cache_shardings``; the AdamW step
+    replicated and the decode position a plain 0-d tensor."""
+    params = steps.place(args[0], rules.param_shardings(args[0], mesh), mesh)
+    if kind == "train":
+        batch = args[2]
+        return (params, steps.place_opt_state(args[1], args[0], mesh),
+                steps.place(batch, rules.batch_shardings(batch, mesh), mesh))
+    if kind == "prefill":
+        return params, steps.place(args[1], rules.batch_shardings(args[1], mesh), mesh)
+    _, tokens, caches, pos = args
+    tokens = steps.place({"t": tokens}, rules.batch_shardings({"t": tokens}, mesh), mesh)["t"]
+    return params, tokens, steps.place(caches, rules.cache_shardings(caches, mesh), mesh), pos
+
+
+def local_bytes(tree) -> int:
+    """Bytes of the local shards (a plain tensor: itself) of ``tree``'s
+    tensors."""
+    return sum(_local(t).numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def storage_set(tree) -> dict:
-    """{storage id: allocator bytes} of the tensors of ``tree``."""
+    """{storage id: allocator bytes} of the tensors of ``tree`` (a DTensor's
+    local shard)."""
     out = {}
     for t in tree_leaves(tree):
         if isinstance(t, torch.Tensor):
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             out[id(st)] = storage_bytes(st.nbytes())
     return out
 
@@ -210,6 +252,19 @@ def sharded_memory(cfg, shape: str, mesh, global_batch=None, seq_len=None) -> di
     return out
 
 
+def runs_sharded(cfg, shape: str, tag: str = "") -> bool:
+    """Whether the cell's step runs sharded on a ``DeviceMesh`` yet: a
+    model on the dense attention path (``transformer.runs_sharded``), but
+    not the mqr-KV sparse decode."""
+    kind = registry.SHAPES[shape]["kind"]
+    return T.runs_sharded(cfg) and not (kind == "decode" and mqr_sparse(cfg, shape, tag))
+
+
+def cost_record(cost: OpCost) -> dict:
+    return {"flops_per_device": cost.flops, "bytes_accessed_per_device": cost.bytes,
+            "kernels": cost.kernels, "by_op": cost.by_op()}
+
+
 def run_cell(arch: str, shape: str, mesh_name: str, out_dir: pathlib.Path,
              overrides=None, tag: str = "", force: bool = False, *, global_batch=None,
              seq_len=None):
@@ -243,16 +298,18 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: pathlib.Path,
         args = cell_args(cfg, shape, gbatch, seq)
         cost, out = run_step(step_fn(cfg, shape, tag), args, kind)
         record["memory"] = card_memory(cost, args, out)
-        record["cost"] = {
-            "flops_per_device": cost.flops,
-            "bytes_accessed_per_device": cost.bytes,
-            "kernels": cost.kernels,
-            "by_op": cost.by_op(),
-        }
-        record["collectives"] = dict(
-            {op: {"count": 0, "operand_bytes": 0, "wire_bytes": 0} for op in _COLL_OPS},
-            total_operand_bytes=0, total_wire_bytes=0,
-            note="one card: no collectives")
+        record["cost"] = cost_record(cost)
+        record["collectives"] = dict(empty_collectives(), note="one card: no collectives")
+    elif runs_sharded(cfg, shape, tag):
+        with fake_production_mesh(multi_pod=mesh_name == "multi") as dmesh:
+            args = place_args(cell_args(cfg, shape, gbatch, seq), kind, dmesh)
+            cost, out = run_step(step_fn(cfg, shape, tag), args, kind)
+            memory = card_memory(cost, args, out)
+            memory["argument_bytes_per_device"] = local_bytes(args)
+            record["memory"] = dict(sharded_memory(cfg, shape, mesh, gbatch, seq), **memory)
+            record["cost"] = cost_record(cost)
+            record["collectives"] = cost.collectives
+            del args, out
     else:
         record["memory"] = sharded_memory(cfg, shape, mesh, gbatch, seq)
         record["cost"] = None
@@ -266,7 +323,9 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: pathlib.Path,
     if record["cost"] is not None:
         print(f"[ok] {out_path.name}: peak={mem['peak_bytes_per_device'] / 2**30:.2f} GiB "
               f"flops={record['cost']['flops_per_device']:.3e} "
-              f"bytes={record['cost']['bytes_accessed_per_device']:.3e} ({record['run_s']}s)")
+              f"bytes={record['cost']['bytes_accessed_per_device']:.3e} "
+              f"coll_wire={record['collectives']['total_wire_bytes'] / 2**30:.3f} GiB "
+              f"({record['run_s']}s)")
     else:
         print(f"[ok] {out_path.name}: arguments="
               f"{mem['argument_bytes_per_device'] / 2**30:.2f} GiB/dev ({record['run_s']}s)")

@@ -4,11 +4,14 @@ Counterpart of ``repro.launch.mesh``.  :func:`make_production_mesh` returns
 the reference's shapes as :class:`MeshShape`s, axis names and sizes with no
 devices: the sharding rules and the dry run need nothing more, and nothing
 here touches device state.  :func:`make_host_mesh` builds a real
-``DeviceMesh`` of one device on a world-size-1 process group.
+``DeviceMesh`` of one device on a world-size-1 process group;
+:func:`fake_production_mesh` a real ``DeviceMesh`` of the production shape
+on a fake process group, for the dry run of a sharded step on ``meta``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Tuple
@@ -65,3 +68,25 @@ def make_host_mesh(device=None) -> DeviceMesh:
     elif dist.get_world_size() != 1:
         raise RuntimeError(f"a host mesh needs a world of 1 rank, got {dist.get_world_size()}")
     return init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (16x16, or 2x16x16 multi-pod) as a real
+    ``DeviceMesh`` of 256 or 512 ranks on a fake process group
+    (``torch.testing._internal.distributed.fake_pg``: collectives move
+    nothing), seen from rank 0: the dry run's sharded step runs on it with
+    ``meta`` local shards.  Its device type is ``cuda``, the H100 mesh's,
+    so DTensor picks the collectives NCCL runs (an all-to-all where gloo
+    would all-gather); nothing touches a device.  Starts the group and
+    destroys it on exit; raises if a process group is running."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape = make_production_mesh(multi_pod=multi_pod)
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=shape.n_devices)
+    try:
+        yield init_device_mesh("cuda", shape.sizes, mesh_dim_names=shape.axis_names)
+    finally:
+        dist.destroy_process_group()

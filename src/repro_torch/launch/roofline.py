@@ -11,12 +11,14 @@ Per (arch x shape x mesh) cell:
   memory term     = bytes_global / (chips * HBM_bw)
   collective term = wire_bytes_per_device / link_bw
 (the records hold per-device numbers; global = x chips.  ``--mesh card``
- records have no collectives.)
+ records have no collectives; the production meshes' records hold the
+ collectives the sharded step issued, counted by ``launch.op_cost``.)
 
 Also reports MODEL_FLOPS / counted FLOPs (useful-compute fraction: catches
 remat recompute and masked-attention waste) and the bound term.  Records of
-the production meshes carry no step cost yet (``cost`` null, ROADMAP A4d):
-they print in a separate "fits per device" table of argument bytes.
+cells that do not run sharded yet (``cost`` null: every arch but
+llama3.2-1B, and the mqr-KV sparse decode; ROADMAP A4d) print in a
+separate "fits per device" table of argument bytes.
 """
 
 from __future__ import annotations
@@ -139,7 +141,7 @@ def main(argv=None):
     else:
         print(table(cells))
         if any(c.get("cost") is None for c in cells):
-            print("\nfits per device (no step cost on the production meshes yet):\n")
+            print("\nfits per device (cells whose step does not run sharded yet):\n")
             print(fits_table(cells))
 
 

@@ -37,14 +37,17 @@ caller (``transformer.embed_inputs``) gives them.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core import kvindex
-from repro_torch.kernels import ops
+from repro_torch.kernels import _lib, ops
+from repro_torch.sharding import rules
 
-from .modules import apply_rope, dense_init, param_dtype, shard
+from .modules import apply_rope, dense_init, grad_placed, on_mesh, param_dtype, shard
 
 NEG_INF = -1e30
 FLASH_TILE = 128  # kernel #8 takes S a multiple of this
@@ -64,13 +67,21 @@ def init_attention(generator, cfg, d_model: int) -> Dict:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, S, D) @ w (D, H, Dh) -> (B, S, H, Dh)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    """x (B, S, D) @ w (D, H, Dh) -> (B, S, H, Dh).  On a mesh the product
+    (B, S, H·Dh) is first brought to batch over the data axes and heads over
+    ``model`` where the heads divide (as ``rules.spec_for_param`` shards w),
+    else replicated: a shard of H·Dh that splits a head cannot unflatten
+    (nor can w's gradient: ``grad_placed``)."""
+    y = x @ grad_placed(w.reshape(w.shape[0], -1))
+    if isinstance(y, DTensor):
+        y = shard(y, *rules.clean_spec((("pod", "data"), None, "model"),
+                                       (*y.shape[:2], w.shape[1]), y.device_mesh))
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """out (B, S, H, Dh) @ wo (H*Dh, D) -> (B, S, D)."""
-    return out.reshape(*out.shape[:2], -1) @ wo
+    return grad_placed(out.reshape(*out.shape[:2], -1)) @ wo
 
 
 def _project_qkv(params, cfg, x, positions):
@@ -88,15 +99,32 @@ def _heads_first(t: torch.Tensor, group: int) -> torch.Tensor:
     return t.reshape(b * hkv * group, s, dh)
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of q (B, S, H, Dh) over k, v (B, S, Hkv, Dh) at
-    positions 0 .. S-1 -> (B, S, H, Dh), through kernel #8 (its plain
-    version on the CPU).  S is padded to a multiple of 128 with zero rows;
-    padded keys come after every real query, so they are masked."""
+def _kv_for_heads(t: torch.Tensor, dim: int, h0: int, hl: int, group: int, kv0: int):
+    """The kv heads along ``dim`` of t (global heads from ``kv0`` on) that
+    query heads h0 .. h0+hl-1 read (head h reads kv head h // group), and
+    how many consecutive query heads read each: whole groups, the one kv
+    head a rank's heads share (h0 a multiple of hl), else one selected a
+    head.  Without a mesh (h0 = kv0 = 0, hl = H) t itself and ``group``."""
+    first = h0 // group - kv0
+    if h0 % group == 0 and hl % group == 0:
+        n, rep = hl // group, group
+    elif group % hl == 0:
+        n, rep = 1, hl
+    else:
+        idx = torch.arange(h0, h0 + hl, device=t.device) // group - kv0
+        return t.index_select(dim, idx), 1
+    if (first, n) != (0, t.shape[dim]):
+        t = t.narrow(dim, first, n)
+    return t, rep
+
+
+def _causal_local(q, k, v, h0: int = 0, kv0: int = 0, group: int = 1) -> torch.Tensor:
+    """Kernel #8 over plain q (B, S, Hl, Dh), k, v (B, S, Hkv_l, Dh): query
+    heads from global h0, kv heads from global kv0 (:func:`_kv_for_heads`)."""
     b, s, h, dh = q.shape
-    group = h // k.shape[2]
     pad = -s % FLASH_TILE
-    qh, kh, vh = (_heads_first(t, g) for t, g in ((q, 1), (k, group), (v, group)))
+    qh = _heads_first(q, 1)
+    kh, vh = (_heads_first(*_kv_for_heads(t, 2, h0, h, group, kv0)) for t in (k, v))
     if pad:
         qh, kh, vh = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (qh, kh, vh))
     # on the card a head dim the kernel is not built for raises, naming it;
@@ -104,6 +132,38 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     # of the broadcast kv heads sum onto their kv head
     out = ops.FlashAttention.call(qh.contiguous(), kh.contiguous(), vh.contiguous())
     return out[:, :s].reshape(b, h, s, dh).permute(0, 2, 1, 3)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal attention of q (B, S, H, Dh) over k, v (B, S, Hkv, Dh) at
+    positions 0 .. S-1 -> (B, S, H, Dh), through kernel #8 (its plain
+    version on the CPU).  S is padded to a multiple of 128 with zero rows;
+    padded keys come after every real query, so they are masked.
+
+    DTensors run on their local shards (``local_map``, at this (B, S, H,
+    Dh) level, so no dim sharded on two mesh axes is ever reshaped): the
+    batch over the data axes, the heads over ``model`` where they divide,
+    the sequence whole (#8 takes q and k at positions 0 .. S-1, so a
+    sequence-sharded q, as ``attention_train`` constrains it, is brought
+    back to a head shard here; ROADMAP C38).  Each local query head reads
+    its kv head by its global index (C39): with more query heads than
+    ``model`` ranks but fewer kv heads (llama3.2-1B's 32 and 8 on 16) the kv
+    heads are replicated and each rank picks the ones its heads read."""
+    h = q.shape[2]
+    group = h // k.shape[2]
+    if not isinstance(q, DTensor):
+        return _causal_local(q, k, v, 0, 0, group)
+    mesh = q.device_mesh
+    spec = (("pod", "data"), None, "model", None)
+    qp = rules.placements(rules.clean_spec(spec, q.shape, mesh), mesh)
+    kp = rules.placements(rules.clean_spec(spec, k.shape, mesh), mesh)
+    h0 = rules.shard_start(mesh, qp, 2, h)
+    kv0 = rules.shard_start(mesh, kp, 2, k.shape[2])
+    # a kv head replicated where the query heads are sharded gets a partial
+    # gradient on each rank: the ranks' gradients add up
+    kg = tuple(Partial() if a.is_shard(2) and not b.is_shard(2) else b for a, b in zip(qp, kp))
+    fn = functools.partial(_causal_local, h0=h0, kv0=kv0, group=group)
+    return _lib.on_local_shards(fn, (q, k, v), (qp, kp, kp), qp, (qp, kg, kg))
 
 
 def flash_attention(
@@ -262,17 +322,50 @@ def _decode_qkv(params, cfg, x, pos):
 
 
 def _write(cache_t: torch.Tensor, at: torch.Tensor, new: torch.Tensor) -> None:
-    """Write new (B, 1, Hkv, Dh) into cache (B, Hkv, S, Dh) at slot ``at``."""
-    cache_t.index_copy_(2, at, new.transpose(1, 2).to(cache_t.dtype))
+    """Write new (B, 1, Hkv, Dh) into cache (B, Hkv, S, Dh) at slot ``at``.
+    A DTensor cache is written on its local shard (:func:`_write_shard`)."""
+    new = new.transpose(1, 2).to(cache_t.dtype)
+    if isinstance(cache_t, DTensor):
+        _write_shard(cache_t, at, new)
+    else:
+        cache_t.index_copy_(2, at, new)
+
+
+def _write_shard(cache_t, at: torch.Tensor, new) -> None:
+    """The in-place write of :func:`_write` on each rank's shard of a
+    DTensor cache (``rules.cache_spec``: batch over the data axes, kv heads
+    or else the sequence over ``model``), gathering nothing: the new
+    (B, Hkv, 1, Dh) is brought to the cache's batch and head placements (a
+    local slice where it is replicated), and a sequence shard writes slot
+    ``at`` only if the slot is its own (a select, no read on the host)."""
+    mesh, pl = cache_t.device_mesh, cache_t.placements
+    new = on_mesh(new, cache_t)
+    want = tuple(Replicate() if p.is_shard(2) else p for p in pl)
+    if tuple(new.placements) != want:
+        new = new.redistribute(mesh, want)
+    local, new = cache_t.to_local(), new.to_local()
+    if not any(p.is_shard(2) for p in pl):
+        local.index_copy_(2, at, new)
+        return
+    s0, n = rules.shard_start(mesh, pl, 2, cache_t.shape[2]), local.shape[2]
+    slot = (at - s0).clamp(0, n - 1)
+    mine = (at >= s0) & (at < s0 + n)
+    local.index_copy_(2, slot, torch.where(mine, new, local.index_select(2, slot)))
+
+
+def _decode_logits(qs, k_cache, mask, dh):
+    """qs (B, Hkv, G, Dh) . the cache's keys (B, Hkv, S, Dh): a product in
+    the cache's dtype, then float32 over sqrt(Dh), masked."""
+    logits = (qs @ k_cache.mT).to(torch.float32)
+    logits = logits / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
+    return torch.where(mask, logits, NEG_INF)
 
 
 def _softmax_attend(qs, k_cache, v_cache, mask, dh):
     """The reference's decode attention: qs (B, Hkv, G, Dh) over the cache
     (B, Hkv, S, Dh); logits as a product in the cache's dtype, then float32
     over sqrt(Dh), masked, softmax, p in v's dtype -> (B, Hkv, G, Dh)."""
-    logits = (qs @ k_cache.transpose(-1, -2)).to(torch.float32)
-    logits = logits / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
-    logits = torch.where(mask, logits, NEG_INF)
+    logits = _decode_logits(qs, k_cache, mask, dh)
     p = torch.softmax(logits, dim=-1)
     return p.to(v_cache.dtype) @ v_cache
 
@@ -299,6 +392,9 @@ def attention_decode(params, cfg, x, cache: Dict, pos, window=None, mqr_sparse: 
     """Single-token decode. x: (B, 1, D); ``pos`` (a Python int or a 0-d
     integer tensor) is the new token's position.  Writes the cache in place
     and returns (out (B, 1, D), cache)."""
+    if mqr_sparse and isinstance(cache["k"], DTensor):
+        raise NotImplementedError("the mqr-KV sparse decode does not run sharded yet "
+                                  "(ROADMAP A4d)")
     q, k_new, v_new = _decode_qkv(params, cfg, x, pos)
     at = _at(pos, x.device)
     _write(cache["k"], at, k_new)
@@ -313,14 +409,80 @@ def attention_decode(params, cfg, x, cache: Dict, pos, window=None, mqr_sparse: 
 
 
 def _dense_decode(cfg, q, k_cache, v_cache, pos, window):
-    b, _, h, dh = q.shape
-    hkv = cfg.n_kv_heads
-    kv_pos = torch.arange(k_cache.shape[2], device=q.device)
+    group = q.shape[2] // cfg.n_kv_heads
+    kv_pos = on_mesh(torch.arange(k_cache.shape[2], device=q.device), k_cache)
     mask = kv_pos <= pos
     if window is not None:
         mask = mask & (kv_pos > pos - window)
-    qs = q.reshape(b, hkv, h // hkv, dh).to(k_cache.dtype)
-    return _softmax_attend(qs, k_cache, v_cache, mask, dh).reshape(b, 1, h, dh)
+    if isinstance(k_cache, DTensor):
+        return _dense_decode_sharded(q, k_cache, v_cache, mask, group)
+    return _decode_local(q, k_cache, v_cache, mask, group=group)
+
+
+def _decode_operands(q, k, v, h0: int, kv0: int, group: int):
+    """Local q (B, 1, Hl, Dh) as (B, n, g, Dh) in the cache's dtype, with the
+    n kv heads (B, n, S_l, Dh) of k, v that its heads read
+    (:func:`_kv_for_heads`), as ``_softmax_attend`` takes them."""
+    (k, g), (v, _) = (_kv_for_heads(t, 1, h0, q.shape[2], group, kv0) for t in (k, v))
+    return q.reshape(q.shape[0], k.shape[1], g, q.shape[3]).to(k.dtype), k, v
+
+
+def _decode_local(q, k, v, mask, h0=0, kv0=0, group=1):
+    """Dense decode attention (``_softmax_attend``) of plain tensors: the
+    whole cache without a mesh (h0 = kv0 = 0), or one rank's shards with
+    the cache's sequence whole."""
+    qs, k, v = _decode_operands(q, k, v, h0, kv0, group)
+    return _softmax_attend(qs, k, v, mask, q.shape[-1]).reshape(q.shape)
+
+
+def _decode_max(q, k, v, mask, h0=0, kv0=0, group=1):
+    """The largest masked logit of each query head over one rank's
+    sequence shard (B, 1, Hl, 1)."""
+    qs, k, _ = _decode_operands(q, k, v, h0, kv0, group)
+    logits = _decode_logits(qs, k, mask, q.shape[-1])
+    return logits.amax(dim=-1, keepdim=True).reshape(*q.shape[:3], 1)
+
+
+def _decode_partial(q, k, v, mask, m, h0=0, kv0=0, group=1):
+    """One rank's share of the softmax over its sequence shard, shifted by
+    the global max ``m``: sum_j e_j v_j (B, 1, Hl, Dh) float32 with e_j
+    rounded to v's dtype, as ``_softmax_attend`` rounds p, and sum_j e_j
+    (B, 1, Hl, 1)."""
+    qs, k, v = _decode_operands(q, k, v, h0, kv0, group)
+    logits = _decode_logits(qs, k, mask, q.shape[-1])
+    e = torch.exp(logits - m.reshape(*logits.shape[:3], 1))
+    o = (e.to(v.dtype) @ v).to(torch.float32)
+    return o.reshape(q.shape), e.sum(dim=-1).reshape(*q.shape[:3], 1)
+
+
+def _dense_decode_sharded(q, k_cache, v_cache, mask, group: int):
+    """Dense decode on DTensor caches, each rank on its own shards
+    (``local_map``): q takes the cache's batch placements and its kv-head
+    placements as query heads (each local query head reads its kv head by
+    global index, C39).  Where ``rules.cache_spec`` shards the cache's
+    sequence (kv heads that ``model`` does not divide), q is replicated
+    over those ranks and the softmax is combined across them as
+    flash-decoding does: the global max (a ``Partial("max")``), then each
+    rank's shifted sums (``Partial("sum")``), out = sum e v / sum e."""
+    mesh, kp = k_cache.device_mesh, tuple(k_cache.placements)
+    h, hkv = q.shape[2], k_cache.shape[1]
+    qp = tuple(Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(1) else Replicate()
+               for p in kp)
+    mp = tuple(Shard(0) if p.is_shard(2) else Replicate() for p in kp)
+    at = dict(h0=rules.shard_start(mesh, qp, 2, h), kv0=rules.shard_start(mesh, kp, 1, hkv),
+              group=group)
+    mask = on_mesh(mask, k_cache)
+    args, pls = (q, k_cache, v_cache, mask), (qp, kp, kp, mp)
+    if not any(p.is_shard(2) for p in kp):
+        return _lib.on_local_shards(functools.partial(_decode_local, **at), args, pls, qp, pls)
+    m = _lib.on_local_shards(functools.partial(_decode_max, **at), args, pls,
+                             tuple(Partial("max") if p.is_shard(2) else a
+                                   for p, a in zip(kp, qp)), pls)
+    m = m.redistribute(mesh, qp)
+    o_pl = tuple(Partial() if p.is_shard(2) else a for p, a in zip(kp, qp))
+    o = _lib.on_local_shards(functools.partial(_decode_partial, **at), args + (m,),
+                             pls + (qp,), o_pl, pls + (qp,), n_out=2)
+    return (o[0] / o[1]).to(v_cache.dtype)
 
 
 def _probe_rows(params, b: int) -> torch.Tensor:

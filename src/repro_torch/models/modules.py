@@ -12,6 +12,12 @@ backward kernel through ``ops.RMSNorm``), where the reference computes its
 own jnp under ``jax.grad``.  Its plain version, which a CPU tensor takes, is the
 same function as the reference's ``rmsnorm`` (float32 math, output in x's
 dtype); ``tests/test_torch_models.py`` holds the two together.
+
+The models run sharded when their parameters and inputs are DTensors on a
+``DeviceMesh`` (``launch/steps.place``): :func:`shard` then redistributes
+an activation as the reference constrains it, and :func:`on_mesh` lifts the
+plain tensors a step makes (positions, masks, constants) onto the mesh as
+``Replicate``.  On plain tensors both return their argument.
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels import ops
+from repro_torch.sharding import rules
 
 Params = Dict[str, Any]
 
@@ -93,7 +101,7 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     """x * rsqrt(mean(x^2) + eps) * scale in float32, in x's dtype: kernel
     #10 on the card, its plain version on the CPU (the reference's math);
     under autograd its backward is #10's backward kernel (``ops.RMSNorm``)."""
-    return ops.RMSNorm.apply(x.contiguous(), scale, eps)
+    return ops.RMSNorm.call(x, scale, eps)
 
 
 def act_fn(kind: str):
@@ -117,7 +125,8 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
     """x: (..., S, H, Dh) or (..., S, Dh); positions: (..., S) (a tensor)."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
+    freqs = on_mesh(rope_freqs(dh, theta, x.device), x)  # (Dh/2,)
+    positions = on_mesh(positions, x)
     ang = positions[..., None].to(torch.float32) * freqs  # (..., S, Dh/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     if x.dim() == ang.dim() + 1:  # (..., S, H, Dh): broadcast over heads
@@ -128,11 +137,47 @@ def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
 
 
 def shard(x: torch.Tensor, *spec) -> torch.Tensor:
-    """The reference's sharding constraint; on one device a no-op.  The
-    rules exist (``repro_torch.sharding``); running the models sharded on
-    DTensor over a production ``DeviceMesh`` is the next slice (ROADMAP
-    A4d)."""
-    return x
+    """The reference's sharding constraint.  A ``DTensor`` is redistributed
+    to the placements of ``spec`` cleaned for its mesh as the reference
+    cleans it (``rules.clean_spec``: axes the mesh lacks dropped, a dim the
+    kept axes do not divide replicated); a plain tensor passes through, as
+    the reference's does without a mesh."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    want = rules.placements(rules.clean_spec(spec, x.shape, mesh), mesh)
+    return x if tuple(x.placements) == want else x.redistribute(mesh, want)
+
+
+class _GradPlaced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.placements = tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_placed(t: torch.Tensor) -> torch.Tensor:
+    """``t``; for a DTensor, under autograd its gradient is brought to
+    ``t``'s own placements.  For a view that must be undone in the backward
+    (a weight flattened for a product): DTensor's backward may shard the
+    gradient where the view cannot be undone (a head split over ranks)."""
+    return _GradPlaced.apply(t) if isinstance(t, DTensor) else t
+
+
+def on_mesh(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t``, a plain tensor a step makes, as a DTensor replicated on the
+    mesh of ``like`` when ``like`` is a DTensor (each rank holds it whole,
+    as each made it); otherwise ``t``."""
+    if isinstance(like, DTensor) and not isinstance(t, DTensor):
+        mesh = like.device_mesh
+        return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    return t
 
 
 def tree_cast(tree, dtype):

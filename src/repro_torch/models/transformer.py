@@ -33,6 +33,14 @@ the mqr-KV sparse decode of the ``attn`` mixer kernel #9 (``attention``,
 SSD, RG-LRU and MoE paths are plain torch, as the reference computes them
 outside any kernel.  Every entry point takes
 ``device``: the card unless ``"cpu"`` is asked for.
+
+The same functions run sharded when the parameters, the batch and the
+caches are DTensors on a ``DeviceMesh`` (``launch.steps.place``; so far
+the dense attention path, :func:`runs_sharded`, ROADMAP A4d):
+``modules.shard`` at the reference's call sites, sequence parallelism of the residual when S %
+2048 == 0 (gathered at each mixer's and FFN's input, C38), and on the
+vocab shards the embedding lookup, the label's logit and the logsumexp
+(:func:`embed_lookup`, :func:`label_logits`, :func:`log_sum_exp`; C40).
 """
 
 from __future__ import annotations
@@ -42,13 +50,16 @@ import functools
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.kernels import _lib
 from repro_torch.kernels.ops import resolve_device
+from repro_torch.sharding import rules
 
 from . import attention as attn
 from . import mamba2 as m2
@@ -61,6 +72,7 @@ from .modules import (
     dense_init,
     device_of,
     embed_init,
+    on_mesh,
     param_dtype,
     rmsnorm,
     rmsnorm_init,
@@ -333,6 +345,7 @@ def _ffn_apply(p, cfg, x, moe_layer: bool):
     if cfg.ffn_kind == "none":
         return x * 0.0, None
     if moe_layer:
+        _not_sharded(x, "the MoE FFN")
         return moe_mod.moe_ffn(p, cfg, x)
     act = act_fn(cfg.act)
     if cfg.ffn_kind == "mlp_gelu":
@@ -342,9 +355,26 @@ def _ffn_apply(p, cfg, x, moe_layer: bool):
     return h @ p["w_out"], None
 
 
+def runs_sharded(cfg: ModelConfig) -> bool:
+    """Whether the model's steps run on DTensors over a ``DeviceMesh``
+    yet: the dense attention path, every mixer ``attn``, no MoE FFN and
+    tokens in (no frontend).  The other mixers, the MoE FFN and the
+    frontends raise ``NotImplementedError`` on DTensors (ROADMAP A4d), as
+    the mqr-KV sparse decode does."""
+    return (set(cfg.block_pattern + cfg.tail_pattern) <= {"attn"}
+            and cfg.ffn_kind != "moe" and cfg.frontend == "none")
+
+
+def _not_sharded(x, what: str) -> None:
+    if isinstance(x, DTensor):
+        raise NotImplementedError(f"{what} does not run sharded on a DeviceMesh yet "
+                                  "(ROADMAP A4d)")
+
+
 def _mixer_train(p, cfg, kind, x, positions):
     if kind == "attn":
         return attn.attention_train(p, cfg, x, positions)
+    _not_sharded(x, f"the {kind} mixer")
     if kind == "local":
         return attn.attention_train(p, cfg, x, positions, window=cfg.local_window)
     if kind == "mla":
@@ -356,14 +386,24 @@ def _mixer_train(p, cfg, kind, x, positions):
     raise ValueError(kind)
 
 
+def _gather_seq(h):
+    """A mixer's or an FFN's input with its sequence whole (batch over the
+    data axes): where the residual is sequence-sharded (``_stack``), the
+    gather of Megatron-style sequence parallelism, which XLA places for the
+    reference.  Without it DTensor flattens (B, S) sharded on both into
+    its matrix products, and its planner then takes minutes a step on the
+    2x16x16 mesh (ROADMAP C38)."""
+    return shard(h, ("pod", "data"), None, None)
+
+
 def _superblock(block_params, cfg, x, positions, moe_flags, pattern):
     """-> (x, the summed expert load of its MoE layers, or None)."""
     aux_load = None
     for i, kind in enumerate(pattern):
         lp = block_params[f"l{i}"]
-        h = rmsnorm(lp["mixer_norm"], x, cfg.norm_eps)
+        h = _gather_seq(rmsnorm(lp["mixer_norm"], x, cfg.norm_eps))
         x = x + _mixer_train(lp["mixer"], cfg, kind, h, positions)
-        h = rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
+        h = _gather_seq(rmsnorm(lp["ffn_norm"], x, cfg.norm_eps))
         y, aux = _ffn_apply(lp["ffn"], cfg, h, moe_flags[i])
         x = x + y
         if aux is not None:
@@ -400,11 +440,45 @@ def _stack(blocks, cfg, x, positions, moe_flags):
     e = cfg.n_experts if cfg.ffn_kind == "moe" else 1
     load = torch.zeros((e,), dtype=torch.float32, device=x.device)
     for block_params in blocks:
+        if x.shape[1] % 2048 == 0:
+            # sequence parallelism, as the reference's scan body: the
+            # residual (what remat keeps of a superblock) shards its
+            # sequence over the model axis
+            x = shard(x, ("pod", "data"), "model", None)
         x, aux_load = _remat(cfg, _superblock, block_params, cfg, x, positions, moe_flags,
                              cfg.block_pattern)
         if aux_load is not None:
             load = load + aux_load
     return x, load
+
+
+def _lookup_local(embed, tokens, v0: int) -> torch.Tensor:
+    """Rows of one rank's vocab shard (ids v0 .. v0 + V_local - 1) of the
+    embedding table for ``tokens``; zeros for ids in another rank's shard."""
+    local = tokens - v0
+    inside = (local >= 0) & (local < embed.shape[0])
+    return torch.where(inside[..., None], embed[local.clamp(0, embed.shape[0] - 1)], 0)
+
+
+def embed_lookup(embed, tokens) -> torch.Tensor:
+    """``embed[tokens]``.  On a mesh as a vocab-parallel embedding: the
+    table's model dim gathered (FSDP), each rank looks its tokens up in its
+    own vocab rows, and the result is ``Partial`` over the mesh dims that
+    shard the vocab.  DTensor's own rule for the lookup's backward
+    (``index_put``) fails on torch 2.11, and would gather the table."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    mesh, ep = embed.device_mesh, tuple(embed.placements)
+    tokens = on_mesh(tokens, embed)
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in ep)
+    tp = tuple(Replicate() if e.is_shard(0) or not t.is_shard(0) else t
+               for e, t in zip(rows, tokens.placements))
+    v0 = rules.shard_start(mesh, rows, 0, embed.shape[0])
+    out = tuple(Partial() if e.is_shard(0) else t for e, t in zip(rows, tp))
+    grad = tuple(e if e.is_shard(0) else Partial() if t.is_shard(0) else Replicate()
+                 for e, t in zip(rows, tp))
+    return _lib.on_local_shards(functools.partial(_lookup_local, v0=v0), (embed, tokens),
+                                (rows, tp), out, (grad, tp))
 
 
 def _scale_embeddings(cfg, x):
@@ -425,6 +499,8 @@ def embed_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
     dt = param_dtype(cfg)
     tokens = batch["tokens"].long()
     dev = tokens.device
+    if cfg.frontend != "none":
+        _not_sharded(params["embed"], f"the {cfg.frontend} frontend")
     if cfg.frontend == "audio_codebooks":
         x = _embed_codebooks(params["embed"], tokens).to(dt)  # tokens (B, S, K)
         b, s = tokens.shape[:2]
@@ -439,7 +515,7 @@ def embed_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
                           torch.ones(tokens.shape, dtype=torch.bool, device=dev)], dim=1)
         return x, positions, mask
     b, s = tokens.shape
-    x = _scale_embeddings(cfg, params["embed"][tokens].to(dt))
+    x = _scale_embeddings(cfg, embed_lookup(params["embed"], tokens).to(dt))
     positions = torch.arange(s, device=dev).expand(b, s)
     return x, positions, torch.ones((b, s), dtype=torch.bool, device=dev)
 
@@ -469,10 +545,55 @@ def logits_fn(params, cfg, hidden):
     """Logits over the padded vocab, in the model's dtype (the pad ids are
     masked by the serve step, as in the reference)."""
     if cfg.frontend == "audio_codebooks":
-        return torch.einsum("bsd,kdv->bskv", hidden, params["lm_head"])
-    if cfg.tie_embeddings:
-        return hidden @ params["embed"].T
-    return hidden @ params["lm_head"]
+        out = torch.einsum("bsd,kdv->bskv", hidden, params["lm_head"])
+        return shard(out, ("pod", "data"), None, None, "model")
+    out = hidden @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    # vocab over the model axis, batch over the data axes, as the reference
+    return shard(out, ("pod", "data"), None, "model")
+
+
+def _label_logits_local(logits, labels, v0: int) -> torch.Tensor:
+    """Each label's logit from one rank's vocab shard (vocab ids v0 ..
+    v0 + V_local - 1) of ``logits`` (..., V_local); 0 where the label lies
+    in another rank's shard."""
+    local = labels - v0
+    inside = (local >= 0) & (local < logits.shape[-1])
+    ll = torch.gather(logits, -1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    return torch.where(inside, ll, 0.0)
+
+
+def label_logits(logits, labels) -> torch.Tensor:
+    """``logits[..., labels]`` (labels >= 0).  Plain tensors take it with
+    ``torch.gather``.  On a mesh each rank takes it from its own vocab
+    shard, so the sharded logits are never gathered: the result is
+    ``Partial`` (one rank's value, the others' 0) over the mesh dims that
+    shard the vocab, then summed by whatever reads it (ROADMAP C40; the
+    reference reduces a one-hot for the same reason)."""
+    if not isinstance(logits, DTensor):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    lp = logits.placements
+    v0 = rules.shard_start(mesh, lp, last, logits.shape[-1])
+    lab = tuple(Replicate() if p.is_shard(last) or p.is_partial() else p for p in lp)
+    logit_pl = tuple(Replicate() if p.is_partial() else p for p in lp)
+    out = tuple(Partial() if p.is_shard(last) else p for p in logit_pl)
+    labels = on_mesh(labels, logits)
+    return _lib.on_local_shards(functools.partial(_label_logits_local, v0=v0),
+                                (logits, labels), (logit_pl, lab), out, (logit_pl, lab))
+
+
+def log_sum_exp(logits) -> torch.Tensor:
+    """``torch.logsumexp`` over the vocab (the last dim).  On a mesh each
+    rank takes it over its own vocab shard and the ranks' results, a
+    (..., ranks) tensor, are combined by one more logsumexp, so the
+    sharded logits are never gathered (C40); over one rank the combine is
+    exact, value and gradient."""
+    if not isinstance(logits, DTensor):
+        return torch.logsumexp(logits, dim=-1)
+    pl = tuple(Replicate() if p.is_partial() else p for p in logits.placements)
+    part = _lib.on_local_shards(lambda t: torch.logsumexp(t, dim=-1, keepdim=True),
+                                (logits,), (pl,), pl, (pl,))
+    return torch.logsumexp(part, dim=-1)
 
 
 def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
@@ -483,17 +604,19 @@ def loss_and_aux(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
     the reference); a vision model's patch positions get label -1; audio
     takes the mean over its codebooks.  Returns (loss, {"expert_load": (E,),
     "n_tokens": the count of valid positions}).  The label's logit is
-    gathered where the reference reduces a one-hot: the same value."""
+    gathered where the reference reduces a one-hot: the same value (on a
+    mesh, from each rank's vocab shard: :func:`label_logits`)."""
     x, positions, mask = embed_inputs(params, cfg, batch)
     hidden, load = forward_hidden(params, cfg, x, positions)
     logits = logits_fn(params, cfg, hidden).to(torch.float32)
     labels = batch["labels"].long()
     if cfg.frontend == "vision_patches":
         b, p = labels.shape[0], cfg.n_patches
-        labels = torch.cat([torch.full((b, p), -1, dtype=labels.dtype, device=labels.device),
-                            labels], dim=1)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        pad = torch.full((b, p), -1, dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([on_mesh(pad, labels), labels], dim=1)
+    mask = on_mesh(mask, labels)
+    logz = log_sum_exp(logits)
+    ll = label_logits(logits, labels.clamp(min=0))
     if cfg.frontend == "audio_codebooks":
         # labels (B, S, K); logits (B, S, K, V)
         nll = (logz - ll).mean(dim=-1)  # mean over codebooks
@@ -551,6 +674,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Any:
 def _mixer_decode(p, cfg, kind, x, cache, pos, mqr_sparse):
     if kind == "attn":
         return attn.attention_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
+    _not_sharded(x, f"the {kind} mixer")
     if kind == "local":
         return attn.local_attention_decode(p, cfg, x, cache, pos)
     if kind == "mla":
@@ -586,9 +710,10 @@ def decode_step(
     dt = param_dtype(cfg)
     tokens = tokens.long()
     if cfg.frontend == "audio_codebooks":
+        _not_sharded(params["embed"], "the audio_codebooks frontend")
         x = _embed_codebooks(params["embed"], tokens).to(dt)
     else:
-        x = _scale_embeddings(cfg, params["embed"][tokens].to(dt))
+        x = _scale_embeddings(cfg, embed_lookup(params["embed"], tokens).to(dt))
     moe = cfg.ffn_kind == "moe"
     if _split_stacks(cfg):
         stacks = ((params["blocks_dense"], caches["dense"], (False,)),

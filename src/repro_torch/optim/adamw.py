@@ -24,6 +24,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.modules import DTYPES, tree_leaves, tree_map
 
@@ -104,8 +105,12 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
     c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=stepf.device), stepf)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
                           tree_leaves(state.v)):
-        gf = torch.zeros(p.shape, dtype=torch.float32, device=p.device) if g is None \
-            else g.to(torch.float32)
+        if g is not None:
+            gf = g.to(torch.float32)
+        elif isinstance(p, DTensor):  # on p's mesh, as p
+            gf = torch.zeros_like(p, dtype=torch.float32)
+        else:
+            gf = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         m_new = b1 * m.to(torch.float32) + (1 - b1) * gf
         v_new = b2 * v.to(torch.float32) + (1 - b2) * gf * gf
         mhat = m_new / c1

@@ -220,6 +220,23 @@ def cache_spec(path: str, shape, mesh) -> PartitionSpec:
     return PartitionSpec(*([None] * len(shape)))
 
 
+def clean_spec(spec, shape, mesh) -> PartitionSpec:
+    """``spec`` as the reference's ``models.modules.shard`` cleans it for
+    the mesh in scope: axis names the mesh lacks are dropped (single-pod
+    has no ``pod``), and a dim the kept axes do not divide is replicated;
+    one kept axis stays a name, several a tuple."""
+    sizes = mesh_axes(mesh)
+    out = []
+    for dim, e in zip(shape, spec):
+        names = e if isinstance(e, (tuple, list)) else (e,)
+        kept = tuple(a for a in names if a is not None and a in sizes)
+        if not kept or dim % axis_size(mesh, kept):
+            out.append(None)
+        else:
+            out.append(kept[0] if len(kept) == 1 else kept)
+    return PartitionSpec(*out)
+
+
 def placements(spec: PartitionSpec, mesh) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: one per mesh dim,
     ``Shard(i)`` where tensor dim i names that axis, else ``Replicate()``.
@@ -230,6 +247,19 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
                 if e == axis or (isinstance(e, tuple) and axis in e)]
         out.append(Shard(dims[0]) if dims else Replicate())
     return tuple(out)
+
+
+def shard_start(mesh, placements, dim: int, size: int) -> int:
+    """Where this rank's shard of tensor dim ``dim`` (of ``size``) starts
+    under ``placements`` on a ``DeviceMesh``: even shards, the mesh dims
+    that shard ``dim`` nested in mesh order (pod-major, as DTensor and JAX
+    order them)."""
+    idx, n = 0, 1
+    for m, p in enumerate(placements):
+        if p.is_shard(dim):
+            idx = idx * mesh.size(m) + mesh.get_local_rank(m)
+            n *= mesh.size(m)
+    return idx * (size // n)
 
 
 def shard_shape(spec: PartitionSpec, shape, mesh) -> tuple:
