@@ -229,7 +229,19 @@ it and read just after):
      prompt's last logits through ``prefill`` within 1e-2 of the prompt
      streamed through decode steps on a float32 model drawn from the seed
      (DeepSeek's first layer alone), and there MLA's sparse decode with
-     top-K = every block within 0.05 of dense; peak device memory;
+     top-K = every block within 0.05 of dense; peak device memory; the
+     sharded MoE and MLA families (``sharded_family_check``, granite-moe-1b
+     and DeepSeek-V3 cut): parameters, tokens and caches placed as
+     DTensors on a 1x1 NCCL ``DeviceMesh`` (no copies), a prefill of (1,
+     prefill) and a dense decode step of B 4 over (4, kv_len) caches
+     against the unsharded steps (logits bit for bit, or within 1e-5 with
+     the worst difference printed; tokens equal; #8 and #10 through
+     ``local_map`` as counted, no plain version), each step's time once
+     warm; then granite-moe-1b's first training on the card, 4 train
+     steps of B 8 x S 1024 sharded against 4 unsharded from copies of the
+     same state (``sharded_step_check``: bit for bit, #8 48, 8b 24, #10 97
+     and 10b 49 launches a step, no collective and equal counted FLOPs
+     under ``OpCost``, step ms and ``max_memory_allocated`` of both);
      training (``train_phase``, after the card is freed and its peak
      statistics reset): llama3.2-1B at full width, bf16, remat "full", 10
      steps of ``launch.steps.make_train_step`` on ``SyntheticLM`` batches
@@ -253,9 +265,9 @@ it and read just after):
      steps from the same state (the loss and every updated parameter bit
      for bit, or within 1e-5 with the leaves named), #8, 8b, #10 and 10b
      through ``local_map`` the counted number of times a step, no plain
-     version, a third sharded step under ``OpCost`` (collectives counted
-     and printed, its counted FLOPs and kernel reports equal to one more
-     unsharded step's), both steps' times; the group destroyed;
+     version, a third sharded step under ``OpCost`` (no collective, its
+     counted FLOPs and kernel reports equal to one more unsharded
+     step's), both steps' times; the group destroyed;
  19. each kernel against its plain version at its path's shapes (exact
      equality: masks, integers and float32 min/max/compare do not round;
      #4's float32 bounds by their bits; #8-#10, floating reductions,
@@ -1770,6 +1782,16 @@ FAMILY_PREFILL_GATE = 1e-2  # |prefill - streamed decode| last logits, float32 c
 MOE_GATE = (2e-2, 2e-2)     # bf16: |a - b| <= atol + rtol |b| (the reference's parity gate)
 
 
+def fill_normal(caches, gen_):
+    """Every tensor of ``caches`` (``init_caches``' tree) filled from a
+    normal draw of ``gen_``, in place; returns ``caches``."""
+    from repro_torch.models.modules import tree_leaves
+
+    for t in tree_leaves(caches):
+        t.normal_(generator=gen_)
+    return caches
+
+
 def busy_share(fn) -> tuple[float, float, list]:
     """One traced call of ``fn()`` after a warm-up: (host window ms, device
     busy ms, the device's kernels as (ms, count, name), largest first); the
@@ -1963,11 +1985,7 @@ def families_phase(args, checks, dev, card, paths, sparse_inputs=None) -> dict:
             bd, s_len, pos = fam["serve"]["batch"], 128, 0
         caches = T.init_caches(cfg, bd, s_len, device=dev)
         if fam["long_steps"]:
-            for stack in caches.values():
-                for layer in stack:
-                    for c in layer.values():
-                        for t_ in c.values():
-                            t_.normal_(generator=gen_)
+            fill_normal(caches, gen_)
         tok = torch.randint(0, cfg.vocab_size, token_shape(cfg, bd, 1), generator=gen_,
                             device=dev)
 
@@ -2063,6 +2081,12 @@ def families_phase(args, checks, dev, card, paths, sparse_inputs=None) -> dict:
                                         f"2e-2 |plain| + 3e-2 x the row's RMS (worst error / "
                                         f"limit {worst:.3g})")
         r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # -- the MoE families' steps sharded on a 1x1 NCCL mesh ----------------
+        if moe_ffn and T.runs_sharded(cfg):
+            r["sharded"] = checks.phase(
+                f"  sharded step: {arch} on a 1x1 NCCL mesh",
+                lambda: sharded_family_check(checks, arch, cfg, params, dev, card, paths, args))
 
         # -- prefill vs the prompt streamed through decode steps, float32 ----
         check_cfg = dataclasses.replace(cfg, dtype="float32")
@@ -2346,22 +2370,33 @@ def _tree_copy(tree):
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
+def _worst_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| / |b| (0 where a equals b bit for bit)."""
+    if torch.equal(a, b):
+        return 0.0
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
 def sharded_step_check(checks, cfg, opt_cfg, params, state, batch, want, dev, card,
-                       paths) -> dict:
+                       paths, n_steps: int = 2, label: str = "train") -> dict:
     """The train step sharded on a 1x1 NCCL ``DeviceMesh``
     (``make_host_mesh()``): copies of ``params`` and ``state`` placed as
     DTensors by ``launch.steps.place`` (``DTensor.from_local``: the mesh
-    holds each whole tensor, no second copy), ``batch`` likewise.  Two
-    sharded steps against two unsharded steps of ``params``, ``state`` from
-    the same state: the losses and every updated parameter equal bit for
-    bit, or within ``SHARDED_RTOL`` with the differing leaves printed; #8,
-    8b, #10 and 10b launched ``want`` times a sharded step (through
-    ``local_map``) and no plain version.  A third sharded step runs under
-    ``OpCost``: the collectives DTensor issues on the 1x1 mesh are counted
-    and printed, and its counted FLOPs and kernel reports must equal those
-    of one more unsharded step under ``OpCost`` (the mode counts the local
-    operators DTensor runs, not DTensor's own).  Both second steps are timed (host clock between syncs);
-    the difference is DTensor's host cost.  The group is destroyed."""
+    holds each whole tensor, no second copy), ``batch`` likewise.
+    ``n_steps`` sharded steps against as many unsharded steps of ``params``,
+    ``state`` from the same state: the losses and every updated parameter
+    equal bit for bit, or within ``SHARDED_RTOL`` with the differing leaves
+    printed; #8, 8b, #10 and 10b launched ``want`` times a sharded step
+    (through ``local_map``) and no plain version.  One more sharded step
+    runs under ``OpCost``: no collective may run on the 1x1 mesh, and its
+    counted FLOPs and kernel reports must equal those of one more
+    unsharded step under ``OpCost`` (the mode counts the local operators
+    DTensor runs, not DTensor's own).  Each step is timed (host clock
+    between syncs; the steps after the first, the median of them) and its
+    ``max_memory_allocated`` read; the difference of the times is
+    DTensor's host cost.  Launch counts land in ``paths`` as ``<label>
+    sharded step <i>``.  The group is destroyed."""
     import torch.distributed as dist
 
     from repro_torch.kernels import _lib
@@ -2386,37 +2421,41 @@ def sharded_step_check(checks, cfg, opt_cfg, params, state, batch, want, dev, ca
                       for d, t in zip(tree_leaves(dp), tree_leaves(p2)))
         del p2, s2
         losses, ms, worst, differ = [], {"sharded": [], "unsharded": []}, 0.0, set()
-        for i in range(2):
+        peak = {"sharded": 0.0, "unsharded": 0.0}
+        for i in range(n_steps):
             sync()
+            torch.cuda.reset_peak_memory_stats()
             t = time.perf_counter()
             params, state, m = step(params, state, batch)
             loss = float(m["loss"])
             sync()
             ms["unsharded"].append((time.perf_counter() - t) * 1e3)
+            peak["unsharded"] = max(peak["unsharded"], torch.cuda.max_memory_allocated() / 2**30)
             with plain_attention_calls() as plain:
                 sync()
+                torch.cuda.reset_peak_memory_stats()
                 _lib.counters.reset()
                 t = time.perf_counter()
                 dp, ds, dm = step(dp, ds, db)
                 d_loss = float(dm["loss"].to_local())
                 sync()
                 ms["sharded"].append((time.perf_counter() - t) * 1e3)
-                counts = paths[f"train sharded step {i}"] = _lib.counters.snapshot()
+                counts = paths[f"{label} sharded step {i}"] = _lib.counters.snapshot()
+            peak["sharded"] = max(peak["sharded"], torch.cuda.max_memory_allocated() / 2**30)
             got = {k: counts.get(k, 0) for k in want}
             checks.expect(got == want and not plain,
-                          f"sharded train step {i}: #8, 8b, #10, 10b launches {got} through "
-                          f"local_map (expected {want}), no plain version ({plain})")
+                          f"{label}: sharded train step {i}: #8, 8b, #10, 10b launches {got} "
+                          f"through local_map (expected {want}), no plain version ({plain})")
             losses.append((loss, d_loss))
             for (path, a), b in zip(rules.leaves_with_path(dp), tree_leaves(params)):
                 a = a.to_local()
                 if not torch.equal(a, b):
                     differ.add(path)
-                    worst = max(worst, float(((a.float() - b.float()).abs()
-                                              / b.float().abs().clamp(min=1e-30)).max()))
+                    worst = max(worst, _worst_rel(a, b))
             worst = max(worst, abs(d_loss - loss) / abs(loss))
         bits = all(a == b for a, b in losses) and not differ
         checks.expect(bits or worst <= SHARDED_RTOL,
-                      f"sharded train steps == unsharded from the same state: losses "
+                      f"{label}: sharded train steps == unsharded from the same state: losses "
                       f"{losses}, {'bit for bit' if bits else 'not bit for bit'}; "
                       f"{len(differ)} of {len(tree_leaves(params))} parameters differ "
                       f"({sorted(differ)[:6]}), worst relative difference {worst:.3g} "
@@ -2433,15 +2472,21 @@ def sharded_step_check(checks, cfg, opt_cfg, params, state, batch, want, dev, ca
                       f"reports == the unsharded step's ({base.flops:,}); bytes {cost.bytes:,} "
                       f"vs {base.bytes:,}")
         coll = {k: v for k, v in cost.collectives.items() if isinstance(v, dict) and v["count"]}
-        res.update(sharded_ms=ms["sharded"][-1], unsharded_ms=ms["unsharded"][-1],
+        checks.expect(not coll, f"{label}: no collective on the 1x1 mesh under OpCost ({coll})")
+        warm = {k: statistics.median(v[1:]) if len(v) > 1 else v[0] for k, v in ms.items()}
+        res.update(sharded_ms=warm["sharded"], unsharded_ms=warm["unsharded"],
+                   sharded_ms_all=ms["sharded"], unsharded_ms_all=ms["unsharded"],
                    first_sharded_ms=ms["sharded"][0], bits=bits, worst_rel=worst,
                    differ=sorted(differ), collectives=cost.collectives, launches=got,
                    flops=cost.flops, bytes=cost.bytes, unsharded_bytes=base.bytes,
-                   no_copy=no_copy)
-        print(f"    sharded train step, 1x1 NCCL mesh, B {batch['tokens'].shape[0]} x S "
-              f"{batch['tokens'].shape[1]}: {ms['sharded'][-1]:.1f} ms (first "
-              f"{ms['sharded'][0]:.1f}) vs unsharded {ms['unsharded'][-1]:.1f} ms (first "
-              f"{ms['unsharded'][0]:.1f}); the difference is DTensor's host cost; "
+                   no_copy=no_copy, peak_gib=peak)
+        print(f"    {label}: sharded train step, 1x1 NCCL mesh, B {batch['tokens'].shape[0]} x S "
+              f"{batch['tokens'].shape[1]}: {warm['sharded']:.1f} ms (steps "
+              f"{', '.join(f'{v:.1f}' for v in ms['sharded'])}) vs unsharded "
+              f"{warm['unsharded']:.1f} ms ({', '.join(f'{v:.1f}' for v in ms['unsharded'])}); "
+              f"DTensor's host cost {warm['sharded'] - warm['unsharded']:.1f} ms a step "
+              f"(median of the steps after the first); max_memory_allocated "
+              f"{peak['sharded']:.2f} GiB sharded, {peak['unsharded']:.2f} unsharded; "
               f"collectives counted under OpCost: {coll or 'none'} (total operand bytes "
               f"{cost.collectives['total_operand_bytes']:,}); counted FLOPs {cost.flops:.4e}; "
               f"launches {got}; {time.perf_counter() - t_all:.1f} s  [{card}]", flush=True)
@@ -2498,6 +2543,125 @@ def sharded_decode_check(checks, cfg, params, tok, caches, pos, dev, card, paths
     print(f"    sharded decode step: {res['sharded_ms']:.2f} ms vs unsharded "
           f"{res['unsharded_ms']:.2f} ms (median of 3, host clock to a synchronize); "
           f"{time.perf_counter() - t_all:.1f} s  [{card}]", flush=True)
+    return res
+
+
+# granite-moe-1b's sharded train check: SyntheticLM B x S, steps (the first
+# warms up, the median of the rest is the step time)
+FAMILY_TRAIN_B, FAMILY_TRAIN_S, FAMILY_TRAIN_STEPS = 8, 1024, 4
+
+
+def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args) -> dict:
+    """A MoE / MLA family sharded on a 1x1 NCCL ``DeviceMesh``
+    (``make_host_mesh()``; parameters, batch, tokens and caches placed by
+    ``launch.steps.place`` with ``from_local``: no second copy) against the
+    same steps unsharded on the same tensors: a prefill (1, ``--prefill``)
+    whose last logits equal bit for bit, or within ``SHARDED_RTOL`` with
+    the worst difference printed; a dense decode step (B ``FAMILY_DEC_B``
+    over ``--kv-len`` caches drawn from the seed, written in place on their
+    local shards) whose logits likewise and whose greedy tokens
+    (``make_serve_step``) are equal.  #8 and #10 launch through
+    ``local_map`` as the unsharded steps count them (#10 for every block
+    norm and MLA's q_norm and kv_norm), no plain version runs.  Each step
+    once warm, median of 3, host clock; the difference is DTensor's host
+    cost.  Then, for a model with attention layers and no dense stack
+    (granite-moe-1b), ``FAMILY_TRAIN_STEPS`` train steps
+    (:func:`sharded_step_check`, its own mesh) from copies of the same
+    state on ``SyntheticLM`` batches of B ``FAMILY_TRAIN_B`` x S
+    ``FAMILY_TRAIN_S``, remat "full".  ``params`` are updated in place by
+    those steps.  Launch counts land in ``paths`` under ``llm <arch>
+    sharded ...`` and ``train <arch> sharded step <i>``."""
+    import torch.distributed as dist
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import steps as step_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.sharding import rules
+
+    res: dict = {}
+    t_all = time.perf_counter()
+    n_attn = sum(k == "attn" for k in cfg.block_pattern) * cfg.n_superblocks
+    norms = norms_a_step(cfg)
+    gen_ = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    toks = torch.randint(0, cfg.vocab_size, (1, args.prefill), generator=gen_, device=dev)
+    bd, pos = FAMILY_DEC_B, args.kv_len - 37
+    caches = fill_normal(T.init_caches(cfg, bd, args.kv_len, device=dev), gen_)
+    tok = torch.randint(0, cfg.vocab_size, (bd, 1), generator=gen_, device=dev)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    prefill = step_lib.make_prefill_step(cfg)
+    serve = step_lib.make_serve_step(cfg)
+    with torch.inference_mode():
+        want_pre = prefill(params, {"tokens": toks})
+        want_logits = T.decode_step(params, cfg, tok, caches, pos)[0]
+        want_tok = serve(params, tok, caches, pos_t)[0]
+        res["prefill_unsharded_ms"] = wall_ms(lambda: prefill(params, {"tokens": toks}), 3)
+        res["decode_unsharded_ms"] = wall_ms(lambda: serve(params, tok, caches, pos_t), 3)
+    mesh = make_host_mesh(dev)
+    try:
+        dp = step_lib.place(params, rules.param_shardings(params, mesh), mesh)
+        db = step_lib.place({"tokens": toks}, rules.batch_shardings({"tokens": toks}, mesh), mesh)
+        dc = step_lib.place(caches, rules.cache_shardings(caches, mesh), mesh)
+        dt = step_lib.place({"t": tok}, rules.batch_shardings({"t": tok}, mesh), mesh)["t"]
+        with torch.inference_mode(), plain_attention_calls() as plain:
+            prefill(dp, db)  # DTensor's sharding propagation, once
+            sync()
+            _lib.counters.reset()
+            got_pre = prefill(dp, db).to_local()
+            sync()
+            pre_counts = paths[f"llm {arch} sharded prefill"] = _lib.counters.snapshot()
+            res["prefill_sharded_ms"] = wall_ms(lambda: prefill(dp, db), 3)
+            T.decode_step(dp, cfg, dt, dc, pos)  # propagation, once
+            sync()
+            _lib.counters.reset()
+            got_logits = T.decode_step(dp, cfg, dt, dc, pos)[0].to_local()
+            sync()
+            dec_counts = paths[f"llm {arch} sharded decode step"] = _lib.counters.snapshot()
+            got_tok = serve(dp, dt, dc, pos_t)[0].to_local()
+            res["decode_sharded_ms"] = wall_ms(lambda: serve(dp, dt, dc, pos_t), 3)
+        del dp, db, dc, dt
+    finally:
+        dist.destroy_process_group()
+    pre_rel, dec_rel = _worst_rel(got_pre, want_pre), _worst_rel(got_logits, want_logits)
+    want_pre_counts = {"rmsnorm_bf16": norms, "flash_attention_bf16": n_attn}
+    want_dec_counts = {"rmsnorm_bf16": norms, "flash_attention_bf16": 0}
+    pre_got = {k: pre_counts.get(k, 0) for k in want_pre_counts}
+    dec_got = {k: dec_counts.get(k, 0) for k in want_dec_counts}
+    checks.expect(pre_rel <= SHARDED_RTOL and pre_got == want_pre_counts and not plain,
+                  f"{arch} sharded prefill (1, {args.prefill:,}), 1x1 NCCL mesh: last logits "
+                  f"{'bit for bit' if pre_rel == 0 else f'worst relative difference {pre_rel:.3g}'}"
+                  f" (limit {SHARDED_RTOL:g}); launches {pre_got} through local_map (expected "
+                  f"{want_pre_counts}), no plain version ({plain})")
+    checks.expect(dec_rel <= SHARDED_RTOL and torch.equal(got_tok, want_tok)
+                  and dec_got == want_dec_counts,
+                  f"{arch} sharded dense decode step (B {bd}, {args.kv_len:,}-token caches, pos "
+                  f"{pos}): logits {'bit for bit' if dec_rel == 0 else f'worst relative difference {dec_rel:.3g}'}"
+                  f", tokens equal the unsharded step's; launches {dec_got} (expected "
+                  f"{want_dec_counts})")
+    res.update(prefill_rel=pre_rel, decode_rel=dec_rel, prefill_launches=pre_got,
+               decode_launches=dec_got)
+    print(f"    {arch} sharded prefill (1, {args.prefill:,}): {res['prefill_sharded_ms']:.2f} ms vs "
+          f"unsharded {res['prefill_unsharded_ms']:.2f}; dense decode step (B {bd}, "
+          f"{args.kv_len:,}-token caches): {res['decode_sharded_ms']:.2f} ms vs unsharded "
+          f"{res['decode_unsharded_ms']:.2f} (median of 3 once warm, host clock to a "
+          f"synchronize; the differences are DTensor's host cost)  [{card}]", flush=True)
+    del caches, want_pre, want_logits, got_pre, got_logits
+    free_card()
+    if n_attn and "blocks_dense" not in params:
+        opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=FAMILY_TRAIN_STEPS)
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=FAMILY_TRAIN_S,
+                                      global_batch=FAMILY_TRAIN_B, seed=args.seed))
+        batch = to_device(data.batch(0), dev)
+        state = init_state(params, opt_cfg)
+        res["train"] = sharded_step_check(checks, cfg, opt_cfg, params, state, batch,
+                                          train_step_counts(cfg), dev, card, paths,
+                                          n_steps=FAMILY_TRAIN_STEPS, label=f"train {arch}")
+        del state, batch
+        free_card()
+    res["check_s"] = time.perf_counter() - t_all
     return res
 
 

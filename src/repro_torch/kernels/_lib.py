@@ -137,15 +137,20 @@ def on_local_shards(fn, args, in_placements, out_placements, in_grad_placements,
     placements differ (a collective, which an active ``OpCost`` counts):
     a kernel is never handed a placement it cannot take.  The outputs are
     wrapped with ``out_placements`` (``fn`` returns one tensor, or a tuple
-    of ``n_out`` tensors placed alike); ``in_grad_placements`` says how the
-    gradient of each local shard lies (``Partial`` where the shards'
-    gradients add up)."""
+    of ``n_out`` tensors, placed alike or, given a tuple of placements an
+    output, each as its own); ``in_grad_placements`` says how the gradient
+    of each local shard lies (``Partial`` where the shards' gradients add
+    up)."""
     from torch.distributed.tensor.experimental import local_map
 
     mesh = args[0].device_mesh
     args = [a if tuple(a.placements) == tuple(p) else a.redistribute(mesh, tuple(p))
             for a, p in zip(args, in_placements)]
-    return local_map(fn, out_placements=(tuple(out_placements),) * n_out,
+    if n_out > 1 and isinstance(out_placements[0], (tuple, list)):
+        out_placements = tuple(tuple(p) for p in out_placements)
+    else:
+        out_placements = (tuple(out_placements),) * n_out
+    return local_map(fn, out_placements=out_placements,
                      in_placements=tuple(tuple(p) for p in in_placements),
                      in_grad_placements=tuple(tuple(p) for p in in_grad_placements),
                      device_mesh=mesh)(*args)

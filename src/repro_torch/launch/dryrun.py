@@ -27,8 +27,8 @@ Meshes:
   ``memory`` also keeps the rules' per-device argument bytes by kind
   (``sharding.shard_shape``), which the placed shards equal.  These are
   counts on the CPU, not times.  An arch or a path that does not run
-  sharded yet (any but the dense attention path,
-  ``transformer.runs_sharded``, and the mqr-KV sparse decode) keeps only
+  sharded yet (a Mamba-2, RG-LRU or local mixer, a frontend: outside
+  ``transformer.runs_sharded``; and the mqr-KV sparse decode) keeps only
   those argument bytes, ``cost`` and ``collectives`` ``null``,
   and a note naming ROADMAP A4d.
 
@@ -254,8 +254,8 @@ def sharded_memory(cfg, shape: str, mesh, global_batch=None, seq_len=None) -> di
 
 def runs_sharded(cfg, shape: str, tag: str = "") -> bool:
     """Whether the cell's step runs sharded on a ``DeviceMesh`` yet: a
-    model on the dense attention path (``transformer.runs_sharded``), but
-    not the mqr-KV sparse decode."""
+    model of ``transformer.runs_sharded`` (``attn`` and ``mla`` mixers, any
+    FFN, no frontend), but not the mqr-KV sparse decode."""
     kind = registry.SHAPES[shape]["kind"]
     return T.runs_sharded(cfg) and not (kind == "decode" and mqr_sparse(cfg, shape, tag))
 

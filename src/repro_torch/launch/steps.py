@@ -81,7 +81,8 @@ def make_train_step(cfg: T.ModelConfig, opt_cfg: adamw.AdamWConfig,
                     grad_compress: bool = False):
     """(params, opt_state, batch[, ef_state]) -> (params, opt_state[,
     ef_state], metrics), metrics ``{"grad_norm", "lr", "loss",
-    "expert_load_max"}`` (0-d tensors, nothing read on the host).  The
+    "expert_load_max"}`` (0-d tensors, replicated DTensors on a mesh;
+    nothing read on the host).  The
     parameters (leaf tensors) and the state are updated in place; the
     gradients come from ``torch.autograd.grad``, ``None`` for a parameter
     the loss never reads (DeepSeek's ``mtp``), which AdamW updates as a

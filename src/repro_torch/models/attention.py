@@ -331,26 +331,28 @@ def _write(cache_t: torch.Tensor, at: torch.Tensor, new: torch.Tensor) -> None:
         cache_t.index_copy_(2, at, new)
 
 
-def _write_shard(cache_t, at: torch.Tensor, new) -> None:
+def _write_shard(cache_t, at: torch.Tensor, new, dim: int = 2) -> None:
     """The in-place write of :func:`_write` on each rank's shard of a
-    DTensor cache (``rules.cache_spec``: batch over the data axes, kv heads
-    or else the sequence over ``model``), gathering nothing: the new
-    (B, Hkv, 1, Dh) is brought to the cache's batch and head placements (a
-    local slice where it is replicated), and a sequence shard writes slot
-    ``at`` only if the slot is its own (a select, no read on the host)."""
+    DTensor cache whose sequence is dim ``dim`` (``rules.cache_spec``:
+    batch over the data axes, kv heads or else the sequence over
+    ``model``; MLA's latent (B, S, R), ``dim`` 1, the sequence), gathering
+    nothing: the new entry (one step along ``dim``) is brought to the
+    cache's other placements (a local slice where it is replicated), and a
+    sequence shard writes slot ``at`` only if the slot is its own (a
+    select, no read on the host)."""
     mesh, pl = cache_t.device_mesh, cache_t.placements
     new = on_mesh(new, cache_t)
-    want = tuple(Replicate() if p.is_shard(2) else p for p in pl)
+    want = tuple(Replicate() if p.is_shard(dim) else p for p in pl)
     if tuple(new.placements) != want:
         new = new.redistribute(mesh, want)
     local, new = cache_t.to_local(), new.to_local()
-    if not any(p.is_shard(2) for p in pl):
-        local.index_copy_(2, at, new)
+    if not any(p.is_shard(dim) for p in pl):
+        local.index_copy_(dim, at, new)
         return
-    s0, n = rules.shard_start(mesh, pl, 2, cache_t.shape[2]), local.shape[2]
+    s0, n = rules.shard_start(mesh, pl, dim, cache_t.shape[dim]), local.shape[dim]
     slot = (at - s0).clamp(0, n - 1)
     mine = (at >= s0) & (at < s0 + n)
-    local.index_copy_(2, slot, torch.where(mine, new, local.index_select(2, slot)))
+    local.index_copy_(dim, slot, torch.where(mine, new, local.index_select(dim, slot)))
 
 
 def _decode_logits(qs, k_cache, mask, dh):

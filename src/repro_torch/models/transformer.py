@@ -36,7 +36,8 @@ outside any kernel.  Every entry point takes
 
 The same functions run sharded when the parameters, the batch and the
 caches are DTensors on a ``DeviceMesh`` (``launch.steps.place``; so far
-the dense attention path, :func:`runs_sharded`, ROADMAP A4d):
+the ``attn`` and ``mla`` mixers with any FFN, the MoE one with its experts
+over ``model``, :func:`runs_sharded`, ROADMAP A4d):
 ``modules.shard`` at the reference's call sites, sequence parallelism of the residual when S %
 2048 == 0 (gathered at each mixer's and FFN's input, C38), and on the
 vocab shards the embedding lookup, the label's logit and the logsumexp
@@ -345,7 +346,6 @@ def _ffn_apply(p, cfg, x, moe_layer: bool):
     if cfg.ffn_kind == "none":
         return x * 0.0, None
     if moe_layer:
-        _not_sharded(x, "the MoE FFN")
         return moe_mod.moe_ffn(p, cfg, x)
     act = act_fn(cfg.act)
     if cfg.ffn_kind == "mlp_gelu":
@@ -357,12 +357,12 @@ def _ffn_apply(p, cfg, x, moe_layer: bool):
 
 def runs_sharded(cfg: ModelConfig) -> bool:
     """Whether the model's steps run on DTensors over a ``DeviceMesh``
-    yet: the dense attention path, every mixer ``attn``, no MoE FFN and
-    tokens in (no frontend).  The other mixers, the MoE FFN and the
-    frontends raise ``NotImplementedError`` on DTensors (ROADMAP A4d), as
-    the mqr-KV sparse decode does."""
-    return (set(cfg.block_pattern + cfg.tail_pattern) <= {"attn"}
-            and cfg.ffn_kind != "moe" and cfg.frontend == "none")
+    yet: every mixer ``attn`` or ``mla``, any FFN (the MoE one with its
+    experts over ``model``) and tokens in (no frontend).  The other mixers
+    and the frontends raise ``NotImplementedError`` on DTensors (ROADMAP
+    A4d), as the mqr-KV sparse decode does."""
+    return (set(cfg.block_pattern + cfg.tail_pattern) <= {"attn", "mla"}
+            and cfg.frontend == "none")
 
 
 def _not_sharded(x, what: str) -> None:
@@ -374,11 +374,11 @@ def _not_sharded(x, what: str) -> None:
 def _mixer_train(p, cfg, kind, x, positions):
     if kind == "attn":
         return attn.attention_train(p, cfg, x, positions)
+    if kind == "mla":
+        return mla_mod.mla_train(p, cfg, x, positions, chunk=cfg.attn_chunk)
     _not_sharded(x, f"the {kind} mixer")
     if kind == "local":
         return attn.attention_train(p, cfg, x, positions, window=cfg.local_window)
-    if kind == "mla":
-        return mla_mod.mla_train(p, cfg, x, positions, chunk=cfg.attn_chunk)
     if kind == "mamba2":
         return m2.mamba2_train(p, cfg, x, positions, chunk=cfg.ssd_chunk)
     if kind == "rglru":
@@ -438,7 +438,7 @@ def _stack(blocks, cfg, x, positions, moe_flags):
     """Every superblock of a stack in turn -> (x, load (E,) float32 summed
     over the stack; (1,) zeros without MoE), as the reference's scan."""
     e = cfg.n_experts if cfg.ffn_kind == "moe" else 1
-    load = torch.zeros((e,), dtype=torch.float32, device=x.device)
+    load = on_mesh(torch.zeros((e,), dtype=torch.float32, device=x.device), x)
     for block_params in blocks:
         if x.shape[1] % 2048 == 0:
             # sequence parallelism, as the reference's scan body: the
@@ -674,11 +674,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Any:
 def _mixer_decode(p, cfg, kind, x, cache, pos, mqr_sparse):
     if kind == "attn":
         return attn.attention_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
+    if kind == "mla":
+        return mla_mod.mla_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
     _not_sharded(x, f"the {kind} mixer")
     if kind == "local":
         return attn.local_attention_decode(p, cfg, x, cache, pos)
-    if kind == "mla":
-        return mla_mod.mla_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
     if kind == "mamba2":
         return m2.mamba2_decode(p, cfg, x, cache, pos)
     if kind == "rglru":

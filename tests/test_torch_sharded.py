@@ -13,22 +13,31 @@ sharded step on the CPU.
   logits (1e-4) and six greedy decode tokens (equal); the same ranks as a
   (1, 4) mesh (one query head a rank, the decode caches' sequence sharded)
   for the train step and the decode tokens.
+- **The other families** in the same two runs (``FAMILIES``): the smoke
+  granite-moe (both MoE dispatches) and DeepSeek (MLA, a dense stack and
+  the MoE), gemma-2b, granite-8b and command-r-35b: three train steps
+  (remat "full"; ``expert_load_max`` equal), prefill and six decode
+  tokens on the (2, 2) mesh, and for the two MoE families the train step
+  and the tokens on the (1, 4) mesh (one expert a rank, DeepSeek's latent
+  cache sequence-sharded four ways).
 - **``modules.shard``** on a DTensor gives the placements of the
   reference's cleaned spec (the output sharding of ``jax.jit(lambda x:
   shard(x, *spec))`` under the reference's mesh) on a (4, 2) and a
-  (2, 2, 2) mesh, and is the identity on a plain tensor.
+  (2, 2, 2) mesh, and is the identity on a plain tensor; the MoE FFN
+  constrains its xe and ye as the reference does.
 - **``OpCost`` under DTensor**, counted by hand on one FSDP/TP linear,
   with DTensor's sharding propagation left out of the peak.
-- **Paths that do not run sharded yet** (any mixer but ``attn``, the MoE
-  FFN, the frontends) raise ``NotImplementedError`` on DTensors.
+- **Paths that do not run sharded yet** (the Mamba-2, RG-LRU and local
+  mixers, the frontends, the mqr-KV sparse decode) raise
+  ``NotImplementedError`` on DTensors.
 - **The dry run on the production meshes** (fake process groups of 256
   and 512 ranks, ``meta`` shards): non-null per-device cost, peak and
   collectives with the reference's keys, argument bytes equal to the
   rules' ``shard_shape``, and per-device FLOPs x devices no less than one
-  card's.
+  card's; llama, granite-moe and DeepSeek.
 
-The two runs of the first bullet are made once a test session (under xdist,
-once for all workers: a file lock in the session's temporary root).
+The two runs of the first two bullets are made once a test session (under
+xdist, once for all workers: a file lock in the session's temporary root).
 """
 import dataclasses
 import fcntl
@@ -63,6 +72,31 @@ REMATS = {"off": dict(remat=False), "full": dict(remat=True, remat_policy="full"
 STEPS, SEQ, BATCH = 3, 16, 4
 DECODE_STEPS, MAX_LEN = 6, 32
 OPT = dict(lr=1e-2, warmup_steps=2, total_steps=5)
+# the other families held to the reference's sharded step on the (2, 2) mesh:
+# arch -> its train runs (name: overrides, remat "full"), and whether the
+# (1, 4) mesh runs its train step (the first run's) and decode tokens too
+FAMILIES = {
+    "granite_moe_1b": dict(train={"full": REMATS["full"],
+                                  "scatter": dict(REMATS["full"], moe_dispatch="scatter")},
+                           mesh_1x4=True),
+    "deepseek_v3_671b": dict(train={"full": REMATS["full"]}, mesh_1x4=True),
+    "gemma_2b": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
+    "granite_8b": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
+    "command_r_35b": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
+}
+# AdamW of the families' runs: OPT with an eps above the float32 noise of a
+# gradient that cancels to ~1e-6 of its leaf's RMS (gemma-2b's first
+# gradient at blocks/0/l0/ffn/w_out[86, 34] is -1.36e-8, leaf RMS 9.9e-3):
+# at eps 1e-8 the first update there is lr x g / (|g| + eps), and the
+# rounding of g alone moves it by ~3e-4 (the unsharded port already differs
+# from the reference by 2.7e-4 at command-r-35b's blocks/1/l0/mixer/wo[36,
+# 20]); at 1e-6 by < 2e-5
+FAMILY_OPT = dict(OPT, eps=1e-6)
+# xe / ye of the smoke MoE FFN on (B, S) = (4, 16) and (3, 16): (B, E, C, D),
+# C = 16 * 2 / 4 * 4.0 (a B of 3 does not divide over the data axis)
+MOE_SHAPES = [(4, 4, 32, 64), (3, 4, 32, 64)]
+FAMILY_TRAINS = [(arch, name) for arch, spec in FAMILIES.items() for name in spec["train"]]
+MOE_ARCHS = [arch for arch, spec in FAMILIES.items() if spec["mesh_1x4"]]
 # (mesh axis names, sizes, tensor shape, spec) for the shard() check
 SHARD_CASES = [
     (("data", "model"), (4, 2), (8, 6, 4), (("pod", "data"), "model", None)),
@@ -78,9 +112,14 @@ SHARD_CASES = [
 
 
 def cfg_pair(**over):
+    return family_cfgs("llama32_1b", **over)
+
+
+def family_cfgs(arch, **over):
+    """The reference's and the port's smoke configs of ``arch`` in float32."""
     over = dict(dtype="float32", **over)
-    return (dataclasses.replace(ref_registry.get_config("llama32_1b", smoke=True), **over),
-            dataclasses.replace(registry.get_config("llama32_1b", smoke=True), **over))
+    return (dataclasses.replace(ref_registry.get_config(arch, smoke=True), **over),
+            dataclasses.replace(registry.get_config(arch, smoke=True), **over))
 
 
 REF = """
@@ -136,6 +175,44 @@ with mesh:
         tok, caches = serve(params, tok, caches, jnp.asarray(i, jnp.int32))
         toks.append(np.asarray(tok))
     out["decode"] = np.stack(toks)
+    out["families"] = {}
+    for arch, fam in d["families"].items():
+        got = out["families"][arch] = {"train": {}}
+        base = dataclasses.replace(registry.get_config(arch, smoke=True), dtype="float32")
+        for name, over in fam["train"].items():
+            cfg = dataclasses.replace(base, **over)
+            ocfg = adamw.AdamWConfig(**fam["opt"])
+            params = jax.tree.map(jnp.asarray, fam["params"])
+            state = adamw.init_state(params, ocfg)
+            psh = rules.param_shardings(params, mesh)
+            osh = adamw.AdamWState(step=NamedSharding(mesh, P()), m=psh, v=psh)
+            data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=d["seq"],
+                                          global_batch=d["batch"]))
+            bsh = rules.batch_shardings({k: jnp.asarray(v) for k, v in data.batch(0).items()},
+                                        mesh)
+            step = jax.jit(steps.make_train_step(cfg, ocfg), in_shardings=(psh, osh, bsh))
+            metrics = []
+            for i in range(d["steps"]):
+                b = {k: jnp.asarray(v) for k, v in data.batch(i).items()}
+                params, state, m = step(params, state, b)
+                metrics.append({k: float(m[k])
+                                for k in ("loss", "grad_norm", "lr", "expert_load_max")})
+            got["train"][name] = {"metrics": metrics, "params": tree(params)}
+        params = jax.tree.map(jnp.asarray, fam["params"])
+        psh = rules.param_shardings(params, mesh)
+        pre = jax.jit(steps.make_prefill_step(base),
+                      in_shardings=(psh, rules.batch_shardings(batch, mesh)))
+        got["prefill"] = np.asarray(pre(params, batch))
+        caches = T.init_caches(base, d["prompt"].shape[0], d["max_len"])
+        tok = jnp.asarray(d["prompt"][:, :1])
+        serve = jax.jit(steps.make_serve_step(base), in_shardings=(
+            psh, NamedSharding(mesh, rules.batch_spec(tok.shape, mesh)),
+            rules.cache_shardings(caches, mesh), NamedSharding(mesh, P())))
+        toks = []
+        for i in range(d["decode_steps"]):
+            tok, caches = serve(params, tok, caches, jnp.asarray(i, jnp.int32))
+            toks.append(np.asarray(tok))
+        got["decode"] = np.stack(toks)
 specs = []
 for names, sizes, shape, spec in d["shard_cases"]:
     m = Mesh(np.array(jax.devices()[:int(np.prod(sizes))]).reshape(sizes), names)
@@ -143,6 +220,13 @@ for names, sizes, shape, spec in d["shard_cases"]:
         y = jax.jit(lambda x: shard(x, *spec))(jnp.zeros(shape, jnp.float32))
     specs.append([list(e) if isinstance(e, tuple) else e for e in y.sharding.spec])
 out["shard_specs"] = specs
+specs = []
+for shape in d["moe_shapes"]:
+    y = jax.jit(lambda x: shard(x, ("pod", "data"), "model", None, None))
+    with mesh:
+        specs.append([list(e) if isinstance(e, tuple) else e
+                      for e in y(jnp.zeros(shape, jnp.float32)).sharding.spec])
+out["moe_specs"] = specs
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -234,6 +318,71 @@ with torch.inference_mode():
         tok, caches = serve(params, tok, caches, torch.tensor(i, dtype=torch.int32))
         toks.append(full(tok))
 out["decode_1x4"] = np.stack(toks)
+
+
+def placed(cfg, fam, m):
+    params = convert.params_from_numpy(fam["params"], cfg, device="cpu")
+    return steps.place(params, rules.param_shardings(params, m), m)
+
+
+def train_run(cfg, fam, m):
+    params = convert.params_from_numpy(fam["params"], cfg, device="cpu")
+    state = steps.place_opt_state(convert.opt_state_from_numpy(fam["opt_state"], cfg,
+                                                               device="cpu"), params, m)
+    params = steps.place(params, rules.param_shardings(params, m), m)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=d["seq"],
+                                  global_batch=d["batch"]))
+    step = steps.make_train_step(cfg, AdamWConfig(**fam["opt"]))
+    metrics = []
+    for i in range(d["steps"]):
+        b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
+        params, state, met = step(params, state, steps.place(b, rules.batch_shardings(b, m), m))
+        metrics.append({k: float(met[k].full_tensor())
+                        for k in ("loss", "grad_norm", "lr", "expert_load_max")})
+    return {"metrics": metrics, "params": [full(p) for p in tree_leaves(params)],
+            "types": sorted({type(p).__name__ for p in tree_leaves(params) + [
+                met["expert_load_max"]]})}
+
+
+def decode_run(cfg, fam, m):
+    params = placed(cfg, fam, m)
+    caches = T.init_caches(cfg, d["prompt"].shape[0], d["max_len"], device="cpu")
+    caches = steps.place(caches, rules.cache_shardings(caches, m), m)
+    tok = {"t": torch.from_numpy(d["prompt"][:, :1])}
+    tok = steps.place(tok, rules.batch_shardings(tok, m), m)["t"]
+    serve = steps.make_serve_step(cfg)
+    toks = []
+    with torch.inference_mode():
+        for i in range(d["decode_steps"]):
+            tok, caches = serve(params, tok, caches, torch.tensor(i, dtype=torch.int32))
+            toks.append(full(tok))
+    return np.stack(toks), sorted({(path.split("/")[-1], str(c.placements))
+                                   for path, c in rules.leaves_with_path(caches)})
+
+
+def expert_placements(params):
+    return sorted({(path.split("/")[-1], str(p.placements))
+                   for path, p in rules.leaves_with_path(params)
+                   if path.split("/")[-1] in ("w_in", "w_gate", "w_out") and p.dim() == 3})
+
+
+out["families"] = {}
+for arch, fam in d["families"].items():
+    got = out["families"][arch] = {"train": {}}
+    base = dataclasses.replace(registry.get_config(arch, smoke=True), dtype="float32")
+    for name, over in fam["train"].items():
+        got["train"][name] = train_run(dataclasses.replace(base, **over), fam, mesh)
+    params = placed(base, fam, mesh)
+    got["experts"] = expert_placements(params)
+    with torch.inference_mode():
+        got["prefill"] = full(steps.make_prefill_step(base)(params, steps.place(
+            batch, rules.batch_shardings(batch, mesh), mesh)))
+    got["decode"], got["cache_placements"] = decode_run(base, fam, mesh)
+    if fam["mesh_1x4"]:
+        over = next(iter(fam["train"].values()))
+        got["train_1x4"] = train_run(dataclasses.replace(base, **over), fam, mesh4)
+        got["experts_1x4"] = expert_placements(placed(base, fam, mesh4))
+        got["decode_1x4"], got["cache_placements_1x4"] = decode_run(base, fam, mesh4)
 # #8 (through causal_attention) and #10 on DTensors: a sequence-sharded
 # q / a sharded last dim is redistributed before the call; forward and
 # backward against the plain tensors
@@ -268,22 +417,34 @@ dist.destroy_process_group()
 PORT_GUARDED = ("import os, sys, traceback\ntry:\n" + textwrap.indent(PORT, "    ")
                 + "except BaseException:\n    traceback.print_exc()\n    sys.stderr.flush()\n"
                 "    os._exit(1)\n")
-RUN_TIMEOUT = 240
+RUN_TIMEOUT = 600
 
 
-def _inputs() -> dict:
-    """The reference's smoke-llama parameters and AdamW state (numpy), the
-    prompt and the run's sizes: what both subprocesses start from."""
-    ref_cfg, _ = cfg_pair()
+def _ref_state(ref_cfg) -> tuple:
+    """The reference's parameters (seed 3) and AdamW state of ``ref_cfg``,
+    as numpy trees."""
     params = jax.jit(lambda key: ref_T.init_params(key, ref_cfg))(jax.random.PRNGKey(3))
     state = ref_adamw.init_state(params, ref_adamw.AdamWConfig(**OPT))
     tree = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    return tree(params), tuple(tree(s) for s in state)
+
+
+def _inputs() -> dict:
+    """The reference's smoke parameters and AdamW state (numpy) of llama
+    and of each of ``FAMILIES``, the prompt and the run's sizes: what both
+    subprocesses start from."""
+    ref_cfg, _ = cfg_pair()
+    params, state = _ref_state(ref_cfg)
+    families = {}
+    for arch, spec in FAMILIES.items():
+        fam_params, fam_state = _ref_state(family_cfgs(arch)[0])
+        families[arch] = dict(spec, params=fam_params, opt_state=fam_state, opt=FAMILY_OPT)
     prompt = np.random.default_rng(5).integers(0, ref_cfg.vocab_size, (BATCH, SEQ),
                                                dtype=np.int32)
-    return {"params": tree(params), "opt_state": tuple(tree(s) for s in state),
+    return {"params": params, "opt_state": state,
             "remats": REMATS, "opt": OPT, "steps": STEPS, "seq": SEQ, "batch": 2,
             "prompt": prompt, "max_len": MAX_LEN, "decode_steps": DECODE_STEPS,
-            "shard_cases": SHARD_CASES}
+            "shard_cases": SHARD_CASES, "families": families, "moe_shapes": MOE_SHAPES}
 
 
 def _run_both(root: pathlib.Path) -> dict:
@@ -421,6 +582,69 @@ def test_kernel_wrappers_take_dtensors_through_local_map(runs):
     assert norm["placements"] == "(Replicate(), Shard(dim=1))"
     for r in (flash, norm):
         assert r["out_err"] <= 1e-6 and r["grad_err"] <= 1e-6, r
+
+
+def _check_family_train(ref, port, arch, over):
+    """Metrics each step within 1e-4 (the expert load's max equal), every
+    final parameter within 1e-4, every parameter and the load DTensors."""
+    assert port["types"] == ["DTensor"]
+    for want, got in zip(ref["metrics"], port["metrics"], strict=True):
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(got[key], want[key], rtol=TOL, err_msg=key)
+        assert got["expert_load_max"] == want["expert_load_max"]
+    _, cfg = family_cfgs(arch, **over)
+    for got, want in zip(port["params"], ref_leaves(ref["params"], cfg), strict=True):
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("arch,name", FAMILY_TRAINS)
+def test_sharded_family_train_step_matches_the_reference(runs, arch, name):
+    """Three ``make_train_step`` steps (remat "full") of the smoke MoE and
+    MLA families (granite-moe in both dispatches; DeepSeek with its dense
+    stack and MTP) and of the dense-path gemma-2b, granite-8b and
+    command-r-35b on the (2, 2) mesh equal the reference's sharded steps
+    (AdamW with ``FAMILY_OPT``): loss, grad_norm and lr within 1e-4,
+    ``expert_load_max`` equal (the ranks' whole-number counts summed
+    before the mean), every final parameter within 1e-4."""
+    ref = runs["ref"]["families"][arch]["train"][name]
+    port = runs["port"]["families"][arch]["train"][name]
+    _check_family_train(ref, port, arch, FAMILIES[arch]["train"][name])
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_sharded_family_prefill_matches_the_reference(runs, arch):
+    got, want = runs["port"]["families"][arch]["prefill"], runs["ref"]["families"][arch]["prefill"]
+    assert got.shape == want.shape == (BATCH, 1, 256)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES))
+def test_sharded_family_decode_tokens_equal_the_reference(runs, arch):
+    """Six greedy steps on the (2, 2) mesh, the caches placed by
+    ``cache_shardings`` and written on each rank's shard (DeepSeek's latent
+    sequence over ``model``: the flash-decoding combine)."""
+    port = runs["port"]["families"][arch]
+    np.testing.assert_array_equal(port["decode"], runs["ref"]["families"][arch]["decode"])
+    if arch == "deepseek_v3_671b":
+        assert ("c_kv", "(Shard(dim=0), Shard(dim=1))") in port["cache_placements"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_sharded_family_step_on_a_1x4_mesh_matches_the_reference(runs, arch):
+    """The four ranks as a (1, 4) mesh: one expert a rank (w_in / w_gate
+    (E, D, F) and w_out (E, F, D) shard E over ``model``), DeepSeek's
+    latent cache sequence-sharded four ways; three train steps within 1e-4
+    of the reference's (2, 2) run and the six decode tokens equal."""
+    ref, port = runs["ref"]["families"][arch], runs["port"]["families"][arch]
+    name = next(iter(FAMILIES[arch]["train"]))
+    _check_family_train(ref["train"][name], port["train_1x4"], arch, FAMILIES[arch]["train"][name])
+    assert {pl for _, pl in port["experts_1x4"]} == {"(Shard(dim=1), Shard(dim=0))",
+                                                     "(Shard(dim=2), Shard(dim=0))"}
+    assert {pl for _, pl in port["experts"]} == {"(Shard(dim=1), Shard(dim=0))",
+                                                 "(Shard(dim=2), Shard(dim=0))"}
+    if arch == "deepseek_v3_671b":
+        assert ("c_kv", "(Shard(dim=0), Shard(dim=1))") in port["cache_placements_1x4"]
+    np.testing.assert_array_equal(port["decode_1x4"], ref["decode"])
 
 
 class fake_group:
@@ -564,6 +788,13 @@ CELLS += [(mesh, "llama32_1b", shape, batch, seq) for mesh in ("single", "multi"
 CELLS += [("single", "llama32_1b", "train_4k", 32, 2048)]
 
 
+# the smoke granite-moe and DeepSeek (head dim 64) at the same cut shapes
+FAMILY_CELLS = [(mesh, arch, shape, batch, seq) for mesh in ("single", "multi")
+                for arch in MOE_ARCHS
+                for shape, batch, seq in (("train_4k", 32, 256), ("prefill_32k", 16, 256),
+                                          ("decode_32k", 64, 512))]
+
+
 @pytest.mark.parametrize("mesh_name,arch,shape,batch,seq", CELLS)
 def test_dry_run_on_the_production_meshes(monkeypatch, tmp_path, mesh_name, arch, shape,
                                           batch, seq):
@@ -574,9 +805,23 @@ def test_dry_run_on_the_production_meshes(monkeypatch, tmp_path, mesh_name, arch
     ``sharded_memory``, per-device FLOPs x devices at least the card's."""
     if arch == "smoke":
         monkeypatch.setattr(registry, "get_config", smoke_llama)
-    rec = dryrun.run_cell("llama32_1b", shape, mesh_name, tmp_path, force=True,
+    _check_cell(tmp_path, "llama32_1b", mesh_name, shape, batch, seq)
+
+
+@pytest.mark.parametrize("mesh_name,arch,shape,batch,seq", FAMILY_CELLS)
+def test_dry_run_of_the_moe_and_mla_families_on_the_production_meshes(
+        monkeypatch, tmp_path, mesh_name, arch, shape, batch, seq):
+    """As llama's cells, for the smoke granite-moe (experts over ``model``)
+    and the smoke DeepSeek (MLA, its dense stack and the MoE): the step
+    runs sharded, with every invariant of llama's cells."""
+    monkeypatch.setattr(registry, "get_config", smoke_llama)
+    _check_cell(tmp_path, arch, mesh_name, shape, batch, seq)
+
+
+def _check_cell(tmp_path, arch, mesh_name, shape, batch, seq):
+    rec = dryrun.run_cell(arch, shape, mesh_name, tmp_path, force=True,
                           global_batch=batch, seq_len=seq)
-    card = dryrun.run_cell("llama32_1b", shape, "card", tmp_path, force=True,
+    card = dryrun.run_cell(arch, shape, "card", tmp_path, force=True,
                            global_batch=batch, seq_len=seq)
     assert rec["n_devices"] == {"single": 256, "multi": 512}[mesh_name]
     assert "note" not in rec
@@ -584,7 +829,7 @@ def test_dry_run_on_the_production_meshes(monkeypatch, tmp_path, mesh_name, arch
     assert cost["flops_per_device"] > 0 and cost["bytes_accessed_per_device"] > 0
     assert set(coll) == set(COLL_OPS) | {"total_operand_bytes", "total_wire_bytes"}
     assert coll["total_wire_bytes"] == sum(coll[op]["wire_bytes"] for op in COLL_OPS) > 0
-    cfg = registry.get_config("llama32_1b")
+    cfg = registry.get_config(arch)
     want = dryrun.sharded_memory(cfg, shape, dryrun.make_mesh(mesh_name), batch, seq)
     scalar = 0 if shape == "prefill_32k" else 4  # the int32 AdamW step / decode position
     assert mem["argument_bytes_per_device"] == want["argument_bytes_per_device"] + scalar
@@ -595,17 +840,17 @@ def test_dry_run_on_the_production_meshes(monkeypatch, tmp_path, mesh_name, arch
 @pytest.mark.parametrize("arch", registry.ARCHS)
 def test_paths_that_do_not_run_sharded_refuse_dtensors(arch):
     """Each arch's smoke prefill on DTensors over a fake (2, 2) group on
-    ``meta``: the dense attention path (``transformer.runs_sharded``: every
-    mixer ``attn``, no MoE FFN, no frontend) runs and gives the (B, 1, V)
-    logits; any other mixer, the MoE FFN or a frontend raises
-    ``NotImplementedError`` naming ROADMAP A4d."""
+    ``meta``: the paths of ``transformer.runs_sharded`` (every mixer
+    ``attn`` or ``mla``, any FFN, no frontend: the dense path, granite-moe
+    and DeepSeek) run and give the (B, 1, V) logits; any other mixer or a
+    frontend raises ``NotImplementedError`` naming ROADMAP A4d."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models import transformer as T
 
     cfg = dataclasses.replace(registry.get_config(arch, smoke=True), head_dim=64)
-    dense = (set(cfg.block_pattern + cfg.tail_pattern) == {"attn"} and cfg.ffn_kind != "moe"
+    dense = (set(cfg.block_pattern + cfg.tail_pattern) <= {"attn", "mla"}
              and cfg.frontend == "none")
     assert T.runs_sharded(cfg) == dense
     with fake_group(4):
@@ -619,6 +864,63 @@ def test_paths_that_do_not_run_sharded_refuse_dtensors(arch):
             else:
                 with pytest.raises(NotImplementedError, match="A4d"):
                     step(*args)
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_ffn_constrains_xe_and_ye_as_the_reference(runs, monkeypatch, dispatch):
+    """The smoke MoE FFN on DTensors over a fake (2, 2) group on ``meta``
+    (x (B, 16, 64) with B 4 and 3, the parameters placed by the rules):
+    in each dispatch both the dispatched tokens xe and the expert outputs
+    ye (B, E, C, D) leave ``shard`` with the placements of the spec the
+    reference's ``shard`` leaves for them (JAX's output sharding on a (2,
+    2) mesh), batch over ``data`` where it divides, experts over
+    ``model``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+
+    seen = []
+    real = moe.shard
+
+    def spy(x, *spec):
+        y = real(x, *spec)
+        seen.append((tuple(y.shape), tuple(y.placements)))
+        return y
+
+    monkeypatch.setattr(moe, "shard", spy)
+    _, cfg = family_cfgs("granite_moe_1b", moe_dispatch=dispatch)
+    with fake_group(4):
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        params = moe.init_moe(torch.device("meta"), cfg, cfg.d_model)
+        params = steps.place(params, rules.param_shardings(params, mesh), mesh)
+        for shape, want in zip(MOE_SHAPES, runs["ref"]["moe_specs"], strict=True):
+            xshape = (shape[0], 16, cfg.d_model)
+            x = meta_dtensor(xshape, mesh, rules.placements(rules.clean_spec(
+                (("pod", "data"), None, None), xshape, mesh), mesh))
+            seen.clear()
+            y, aux = moe.moe_ffn(params, cfg, x)
+            want = rules.placements(rules.PartitionSpec(
+                *[tuple(e) if isinstance(e, list) else e for e in want]), mesh)
+            assert seen == [(shape, want), (shape, want)], (shape, seen)
+            assert y.shape == xshape and aux["expert_load"].shape == (cfg.n_experts,)
+
+
+@pytest.mark.parametrize("arch", ["llama32_1b", "deepseek_v3_671b"])
+def test_the_mqr_sparse_decode_refuses_dtensors(arch):
+    """The mqr-KV sparse decode step (long_500k) of the attention and the
+    MLA mixer on DTensors over a fake (2, 2) group on ``meta`` raises
+    ``NotImplementedError`` naming ROADMAP A4d."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    cfg = dataclasses.replace(registry.get_config(arch, smoke=True), head_dim=64)
+    assert dryrun.mqr_sparse(cfg, "long_500k")
+    with fake_group(4):
+        mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+        args = dryrun.place_args(dryrun.cell_args(cfg, "long_500k", 4, 256), "decode", mesh)
+        step = dryrun.step_fn(cfg, "long_500k")
+        with torch.inference_mode(), pytest.raises(NotImplementedError, match="A4d"):
+            step(*args)
 
 
 def test_dry_run_keeps_argument_bytes_where_the_step_does_not_run_sharded(tmp_path):
