@@ -241,7 +241,15 @@ it and read just after):
      steps of B 8 x S 1024 sharded against 4 unsharded from copies of the
      same state (``sharded_step_check``: bit for bit, #8 48, 8b 24, #10 97
      and 10b 49 launches a step, no collective and equal counted FLOPs
-     under ``OpCost``, step ms and ``max_memory_allocated`` of both);
+     under ``OpCost``, step ms and ``max_memory_allocated`` of both); the
+     same sharded prefill and decode for mamba2-2.7b (heads over ``model``,
+     its gated norm's #10 too), recurrentgemma-9b (its decode at a
+     position past the 2,048-slot window: the ring wrapped), internvl2-2b
+     (1,024 patch embeddings in the prefill) and musicgen-large (4
+     codebooks; decode at B 2), the recurrent states restored before each
+     compared step; and mamba2-2.7b's first training on the card, 16 of
+     its 64 layers, 4 train steps sharded against unsharded (#10 97 and
+     10b 49 a step);
      training (``train_phase``, after the card is freed and its peak
      statistics reset): llama3.2-1B at full width, bf16, remat "full", 10
      steps of ``launch.steps.make_train_step`` on ``SyntheticLM`` batches
@@ -1743,31 +1751,36 @@ def llm_phase(args, checks, dev, card, paths) -> dict:
 # -- LLM families: the MoE, MLA, Mamba-2 and RG-LRU configs at full width ----
 
 # model, its cut (depth only; widths as published), serve() settings or None,
-# decode steps at --kv-len (mqr-KV over a cache) or not, and the depth of
-# the float32 copy that holds prefill against streamed decode where the
-# cut model in float32 would not fit beside what earlier phases hold
+# decode steps at --kv-len (mqr-KV over a cache) or not, the depth of the
+# float32 copy that holds prefill against streamed decode where the cut
+# model in float32 would not fit beside what earlier phases hold, and, for
+# the families whose steps run sharded on the card's 1x1 mesh
+# (``sharded_family_check``), ``sharded``: the depth cut of their sharded
+# training, where they train (``train``)
 FAMILIES = (
     dict(arch="granite_moe_1b", cut={}, serve=dict(batch=4, prompt_len=32, gen=32),
-         long_steps=True),
+         long_steps=True, sharded=dict(train={})),
     # 61 layers of bfloat16 (1.34 TB with MTP) do not fit one card: the 3
     # dense layers and the first MoE layer; serving never applies MTP
     dict(arch="deepseek_v3_671b", cut=dict(n_layers=4, mtp_depth=0), serve=None,
-         long_steps=True, check_cut=dict(n_layers=1, n_dense_layers=1)),
+         long_steps=True, check_cut=dict(n_layers=1, n_dense_layers=1), sharded={}),
+    # trains 16 of its 64 layers: two copies of the state beside the
+    # 64-layer model the phase holds
     dict(arch="mamba2_2p7b", cut={}, serve=dict(batch=4, prompt_len=32, gen=32),
-         long_steps=False),
+         long_steps=False, sharded=dict(train=dict(n_layers=16))),
     dict(arch="recurrentgemma_9b", cut={}, serve=dict(batch=2, prompt_len=32, gen=32),
-         long_steps=False),
+         long_steps=False, sharded={}),
     # the attention families of the other head dims and groups (#8 and #9 at
     # group 8 / head dim 256, group 2, 4 and 8 at 128, group 1 at 64)
     dict(arch="gemma_2b", cut={}, serve=dict(batch=4, prompt_len=16, gen=16), long_steps=True),
     dict(arch="granite_8b", cut={}, serve=dict(batch=4, prompt_len=16, gen=16),
          long_steps=True),
     dict(arch="internvl2_2b", cut={}, serve=dict(batch=4, prompt_len=16, gen=16),
-         long_steps=True),
+         long_steps=True, sharded={}),
     # 48 layers of 32 kv heads: 32,768-token caches are 1.07 GB a layer at
     # B 4 (51.5 GB); its steps at B 2
     dict(arch="musicgen_large", cut={}, serve=dict(batch=4, prompt_len=16, gen=16),
-         long_steps=True, dec_b=2),
+         long_steps=True, dec_b=2, sharded={}),
     # 40 layers of bfloat16 (~61 GB with the embedding) and their
     # 32,768-token caches (21 GB) do not fit one card beside what earlier
     # phases hold (~30 GiB): 12 of 40 layers (21.1 GB, caches 6.4 GB; 16
@@ -1782,13 +1795,21 @@ FAMILY_PREFILL_GATE = 1e-2  # |prefill - streamed decode| last logits, float32 c
 MOE_GATE = (2e-2, 2e-2)     # bf16: |a - b| <= atol + rtol |b| (the reference's parity gate)
 
 
-def fill_normal(caches, gen_):
-    """Every tensor of ``caches`` (``init_caches``' tree) filled from a
-    normal draw of ``gen_``, in place; returns ``caches``."""
-    from repro_torch.models.modules import tree_leaves
+def fill_state(caches, gen_, pos: int):
+    """``caches`` (``init_caches``' tree) as a decode step at ``pos`` finds
+    them: every floating tensor drawn from ``gen_`` (kv rings, latents,
+    recurrent states), and each local ring's slot positions those of the
+    last W tokens before ``pos`` (wrapped once ``pos`` passes W); in
+    place, returns ``caches``."""
+    from repro_torch.sharding import rules
 
-    for t in tree_leaves(caches):
-        t.normal_(generator=gen_)
+    for path, t in rules.leaves_with_path(caches):
+        if t.is_floating_point():
+            t.normal_(generator=gen_)
+        elif path.endswith("/pos"):
+            w = t.shape[0]
+            seen = torch.arange(pos - w, pos, device=t.device)
+            t.index_copy_(0, seen % w, seen.clamp(min=-1).to(t.dtype))
     return caches
 
 
@@ -1985,7 +2006,7 @@ def families_phase(args, checks, dev, card, paths, sparse_inputs=None) -> dict:
             bd, s_len, pos = fam["serve"]["batch"], 128, 0
         caches = T.init_caches(cfg, bd, s_len, device=dev)
         if fam["long_steps"]:
-            fill_normal(caches, gen_)
+            fill_state(caches, gen_, pos)
         tok = torch.randint(0, cfg.vocab_size, token_shape(cfg, bd, 1), generator=gen_,
                             device=dev)
 
@@ -2082,11 +2103,12 @@ def families_phase(args, checks, dev, card, paths, sparse_inputs=None) -> dict:
                                         f"limit {worst:.3g})")
         r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
 
-        # -- the MoE families' steps sharded on a 1x1 NCCL mesh ----------------
-        if moe_ffn and T.runs_sharded(cfg):
+        # -- the family's steps sharded on a 1x1 NCCL mesh ---------------------
+        if "sharded" in fam and T.runs_sharded(cfg):
             r["sharded"] = checks.phase(
                 f"  sharded step: {arch} on a 1x1 NCCL mesh",
-                lambda: sharded_family_check(checks, arch, cfg, params, dev, card, paths, args))
+                lambda: sharded_family_check(checks, arch, cfg, params, dev, card, paths, args,
+                                             fam))
 
         # -- prefill vs the prompt streamed through decode steps, float32 ----
         check_cfg = dataclasses.replace(cfg, dtype="float32")
@@ -2155,12 +2177,15 @@ PARITY_LAYERS, PARITY_S = 2, 256  # the float32 card-vs-CPU step
 
 def train_step_counts(cfg) -> dict:
     """Launches of #8 and #10, forward and backward, in one bf16 train step
-    of an attention-only model under remat="full": the forward runs each
-    superblock twice (once, then again in the backward), the final norm
-    once."""
-    layers = cfg.n_layers
-    return {"flash_attention_bf16": 2 * layers, "flash_attention_bwd_bf16": layers,
-            "rmsnorm_bf16": 2 * (2 * layers) + 1, "rmsnorm_bwd_bf16": 2 * layers + 1}
+    under remat="full": the forward runs each superblock twice (once, then
+    again in the backward), the final norm once; #8 in each ``attn``
+    layer, #10 in each layer's norms (:func:`norms_a_step`: Mamba-2's
+    gated norm too)."""
+    kinds = list(cfg.block_pattern) * cfg.n_superblocks + list(cfg.tail_pattern)
+    attn = sum(k == "attn" for k in kinds)
+    norms = norms_a_step(cfg) - 1  # the layers' norms, the final one apart
+    return {"flash_attention_bf16": 2 * attn, "flash_attention_bwd_bf16": attn,
+            "rmsnorm_bf16": 2 * norms + 1, "rmsnorm_bwd_bf16": norms + 1}
 
 
 # kernel-name fragments of a train step's device time, by part (the rest
@@ -2546,31 +2571,34 @@ def sharded_decode_check(checks, cfg, params, tok, caches, pos, dev, card, paths
     return res
 
 
-# granite-moe-1b's sharded train check: SyntheticLM B x S, steps (the first
-# warms up, the median of the rest is the step time)
+# the sharded train checks (granite-moe-1b, mamba2-2.7b): SyntheticLM B x S,
+# steps (the first warms up, the median of the rest is the step time)
 FAMILY_TRAIN_B, FAMILY_TRAIN_S, FAMILY_TRAIN_STEPS = 8, 1024, 4
 
 
-def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args) -> dict:
-    """A MoE / MLA family sharded on a 1x1 NCCL ``DeviceMesh``
-    (``make_host_mesh()``; parameters, batch, tokens and caches placed by
-    ``launch.steps.place`` with ``from_local``: no second copy) against the
-    same steps unsharded on the same tensors: a prefill (1, ``--prefill``)
-    whose last logits equal bit for bit, or within ``SHARDED_RTOL`` with
-    the worst difference printed; a dense decode step (B ``FAMILY_DEC_B``
-    over ``--kv-len`` caches drawn from the seed, written in place on their
-    local shards) whose logits likewise and whose greedy tokens
-    (``make_serve_step``) are equal.  #8 and #10 launch through
-    ``local_map`` as the unsharded steps count them (#10 for every block
-    norm and MLA's q_norm and kv_norm), no plain version runs.  Each step
-    once warm, median of 3, host clock; the difference is DTensor's host
-    cost.  Then, for a model with attention layers and no dense stack
-    (granite-moe-1b), ``FAMILY_TRAIN_STEPS`` train steps
-    (:func:`sharded_step_check`, its own mesh) from copies of the same
-    state on ``SyntheticLM`` batches of B ``FAMILY_TRAIN_B`` x S
-    ``FAMILY_TRAIN_S``, remat "full".  ``params`` are updated in place by
-    those steps.  Launch counts land in ``paths`` under ``llm <arch>
-    sharded ...`` and ``train <arch> sharded step <i>``."""
+def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args, fam) -> dict:
+    """A family sharded on a 1x1 NCCL ``DeviceMesh`` (``make_host_mesh()``;
+    parameters, batch, tokens and caches placed by ``launch.steps.place``
+    with ``from_local``: no second copy) against the same steps unsharded
+    on the same tensors: a prefill (1, ``--prefill``) (a vision model's
+    patch embeddings among them, codebooks for audio) whose last logits
+    equal bit for bit, or within ``SHARDED_RTOL`` with the worst difference
+    printed; a dense decode step (B ``FAMILY_DEC_B``, or the family's
+    ``dec_b``, at ``--kv-len`` - 37 over caches drawn from the seed by
+    :func:`fill_state`, written in place on their local shards; a recurrent
+    state restored before each compared step) whose logits likewise and
+    whose greedy tokens (``make_serve_step``) are equal.  #8 and #10 launch
+    through ``local_map`` as the unsharded steps count them (#10 for every
+    block norm, MLA's q_norm and kv_norm and Mamba-2's gated norm), no
+    plain version runs.  Each step once warm, median of 3, host clock; the
+    difference is DTensor's host cost.  Then, where ``fam["sharded"]`` has
+    ``train`` (a depth cut of the model, ``{}`` for none),
+    ``FAMILY_TRAIN_STEPS`` train steps (:func:`sharded_step_check`, its own
+    mesh) from copies of the same state on ``SyntheticLM`` batches of B
+    ``FAMILY_TRAIN_B`` x S ``FAMILY_TRAIN_S``, remat "full", on the cut
+    model's layers of ``params``, which those steps update in place.
+    Launch counts land in ``paths`` under ``llm <arch> sharded ...`` and
+    ``train <arch> sharded step <i>``."""
     import torch.distributed as dist
 
     from repro_torch.data import DataConfig, SyntheticLM
@@ -2579,6 +2607,7 @@ def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args) -> d
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import to_device
     from repro_torch.models import transformer as T
+    from repro_torch.models.modules import tree_leaves
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.sharding import rules
 
@@ -2587,23 +2616,37 @@ def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args) -> d
     n_attn = sum(k == "attn" for k in cfg.block_pattern) * cfg.n_superblocks
     norms = norms_a_step(cfg)
     gen_ = torch.Generator(device=dev).manual_seed(args.seed + 29)
-    toks = torch.randint(0, cfg.vocab_size, (1, args.prefill), generator=gen_, device=dev)
-    bd, pos = FAMILY_DEC_B, args.kv_len - 37
-    caches = fill_normal(T.init_caches(cfg, bd, args.kv_len, device=dev), gen_)
-    tok = torch.randint(0, cfg.vocab_size, (bd, 1), generator=gen_, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, token_shape(cfg, 1, args.prefill), generator=gen_,
+                         device=dev)
+    batch = prefill_batch(cfg, toks, gen_)
+    bd, pos = fam.get("dec_b", FAMILY_DEC_B), args.kv_len - 37
+    caches = fill_state(T.init_caches(cfg, bd, args.kv_len, device=dev), gen_, pos)
+    # a recurrent state moves on each step: the compared steps start from
+    # this copy (the kv caches' and rings' writes repeat the same slot)
+    recurrent = {"mamba2", "rglru"} & set(cfg.block_pattern + cfg.tail_pattern)
+    state0 = _tree_copy(caches) if recurrent else None
+
+    def restore():
+        if state0 is not None:
+            for t, t0 in zip(tree_leaves(caches), tree_leaves(state0)):
+                t.copy_(t0)
+
+    tok = torch.randint(0, cfg.vocab_size, token_shape(cfg, bd, 1), generator=gen_, device=dev)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
     prefill = step_lib.make_prefill_step(cfg)
     serve = step_lib.make_serve_step(cfg)
     with torch.inference_mode():
-        want_pre = prefill(params, {"tokens": toks})
+        want_pre = prefill(params, batch)
+        restore()
         want_logits = T.decode_step(params, cfg, tok, caches, pos)[0]
+        restore()
         want_tok = serve(params, tok, caches, pos_t)[0]
-        res["prefill_unsharded_ms"] = wall_ms(lambda: prefill(params, {"tokens": toks}), 3)
+        res["prefill_unsharded_ms"] = wall_ms(lambda: prefill(params, batch), 3)
         res["decode_unsharded_ms"] = wall_ms(lambda: serve(params, tok, caches, pos_t), 3)
     mesh = make_host_mesh(dev)
     try:
         dp = step_lib.place(params, rules.param_shardings(params, mesh), mesh)
-        db = step_lib.place({"tokens": toks}, rules.batch_shardings({"tokens": toks}, mesh), mesh)
+        db = step_lib.place(batch, rules.batch_shardings(batch, mesh), mesh)
         dc = step_lib.place(caches, rules.cache_shardings(caches, mesh), mesh)
         dt = step_lib.place({"t": tok}, rules.batch_shardings({"t": tok}, mesh), mesh)["t"]
         with torch.inference_mode(), plain_attention_calls() as plain:
@@ -2615,11 +2658,13 @@ def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args) -> d
             pre_counts = paths[f"llm {arch} sharded prefill"] = _lib.counters.snapshot()
             res["prefill_sharded_ms"] = wall_ms(lambda: prefill(dp, db), 3)
             T.decode_step(dp, cfg, dt, dc, pos)  # propagation, once
+            restore()
             sync()
             _lib.counters.reset()
             got_logits = T.decode_step(dp, cfg, dt, dc, pos)[0].to_local()
             sync()
             dec_counts = paths[f"llm {arch} sharded decode step"] = _lib.counters.snapshot()
+            restore()
             got_tok = serve(dp, dt, dc, pos_t)[0].to_local()
             res["decode_sharded_ms"] = wall_ms(lambda: serve(dp, dt, dc, pos_t), 3)
         del dp, db, dc, dt
@@ -2639,8 +2684,8 @@ def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args) -> d
                   and dec_got == want_dec_counts,
                   f"{arch} sharded dense decode step (B {bd}, {args.kv_len:,}-token caches, pos "
                   f"{pos}): logits {'bit for bit' if dec_rel == 0 else f'worst relative difference {dec_rel:.3g}'}"
-                  f", tokens equal the unsharded step's; launches {dec_got} (expected "
-                  f"{want_dec_counts})")
+                  f", tokens {tuple(got_tok.shape)} equal the unsharded step's; launches "
+                  f"{dec_got} (expected {want_dec_counts})")
     res.update(prefill_rel=pre_rel, decode_rel=dec_rel, prefill_launches=pre_got,
                decode_launches=dec_got)
     print(f"    {arch} sharded prefill (1, {args.prefill:,}): {res['prefill_sharded_ms']:.2f} ms vs "
@@ -2648,18 +2693,25 @@ def sharded_family_check(checks, arch, cfg, params, dev, card, paths, args) -> d
           f"{args.kv_len:,}-token caches): {res['decode_sharded_ms']:.2f} ms vs unsharded "
           f"{res['decode_unsharded_ms']:.2f} (median of 3 once warm, host clock to a "
           f"synchronize; the differences are DTensor's host cost)  [{card}]", flush=True)
-    del caches, want_pre, want_logits, got_pre, got_logits
+    del caches, state0, batch, want_pre, want_logits, got_pre, got_logits
     free_card()
-    if n_attn and "blocks_dense" not in params:
+    if "train" in fam["sharded"]:
+        tcfg = dataclasses.replace(cfg, **fam["sharded"]["train"])
+        tparams = dict(params, blocks=params["blocks"][:tcfg.n_superblocks])
+        cut = (f", {tcfg.n_layers} of its {cfg.n_layers} layers" if tcfg.n_layers != cfg.n_layers
+               else "")
+        print(f"    {arch} sharded training: B {FAMILY_TRAIN_B} x S {FAMILY_TRAIN_S}, remat "
+              f"{tcfg.remat_policy!r}{cut}", flush=True)
         opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=FAMILY_TRAIN_STEPS)
         data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=FAMILY_TRAIN_S,
                                       global_batch=FAMILY_TRAIN_B, seed=args.seed))
-        batch = to_device(data.batch(0), dev)
-        state = init_state(params, opt_cfg)
-        res["train"] = sharded_step_check(checks, cfg, opt_cfg, params, state, batch,
-                                          train_step_counts(cfg), dev, card, paths,
+        tbatch = to_device(data.batch(0), dev)
+        state = init_state(tparams, opt_cfg)
+        res["train"] = sharded_step_check(checks, tcfg, opt_cfg, tparams, state, tbatch,
+                                          train_step_counts(tcfg), dev, card, paths,
                                           n_steps=FAMILY_TRAIN_STEPS, label=f"train {arch}")
-        del state, batch
+        res["train"]["n_layers"] = tcfg.n_layers
+        del state, tbatch, tparams
         free_card()
     res["check_s"] = time.perf_counter() - t_all
     return res
@@ -3145,6 +3197,7 @@ def run(args, second) -> int:
     from repro_torch.kernels import _lib, ops
     from repro_torch.kernels.pyramid_scan import _quantize_queries
 
+    t_run = time.perf_counter()
     dev = card_device()
     card = nvidia_smi_line()
     print(card, flush=True)
@@ -5428,6 +5481,8 @@ def run(args, second) -> int:
         dryrun=dry_rows, mesh=mesh_out,
     )
     print("summary " + json.dumps(summary), flush=True)
+    print(f"the whole run took {time.perf_counter() - t_run:.1f} s (host clock, from the "
+          f"card's first use)  [{card}]", flush=True)
     if checks.failures:
         print(f"FAILED: {checks.failures}", flush=True)
         return 1

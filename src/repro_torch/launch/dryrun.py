@@ -26,11 +26,10 @@ Meshes:
   with their operand and ring-model wire bytes (``collectives``).
   ``memory`` also keeps the rules' per-device argument bytes by kind
   (``sharding.shard_shape``), which the placed shards equal.  These are
-  counts on the CPU, not times.  An arch or a path that does not run
-  sharded yet (a Mamba-2, RG-LRU or local mixer, a frontend: outside
-  ``transformer.runs_sharded``; and the mqr-KV sparse decode) keeps only
-  those argument bytes, ``cost`` and ``collectives`` ``null``,
-  and a note naming ROADMAP A4d.
+  counts on the CPU, not times.  Every arch's train, prefill and dense
+  decode steps run sharded; the mqr-KV sparse decode, which does not run
+  sharded yet, keeps only those argument bytes, ``cost`` and
+  ``collectives`` ``null``, and a note naming ROADMAP A4d.
 
 Usage (no card needed)::
 
@@ -67,8 +66,8 @@ from repro_torch.optim import adamw
 from repro_torch.sharding import rules
 
 MESHES = ("card", "single", "multi")
-SHARDED_NOTE = ("per-device argument bytes from the sharding rules only: this arch or "
-                "path does not run sharded on a DeviceMesh yet (ROADMAP A4d)")
+SHARDED_NOTE = ("per-device argument bytes from the sharding rules only: the mqr-KV "
+                "sparse decode does not run sharded on a DeviceMesh yet (ROADMAP A4d)")
 
 
 def _apply_overrides(cfg, overrides):
@@ -253,9 +252,9 @@ def sharded_memory(cfg, shape: str, mesh, global_batch=None, seq_len=None) -> di
 
 
 def runs_sharded(cfg, shape: str, tag: str = "") -> bool:
-    """Whether the cell's step runs sharded on a ``DeviceMesh`` yet: a
-    model of ``transformer.runs_sharded`` (``attn`` and ``mla`` mixers, any
-    FFN, no frontend), but not the mqr-KV sparse decode."""
+    """Whether the cell's step runs sharded on a ``DeviceMesh`` yet:
+    everything of ``transformer.runs_sharded`` (every mixer, FFN and
+    frontend of the ten configs) but the mqr-KV sparse decode."""
     kind = registry.SHAPES[shape]["kind"]
     return T.runs_sharded(cfg) and not (kind == "decode" and mqr_sparse(cfg, shape, tag))
 

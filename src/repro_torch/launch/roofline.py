@@ -16,9 +16,8 @@ Per (arch x shape x mesh) cell:
 
 Also reports MODEL_FLOPS / counted FLOPs (useful-compute fraction: catches
 remat recompute and masked-attention waste) and the bound term.  Records of
-cells that do not run sharded yet (``cost`` null: the archs outside
-``transformer.runs_sharded``, and the mqr-KV sparse decode; ROADMAP A4d) print in a
-separate "fits per device" table of argument bytes.
+cells that do not run sharded yet (``cost`` null: the mqr-KV sparse decode;
+ROADMAP A4d) print in a separate "fits per device" table of argument bytes.
 """
 
 from __future__ import annotations

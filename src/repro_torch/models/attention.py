@@ -247,12 +247,50 @@ def local_attention_banded(q, k, v, positions, window: int) -> torch.Tensor:
     return out.reshape(b, s, h, dh)
 
 
+def _windowed_local(q, k, v, positions, *, cfg, window: int, h0: int = 0, kv0: int = 0,
+                    group: int = 1) -> torch.Tensor:
+    """Sliding-window attention of plain q (B, S, Hl, Dh) over k, v (B, S,
+    Hkv_l, Dh): the banded path where the window divides S (and
+    ``cfg.local_attn_impl`` is ``"banded"``), else the masked online
+    softmax; query heads from global h0, kv heads from global kv0
+    (:func:`_kv_for_heads`)."""
+    (k, _), (v, _) = (_kv_for_heads(t, 2, h0, q.shape[2], group, kv0) for t in (k, v))
+    if cfg.local_attn_impl == "banded" and q.shape[1] % window == 0:
+        return local_attention_banded(q, k, v, positions, window)
+    return flash_attention(q, k, v, positions, positions, window=window, chunk=cfg.attn_chunk)
+
+
+def windowed_attention(cfg, q, k, v, positions, window: int) -> torch.Tensor:
+    """Sliding-window attention of q (B, S, H, Dh) over k, v (B, S, Hkv,
+    Dh) (:func:`_windowed_local`, plain torch, as the reference's jnp).
+    DTensors run on their local shards (``local_map``) as
+    :func:`causal_attention` lays them out: batch over the data axes,
+    heads over ``model`` where they divide (a sequence-sharded q brought
+    back to heads), each local query head reading its kv head by global
+    index (C39; recurrentgemma's one kv head replicated, its gradient
+    summed over the ranks), the positions with the batch."""
+    group = q.shape[2] // k.shape[2]
+    fn = functools.partial(_windowed_local, cfg=cfg, window=window, group=group)
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, positions)
+    mesh = q.device_mesh
+    spec = (("pod", "data"), None, "model", None)
+    qp = rules.placements(rules.clean_spec(spec, q.shape, mesh), mesh)
+    kp = rules.placements(rules.clean_spec(spec, k.shape, mesh), mesh)
+    bp = tuple(p if p.is_shard(0) else Replicate() for p in qp)
+    kg = tuple(Partial() if a.is_shard(2) and not b.is_shard(2) else b for a, b in zip(qp, kp))
+    fn = functools.partial(fn, h0=rules.shard_start(mesh, qp, 2, q.shape[2]),
+                           kv0=rules.shard_start(mesh, kp, 2, k.shape[2]))
+    positions = on_mesh(positions, q)
+    return _lib.on_local_shards(fn, (q, k, v, positions), (qp, kp, kp, bp), qp,
+                                (qp, kg, kg, bp))
+
+
 def _mix(params, cfg, q, k, v, positions, window):
-    if window is not None and cfg.local_attn_impl == "banded" and q.shape[1] % window == 0:
-        out = local_attention_banded(q, k, v, positions, window)
+    if window is None:
+        out = causal_attention(q, k, v)
     else:
-        out = flash_attention(q, k, v, positions, positions, window=window,
-                              chunk=cfg.attn_chunk)
+        out = windowed_attention(cfg, q, k, v, positions, window)
     return _out_proj(out, params["wo"])
 
 
@@ -374,19 +412,22 @@ def _softmax_attend(qs, k_cache, v_cache, mask, dh):
 
 def local_attention_decode(params, cfg, x, cache, pos):
     """Single-token decode against the ring buffer. x: (B, 1, D); the cache
-    is written in place and returned."""
-    b = x.shape[0]
-    dh, h, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    is written in place and returned.  On a mesh the ring's k and v are
+    written on the rank that holds slot ``pos % W`` (``rules.cache_spec``
+    shards the ring's slots over ``model`` where the kv heads do not
+    divide), the slots' positions ``cache["pos"]`` (replicated) on every
+    rank, and the attention over the valid slots is the dense decode's
+    (:func:`_decode_attend`: flash-decoding across slot shards)."""
     w = cache["k"].shape[2]
     q, k_new, v_new = _decode_qkv(params, cfg, x, pos)
     slot = _at(pos, x.device) % w
     _write(cache["k"], slot, k_new)
     _write(cache["v"], slot, v_new)
     kv_pos = cache["pos"]
-    kv_pos.index_copy_(0, slot, _at(pos, x.device).to(torch.int32))
+    local = kv_pos.to_local() if isinstance(kv_pos, DTensor) else kv_pos
+    local.index_copy_(0, slot, _at(pos, x.device).to(torch.int32))
     valid = (kv_pos >= 0) & (kv_pos <= pos) & (pos - kv_pos < w)
-    qs = q.reshape(b, hkv, h // hkv, dh).to(cache["k"].dtype)
-    out = _softmax_attend(qs, cache["k"], cache["v"], valid, dh).reshape(b, 1, h, dh)
+    out = _decode_attend(q, cache["k"], cache["v"], valid, q.shape[2] // cfg.n_kv_heads)
     return _out_proj(out, params["wo"]), cache
 
 
@@ -411,11 +452,17 @@ def attention_decode(params, cfg, x, cache: Dict, pos, window=None, mqr_sparse: 
 
 
 def _dense_decode(cfg, q, k_cache, v_cache, pos, window):
-    group = q.shape[2] // cfg.n_kv_heads
     kv_pos = on_mesh(torch.arange(k_cache.shape[2], device=q.device), k_cache)
     mask = kv_pos <= pos
     if window is not None:
         mask = mask & (kv_pos > pos - window)
+    return _decode_attend(q, k_cache, v_cache, mask, q.shape[2] // cfg.n_kv_heads)
+
+
+def _decode_attend(q, k_cache, v_cache, mask, group: int):
+    """Decode attention of q (B, 1, H, Dh) over the cache (B, Hkv, S, Dh)
+    where ``mask`` (S,) is true; DTensor caches on their shards
+    (:func:`_dense_decode_sharded`)."""
     if isinstance(k_cache, DTensor):
         return _dense_decode_sharded(q, k_cache, v_cache, mask, group)
     return _decode_local(q, k_cache, v_cache, mask, group=group)
@@ -437,24 +484,19 @@ def _decode_local(q, k, v, mask, h0=0, kv0=0, group=1):
     return _softmax_attend(qs, k, v, mask, q.shape[-1]).reshape(q.shape)
 
 
-def _decode_max(q, k, v, mask, h0=0, kv0=0, group=1):
-    """The largest masked logit of each query head over one rank's
-    sequence shard (B, 1, Hl, 1)."""
-    qs, k, _ = _decode_operands(q, k, v, h0, kv0, group)
-    logits = _decode_logits(qs, k, mask, q.shape[-1])
-    return logits.amax(dim=-1, keepdim=True).reshape(*q.shape[:3], 1)
-
-
-def _decode_partial(q, k, v, mask, m, h0=0, kv0=0, group=1):
-    """One rank's share of the softmax over its sequence shard, shifted by
-    the global max ``m``: sum_j e_j v_j (B, 1, Hl, Dh) float32 with e_j
-    rounded to v's dtype, as ``_softmax_attend`` rounds p, and sum_j e_j
-    (B, 1, Hl, 1)."""
+def _decode_share(q, k, v, mask, h0=0, kv0=0, group=1):
+    """One rank's share of the decode softmax over its run of keys, in one
+    pass: (m (1, B, 1, Hl), l (1, B, 1, Hl), o (1, B, 1, Hl, Dh)), the
+    largest masked logit, the sum of exp(logit - m), and the run's
+    softmax (in v's dtype, as ``_softmax_attend`` rounds p) times its
+    values, each with a leading dim of one (the run's place in the
+    sequence, :func:`_dense_decode_sharded`)."""
     qs, k, v = _decode_operands(q, k, v, h0, kv0, group)
     logits = _decode_logits(qs, k, mask, q.shape[-1])
-    e = torch.exp(logits - m.reshape(*logits.shape[:3], 1))
-    o = (e.to(v.dtype) @ v).to(torch.float32)
-    return o.reshape(q.shape), e.sum(dim=-1).reshape(*q.shape[:3], 1)
+    m = logits.amax(dim=-1)
+    l = torch.exp(logits - m[..., None]).sum(dim=-1)
+    o = torch.softmax(logits, dim=-1).to(v.dtype) @ v
+    return m.reshape(1, *q.shape[:3]), l.reshape(1, *q.shape[:3]), o.reshape(1, *q.shape)
 
 
 def _dense_decode_sharded(q, k_cache, v_cache, mask, group: int):
@@ -462,10 +504,12 @@ def _dense_decode_sharded(q, k_cache, v_cache, mask, group: int):
     (``local_map``): q takes the cache's batch placements and its kv-head
     placements as query heads (each local query head reads its kv head by
     global index, C39).  Where ``rules.cache_spec`` shards the cache's
-    sequence (kv heads that ``model`` does not divide), q is replicated
-    over those ranks and the softmax is combined across them as
-    flash-decoding does: the global max (a ``Partial("max")``), then each
-    rank's shifted sums (``Partial("sum")``), out = sum e v / sum e."""
+    sequence (kv heads that ``model`` does not divide; the local mixer's
+    ring of slots), q is replicated over those ranks and the softmax is
+    combined as flash-decoding does, in one ``local_map``: each rank's max
+    m_r, sum l_r and o_r (:func:`_decode_share`), gathered, then with m
+    the largest and w_r = exp(m_r - m) l_r, out = sum_r (w_r / sum w)
+    o_r, in v's dtype (the form of ``mla._dense_latent_sharded``)."""
     mesh, kp = k_cache.device_mesh, tuple(k_cache.placements)
     h, hkv = q.shape[2], k_cache.shape[1]
     qp = tuple(Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(1) else Replicate()
@@ -477,14 +521,26 @@ def _dense_decode_sharded(q, k_cache, v_cache, mask, group: int):
     args, pls = (q, k_cache, v_cache, mask), (qp, kp, kp, mp)
     if not any(p.is_shard(2) for p in kp):
         return _lib.on_local_shards(functools.partial(_decode_local, **at), args, pls, qp, pls)
-    m = _lib.on_local_shards(functools.partial(_decode_max, **at), args, pls,
-                             tuple(Partial("max") if p.is_shard(2) else a
-                                   for p, a in zip(kp, qp)), pls)
-    m = m.redistribute(mesh, qp)
-    o_pl = tuple(Partial() if p.is_shard(2) else a for p, a in zip(kp, qp))
-    o = _lib.on_local_shards(functools.partial(_decode_partial, **at), args + (m,),
-                             pls + (qp,), o_pl, pls + (qp,), n_out=2)
-    return (o[0] / o[1]).to(v_cache.dtype)
+    # outputs (runs, B, 1, Hl[, Dh]): the runs over the ranks that split the
+    # sequence, batch and heads as q's
+    op = tuple(Shard(0) if p.is_shard(2) else Shard(a.dim + 1) if a.is_shard() else a
+               for p, a in zip(kp, qp))
+    m, l, o = _lib.on_local_shards(functools.partial(_decode_share, **at), args, pls, op, pls,
+                                   n_out=3)
+    whole = tuple(Replicate() if p.is_shard(2) else a for p, a in zip(kp, op))
+    return combine_runs(m, l, o, whole, v_cache.dtype)
+
+
+def combine_runs(m, l, o, whole, dtype) -> torch.Tensor:
+    """Flash-decoding's combine of the runs of a sequence-sharded decode:
+    m, l (runs, ...) and o (runs, ..., d) DTensors split over the runs,
+    gathered to ``whole``; with m the largest and w_r = exp(m_r - m) l_r,
+    out = sum_r (w_r / sum w) o_r in ``dtype``.  Over one run the weight
+    is exactly 1 and out is o."""
+    mesh = m.device_mesh
+    m, l, o = (t.redistribute(mesh, whole) for t in (m, l, o))
+    w = torch.exp(m - m.amax(dim=0)) * l
+    return ((w / w.sum(dim=0))[..., None] * o.to(torch.float32)).sum(dim=0).to(dtype)
 
 
 def _probe_rows(params, b: int) -> torch.Tensor:

@@ -36,7 +36,7 @@ from repro_torch.core import kvindex
 from repro_torch.kernels import _lib
 from repro_torch.sharding import rules
 
-from .attention import _at, _out_proj, _pos, _proj, _write_shard
+from .attention import _at, _out_proj, _pos, _proj, _write_shard, combine_runs
 from .modules import (
     apply_rope,
     dense_init,
@@ -257,9 +257,7 @@ def _dense_latent_sharded(q_eff, q_rope, c_cache, kr_cache, pos, scale) -> torch
     args, pls = (q_eff, q_rope, c_cache, kr_cache), (qp, qp, cp, tuple(kr_cache.placements))
     m, l, o = _lib.on_local_shards(fn, args, pls, op, pls, n_out=3)
     whole = tuple(Shard(1) if p.is_shard(0) else Replicate() for p in cp)
-    m, l, o = (t.redistribute(mesh, whole) for t in (m, l, o))
-    w = torch.exp(m - m.amax(dim=0)) * l
-    return ((w / w.sum(dim=0))[..., None] * o.to(torch.float32)).sum(dim=0).to(c_cache.dtype)
+    return combine_runs(m, l, o, whole, c_cache.dtype)
 
 
 def mla_decode(params, cfg, x, cache, pos, mqr_sparse: bool = False):

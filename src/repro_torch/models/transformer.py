@@ -35,13 +35,15 @@ outside any kernel.  Every entry point takes
 ``device``: the card unless ``"cpu"`` is asked for.
 
 The same functions run sharded when the parameters, the batch and the
-caches are DTensors on a ``DeviceMesh`` (``launch.steps.place``; so far
-the ``attn`` and ``mla`` mixers with any FFN, the MoE one with its experts
-over ``model``, :func:`runs_sharded`, ROADMAP A4d):
-``modules.shard`` at the reference's call sites, sequence parallelism of the residual when S %
-2048 == 0 (gathered at each mixer's and FFN's input, C38), and on the
-vocab shards the embedding lookup, the label's logit and the logsumexp
+caches are DTensors on a ``DeviceMesh`` (``launch.steps.place``; every
+mixer, FFN and frontend, :func:`runs_sharded`; the mqr-KV sparse decode
+not yet, ROADMAP A4d): ``modules.shard`` at the reference's call sites,
+sequence parallelism of the residual when S % 2048 == 0 (gathered at each
+mixer's and FFN's input, C38), and on the vocab shards the embedding
+lookup (the audio codebooks' too), the label's logit and the logsumexp
 (:func:`embed_lookup`, :func:`label_logits`, :func:`log_sum_exp`; C40).
+The MoE FFN puts its experts over ``model`` (C41), Mamba-2 its heads
+(C43), the RG-LRU its width and the local mixer's ring its slots (C44).
 """
 
 from __future__ import annotations
@@ -355,20 +357,17 @@ def _ffn_apply(p, cfg, x, moe_layer: bool):
     return h @ p["w_out"], None
 
 
+MIXERS = ("attn", "local", "mla", "mamba2", "rglru")
+FRONTENDS = ("none", "audio_codebooks", "vision_patches")
+
+
 def runs_sharded(cfg: ModelConfig) -> bool:
-    """Whether the model's steps run on DTensors over a ``DeviceMesh``
-    yet: every mixer ``attn`` or ``mla``, any FFN (the MoE one with its
-    experts over ``model``) and tokens in (no frontend).  The other mixers
-    and the frontends raise ``NotImplementedError`` on DTensors (ROADMAP
-    A4d), as the mqr-KV sparse decode does."""
-    return (set(cfg.block_pattern + cfg.tail_pattern) <= {"attn", "mla"}
-            and cfg.frontend == "none")
-
-
-def _not_sharded(x, what: str) -> None:
-    if isinstance(x, DTensor):
-        raise NotImplementedError(f"{what} does not run sharded on a DeviceMesh yet "
-                                  "(ROADMAP A4d)")
+    """Whether the model's steps run on DTensors over a ``DeviceMesh``:
+    every mixer of :data:`MIXERS` and frontend of :data:`FRONTENDS` does
+    (ROADMAP A4d; all ten configs).  Only the mqr-KV sparse decode raises
+    ``NotImplementedError`` on DTensors yet."""
+    return (set(cfg.block_pattern + cfg.tail_pattern) <= set(MIXERS)
+            and cfg.frontend in FRONTENDS)
 
 
 def _mixer_train(p, cfg, kind, x, positions):
@@ -376,7 +375,6 @@ def _mixer_train(p, cfg, kind, x, positions):
         return attn.attention_train(p, cfg, x, positions)
     if kind == "mla":
         return mla_mod.mla_train(p, cfg, x, positions, chunk=cfg.attn_chunk)
-    _not_sharded(x, f"the {kind} mixer")
     if kind == "local":
         return attn.attention_train(p, cfg, x, positions, window=cfg.local_window)
     if kind == "mamba2":
@@ -460,6 +458,31 @@ def _lookup_local(embed, tokens, v0: int) -> torch.Tensor:
     return torch.where(inside[..., None], embed[local.clamp(0, embed.shape[0] - 1)], 0)
 
 
+def _lookup_codebooks_local(embed, tokens, v0: int) -> torch.Tensor:
+    """:func:`_lookup_local` of each codebook k, embed (K, V_local, D) and
+    tokens (B, S, K) -> (B, S, K, D)."""
+    return torch.stack([_lookup_local(embed[k], tokens[..., k], v0)
+                        for k in range(embed.shape[0])], dim=2)
+
+
+def _vocab_parallel(fn, embed, tokens, vdim: int) -> torch.Tensor:
+    """``fn(embed_local, tokens, v0)`` on each rank's vocab rows (dim
+    ``vdim`` of the table; its other dims gathered: FSDP), the result
+    ``Partial`` over the mesh dims that shard the vocab (one rank's rows,
+    the others' zeros)."""
+    mesh, ep = embed.device_mesh, tuple(embed.placements)
+    tokens = on_mesh(tokens, embed)
+    rows = tuple(Shard(vdim) if p.is_shard(vdim) else Replicate() for p in ep)
+    tp = tuple(Replicate() if e.is_shard(vdim) or not t.is_shard(0) else t
+               for e, t in zip(rows, tokens.placements))
+    v0 = rules.shard_start(mesh, rows, vdim, embed.shape[vdim])
+    out = tuple(Partial() if e.is_shard(vdim) else t for e, t in zip(rows, tp))
+    grad = tuple(e if e.is_shard(vdim) else Partial() if t.is_shard(0) else Replicate()
+                 for e, t in zip(rows, tp))
+    return _lib.on_local_shards(functools.partial(fn, v0=v0), (embed, tokens), (rows, tp),
+                                out, (grad, tp))
+
+
 def embed_lookup(embed, tokens) -> torch.Tensor:
     """``embed[tokens]``.  On a mesh as a vocab-parallel embedding: the
     table's model dim gathered (FSDP), each rank looks its tokens up in its
@@ -468,17 +491,7 @@ def embed_lookup(embed, tokens) -> torch.Tensor:
     (``index_put``) fails on torch 2.11, and would gather the table."""
     if not isinstance(embed, DTensor):
         return embed[tokens]
-    mesh, ep = embed.device_mesh, tuple(embed.placements)
-    tokens = on_mesh(tokens, embed)
-    rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in ep)
-    tp = tuple(Replicate() if e.is_shard(0) or not t.is_shard(0) else t
-               for e, t in zip(rows, tokens.placements))
-    v0 = rules.shard_start(mesh, rows, 0, embed.shape[0])
-    out = tuple(Partial() if e.is_shard(0) else t for e, t in zip(rows, tp))
-    grad = tuple(e if e.is_shard(0) else Partial() if t.is_shard(0) else Replicate()
-                 for e, t in zip(rows, tp))
-    return _lib.on_local_shards(functools.partial(_lookup_local, v0=v0), (embed, tokens),
-                                (rows, tp), out, (grad, tp))
+    return _vocab_parallel(_lookup_local, embed, tokens, 0)
 
 
 def _scale_embeddings(cfg, x):
@@ -489,9 +502,25 @@ def _scale_embeddings(cfg, x):
     return x
 
 
+def _sum_codebooks(rows) -> torch.Tensor:
+    """rows (B, S, K, D) summed over the codebooks in order, as the
+    reference's Python ``sum``."""
+    return sum(rows[:, :, k] for k in range(rows.shape[2]))
+
+
 def _embed_codebooks(emb, tokens):
-    """Audio stub: sum over codebooks k of emb[k][tokens[..., k]]."""
-    return sum(emb[k][tokens[..., k]] for k in range(emb.shape[0]))
+    """Audio stub: sum over codebooks k of emb[k][tokens[..., k]], in the
+    reference's order.  On a mesh each codebook's lookup is vocab-parallel
+    (:func:`embed_lookup`'s rule; emb (K, V, D) with V over ``model``),
+    the lookups (B, S, K, D) are reduced over the vocab ranks (each row
+    comes from one rank, so exactly), then summed in order on each rank's
+    batch (``local_map``)."""
+    if not isinstance(emb, DTensor):
+        return sum(emb[k][tokens[..., k]] for k in range(emb.shape[0]))
+    rows = shard(_vocab_parallel(_lookup_codebooks_local, emb, tokens, 1),
+                 ("pod", "data"), None, None, None)
+    rp = tuple(rows.placements)
+    return _lib.on_local_shards(_sum_codebooks, (rows,), (rp,), rp, (rp,))
 
 
 def embed_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
@@ -499,8 +528,6 @@ def embed_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
     dt = param_dtype(cfg)
     tokens = batch["tokens"].long()
     dev = tokens.device
-    if cfg.frontend != "none":
-        _not_sharded(params["embed"], f"the {cfg.frontend} frontend")
     if cfg.frontend == "audio_codebooks":
         x = _embed_codebooks(params["embed"], tokens).to(dt)  # tokens (B, S, K)
         b, s = tokens.shape[:2]
@@ -508,7 +535,9 @@ def embed_inputs(params, cfg, batch: Dict[str, torch.Tensor]):
         return x, positions, torch.ones((b, s), dtype=torch.bool, device=dev)
     if cfg.frontend == "vision_patches":
         vis = batch["vision_embeds"].to(dt)  # (B, P, D)
-        x = torch.cat([vis, params["embed"][tokens].to(dt)], dim=1)
+        # on a mesh the vocab-parallel lookup is reduced before the cat
+        emb = shard(embed_lookup(params["embed"], tokens), ("pod", "data"), None, None)
+        x = torch.cat([vis, emb.to(dt)], dim=1)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=dev).expand(b, s)
         mask = torch.cat([torch.zeros((b, vis.shape[1]), dtype=torch.bool, device=dev),
@@ -541,11 +570,37 @@ def forward_hidden(params, cfg, x, positions):
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), load
 
 
+def _codebook_logits(hidden, lm_head):
+    """hidden (B, S, D) through each codebook's head (K, D, V) -> (B, S,
+    K, V)."""
+    return torch.einsum("bsd,kdv->bskv", hidden, lm_head)
+
+
+def codebook_logits(hidden, lm_head):
+    """:func:`_codebook_logits`.  On a mesh each rank runs its batch rows
+    through its vocab columns of every head (``local_map``; the heads' D
+    gathered, FSDP): DTensor's own plan for the einsum flattens the batch
+    and the sequence sharded on two mesh dims, and cannot unflatten them
+    (torch 2.13).  The hidden's gradient is ``Partial`` over the vocab
+    ranks."""
+    if not isinstance(hidden, DTensor):
+        return _codebook_logits(hidden, lm_head)
+    mesh = hidden.device_mesh
+    hp = rules.placements(rules.clean_spec((("pod", "data"), None, None), hidden.shape, mesh),
+                          mesh)
+    wp = tuple(Shard(2) if p.is_shard(2) else Replicate() for p in lm_head.placements)
+    op = tuple(Shard(3) if w.is_shard(2) else h for h, w in zip(hp, wp))
+    hg = tuple(Partial() if w.is_shard(2) else h for h, w in zip(hp, wp))
+    wg = tuple(w if w.is_shard(2) else Partial() if h.is_shard(0) else Replicate()
+               for h, w in zip(hp, wp))
+    return _lib.on_local_shards(_codebook_logits, (hidden, lm_head), (hp, wp), op, (hg, wg))
+
+
 def logits_fn(params, cfg, hidden):
     """Logits over the padded vocab, in the model's dtype (the pad ids are
     masked by the serve step, as in the reference)."""
     if cfg.frontend == "audio_codebooks":
-        out = torch.einsum("bsd,kdv->bskv", hidden, params["lm_head"])
+        out = codebook_logits(hidden, params["lm_head"])
         return shard(out, ("pod", "data"), None, None, "model")
     out = hidden @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
     # vocab over the model axis, batch over the data axes, as the reference
@@ -676,7 +731,6 @@ def _mixer_decode(p, cfg, kind, x, cache, pos, mqr_sparse):
         return attn.attention_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
     if kind == "mla":
         return mla_mod.mla_decode(p, cfg, x, cache, pos, mqr_sparse=mqr_sparse)
-    _not_sharded(x, f"the {kind} mixer")
     if kind == "local":
         return attn.local_attention_decode(p, cfg, x, cache, pos)
     if kind == "mamba2":
@@ -710,7 +764,6 @@ def decode_step(
     dt = param_dtype(cfg)
     tokens = tokens.long()
     if cfg.frontend == "audio_codebooks":
-        _not_sharded(params["embed"], "the audio_codebooks frontend")
         x = _embed_codebooks(params["embed"], tokens).to(dt)
     else:
         x = _scale_embeddings(cfg, embed_lookup(params["embed"], tokens).to(dt))

@@ -223,11 +223,14 @@ def test_run_cell_writes_the_reference_keys(arch, shape, tmp_path, smoke_configs
 
 
 @pytest.mark.parametrize("mesh_name", ["single", "multi"])
-@pytest.mark.parametrize("shape", list(registry.SHAPES))
-def test_production_meshes_record_argument_bytes_per_device(shape, mesh_name, tmp_path):
-    # an arch whose steps do not run sharded yet (mamba2's SSD mixer, ROADMAP
-    # A4d): its record keeps the rules' argument bytes
-    rec = dryrun.run_cell("mamba2_2p7b", shape, mesh_name, tmp_path, force=True)
+@pytest.mark.parametrize("arch", ["llama32_1b", "granite_moe_1b", "deepseek_v3_671b",
+                                  "internvl2_2b"])
+def test_production_meshes_record_argument_bytes_per_device(arch, mesh_name, tmp_path):
+    # the one path that does not run sharded yet, the mqr-KV sparse decode
+    # (long_500k of an arch with kv attention, ROADMAP A4d): its record keeps
+    # the rules' argument bytes
+    rec = dryrun.run_cell(arch, "long_500k", mesh_name, tmp_path, force=True)
+    assert rec["mqr_sparse"] and not dryrun.runs_sharded(registry.get_config(arch), "long_500k")
     assert rec["cost"] is None and rec["collectives"] is None and "A4d" in rec["note"]
     assert rec["n_devices"] == (256 if mesh_name == "single" else 512)
     mem = rec["memory"]
@@ -238,10 +241,8 @@ def test_production_meshes_record_argument_bytes_per_device(shape, mesh_name, tm
     mesh = make_production_mesh(multi_pod=mesh_name == "multi")
     elements = [math.prod(rules.shard_shape(rules.spec_for_param(path, t.shape, mesh), t.shape,
                                             mesh)) for path, t in rules.leaves_with_path(
-        steps.abstract_params(registry.get_config("mamba2_2p7b")))]
+        steps.abstract_params(registry.get_config(arch)))]
     assert sum(elements) * 2 < mem["params_bytes_per_device"] < sum(elements) * 4
-    if registry.SHAPES[shape]["kind"] == "train":  # two float32 moments
-        assert mem["moments_bytes_per_device"] == 2 * 4 * sum(elements)
 
 
 def test_roofline_analyze_equals_the_reference_with_the_h100_constants(monkeypatch, tmp_path,

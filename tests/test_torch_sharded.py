@@ -6,20 +6,25 @@ sharded step on the CPU.
   rules' placements) against the reference jitted with ``in_shardings``
   on a (2, 2) mesh of four forced host devices, both in subprocesses
   started together, from the same parameters (the reference's
-  ``init_params``, carried across by ``convert``): three
+  ``init_params``, carried across by ``convert``) and the same batches: three
   ``make_train_step`` steps with remat off, ``"full"`` and ``"dots"`` (loss,
   grad_norm, lr and every final parameter within 1e-4, relative and
   absolute, as ``test_torch_train``'s five unsharded steps), the prefill
   logits (1e-4) and six greedy decode tokens (equal); the same ranks as a
   (1, 4) mesh (one query head a rank, the decode caches' sequence sharded)
   for the train step and the decode tokens.
-- **The other families** in the same two runs (``FAMILIES``): the smoke
-  granite-moe (both MoE dispatches) and DeepSeek (MLA, a dense stack and
-  the MoE), gemma-2b, granite-8b and command-r-35b: three train steps
-  (remat "full"; ``expert_load_max`` equal), prefill and six decode
-  tokens on the (2, 2) mesh, and for the two MoE families the train step
-  and the tokens on the (1, 4) mesh (one expert a rank, DeepSeek's latent
-  cache sequence-sharded four ways).
+- **The other families** (``FAMILIES``): the smoke granite-moe (both MoE
+  dispatches) and DeepSeek (MLA, a dense stack and the MoE), gemma-2b,
+  granite-8b and command-r-35b in the same two runs; mamba2-2.7b (SSD on
+  head shards, two chunks), recurrentgemma-9b (RG-LRU on width shards,
+  the local ring of 8 slots on slot shards, wrapped by the decode),
+  internvl2-2b (patch embeddings beside the vocab-parallel lookup) and
+  musicgen-large (two codebooks on vocab shards) in a second pair of runs
+  (``LAST_FOUR``): three train steps (remat "full"; ``expert_load_max``
+  equal), prefill and the greedy decode tokens on the (2, 2) mesh, and
+  for the MoE, Mamba-2 and RG-LRU families the train step and the tokens
+  on the (1, 4) mesh (one expert, two heads or 16 of the width a rank;
+  DeepSeek's latent cache and the ring sequence-sharded four ways).
 - **``modules.shard``** on a DTensor gives the placements of the
   reference's cleaned spec (the output sharding of ``jax.jit(lambda x:
   shard(x, *spec))`` under the reference's mesh) on a (4, 2) and a
@@ -27,17 +32,19 @@ sharded step on the CPU.
   constrains its xe and ye as the reference does.
 - **``OpCost`` under DTensor**, counted by hand on one FSDP/TP linear,
   with DTensor's sharding propagation left out of the peak.
-- **Paths that do not run sharded yet** (the Mamba-2, RG-LRU and local
-  mixers, the frontends, the mqr-KV sparse decode) raise
-  ``NotImplementedError`` on DTensors.
+- **Every arch's prefill runs sharded** on a fake group; the mqr-KV sparse
+  decode, the one path that does not yet, raises ``NotImplementedError``
+  on DTensors.
 - **The dry run on the production meshes** (fake process groups of 256
   and 512 ranks, ``meta`` shards): non-null per-device cost, peak and
   collectives with the reference's keys, argument bytes equal to the
   rules' ``shard_shape``, and per-device FLOPs x devices no less than one
-  card's; llama, granite-moe and DeepSeek.
+  card's; llama, granite-moe and DeepSeek, and the last four families on
+  the 16x16 mesh.
 
-The two runs of the first two bullets are made once a test session (under
-xdist, once for all workers: a file lock in the session's temporary root).
+Each of the two pairs of runs is made once a test session (under xdist,
+once for all workers: a file lock of its own in the session's temporary
+root, so two workers can make the two pairs at once).
 """
 import dataclasses
 import fcntl
@@ -56,6 +63,7 @@ import torch
 import torch.distributed as dist
 
 from repro.configs import registry as ref_registry
+from repro.data.pipeline import DataConfig, SyntheticLM
 from repro.models import transformer as ref_T
 from repro.optim import adamw as ref_adamw
 from repro_torch.configs import registry
@@ -71,10 +79,15 @@ REMATS = {"off": dict(remat=False), "full": dict(remat=True, remat_policy="full"
           "dots": dict(remat=True, remat_policy="dots")}
 STEPS, SEQ, BATCH = 3, 16, 4
 DECODE_STEPS, MAX_LEN = 6, 32
+TRAIN_BATCH = 2
 OPT = dict(lr=1e-2, warmup_steps=2, total_steps=5)
 # the other families held to the reference's sharded step on the (2, 2) mesh:
-# arch -> its train runs (name: overrides, remat "full"), and whether the
-# (1, 4) mesh runs its train step (the first run's) and decode tokens too
+# arch -> its train runs (name: overrides, remat "full"), whether the (1, 4)
+# mesh runs its train step (the first run's) and decode tokens too, and the
+# overrides of its smoke config for every run ("cfg"): the smoke Mamba-2's
+# chunk of 32 would leave S 16 one chunk (8: the state carried across two),
+# the smoke recurrentgemma's window of 32 a ring that never wraps (8, with
+# 12 decode steps)
 FAMILIES = {
     "granite_moe_1b": dict(train={"full": REMATS["full"],
                                   "scatter": dict(REMATS["full"], moe_dispatch="scatter")},
@@ -83,7 +96,15 @@ FAMILIES = {
     "gemma_2b": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
     "granite_8b": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
     "command_r_35b": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
+    "mamba2_2p7b": dict(train={"full": REMATS["full"]}, mesh_1x4=True,
+                        cfg=dict(ssd_chunk=8)),
+    "recurrentgemma_9b": dict(train={"full": REMATS["full"]}, mesh_1x4=True,
+                              cfg=dict(local_window=8), decode_steps=12),
+    "internvl2_2b": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
+    "musicgen_large": dict(train={"full": REMATS["full"]}, mesh_1x4=False),
 }
+# the families of the second pair of runs
+LAST_FOUR = ("mamba2_2p7b", "recurrentgemma_9b", "internvl2_2b", "musicgen_large")
 # AdamW of the families' runs: OPT with an eps above the float32 noise of a
 # gradient that cancels to ~1e-6 of its leaf's RMS (gemma-2b's first
 # gradient at blocks/0/l0/ffn/w_out[86, 34] is -1.36e-8, leaf RMS 9.9e-3):
@@ -96,7 +117,8 @@ FAMILY_OPT = dict(OPT, eps=1e-6)
 # C = 16 * 2 / 4 * 4.0 (a B of 3 does not divide over the data axis)
 MOE_SHAPES = [(4, 4, 32, 64), (3, 4, 32, 64)]
 FAMILY_TRAINS = [(arch, name) for arch, spec in FAMILIES.items() for name in spec["train"]]
-MOE_ARCHS = [arch for arch, spec in FAMILIES.items() if spec["mesh_1x4"]]
+MOE_ARCHS = ["granite_moe_1b", "deepseek_v3_671b"]
+RECURRENT_ARCHS = ["mamba2_2p7b", "recurrentgemma_9b"]
 # (mesh axis names, sizes, tensor shape, spec) for the shard() check
 SHARD_CASES = [
     (("data", "model"), (4, 2), (8, 6, 4), (("pod", "data"), "model", None)),
@@ -129,104 +151,98 @@ import dataclasses, pickle, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.configs import registry
-from repro.data.pipeline import DataConfig, SyntheticLM
 from repro.launch import steps
 from repro.models import transformer as T
 from repro.models.modules import shard
 from repro.optim import adamw
 from repro.sharding import rules
 d = pickle.load(open(sys.argv[1], "rb"))
-base = dataclasses.replace(registry.get_config("llama32_1b", smoke=True), dtype="float32")
 mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
 tree = lambda t: jax.tree.map(np.asarray, t)
-out = {"train": {}}
-with mesh:
-    for name, over in d["remats"].items():
-        cfg = dataclasses.replace(base, **over)
-        ocfg = adamw.AdamWConfig(**d["opt"])
-        params = jax.tree.map(jnp.asarray, d["params"])
-        state = adamw.init_state(params, ocfg)
-        psh = rules.param_shardings(params, mesh)
-        osh = adamw.AdamWState(step=NamedSharding(mesh, P()), m=psh, v=psh)
-        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=d["seq"],
-                                      global_batch=d["batch"]))
-        bsh = rules.batch_shardings({k: jnp.asarray(v) for k, v in data.batch(0).items()}, mesh)
-        step = jax.jit(steps.make_train_step(cfg, ocfg), in_shardings=(psh, osh, bsh))
-        metrics = []
-        for i in range(d["steps"]):
-            b = {k: jnp.asarray(v) for k, v in data.batch(i).items()}
-            params, state, m = step(params, state, b)
-            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
-        out["train"][name] = {"metrics": metrics, "params": tree(params)}
-    cfg = base
-    params = jax.tree.map(jnp.asarray, d["params"])
+jnp_tree = lambda t: jax.tree.map(jnp.asarray, t)
+
+
+def config(arch, fam, **over):
+    base = registry.get_config(arch, smoke=True)
+    return dataclasses.replace(base, dtype="float32", **fam["cfg"], **over)
+
+
+def train(cfg, fam):
+    ocfg = adamw.AdamWConfig(**fam["opt"])
+    params = jnp_tree(fam["params"])
+    state = adamw.init_state(params, ocfg)
     psh = rules.param_shardings(params, mesh)
-    batch = {"tokens": jnp.asarray(d["prompt"])}
-    pre = jax.jit(steps.make_prefill_step(cfg),
-                  in_shardings=(psh, rules.batch_shardings(batch, mesh)))
-    out["prefill"] = np.asarray(pre(params, batch))
-    caches = T.init_caches(cfg, d["prompt"].shape[0], d["max_len"])
-    tok = jnp.asarray(d["prompt"][:, :1])
+    osh = adamw.AdamWState(step=NamedSharding(mesh, P()), m=psh, v=psh)
+    bsh = rules.batch_shardings(jnp_tree(fam["batches"][0]), mesh)
+    step = jax.jit(steps.make_train_step(cfg, ocfg), in_shardings=(psh, osh, bsh))
+    metrics = []
+    for b in fam["batches"]:
+        # XLA may return a leaf on other shardings than in_shardings (Mamba-2's
+        # replicated (layers, heads) A_log with its heads over model): back
+        # to the rules' before the next step, the values unchanged
+        params, state = jax.device_put((params, state), (psh, osh))
+        params, state, m = step(params, state, jnp_tree(b))
+        metrics.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr", "expert_load_max")})
+    return {"metrics": metrics, "params": tree(params)}
+
+
+def prefill(cfg, fam):
+    params = jnp_tree(fam["params"])
+    batch = jnp_tree(fam["prompt"])
+    pre = jax.jit(steps.make_prefill_step(cfg), in_shardings=(
+        rules.param_shardings(params, mesh), rules.batch_shardings(batch, mesh)))
+    return np.asarray(pre(params, batch))
+
+
+def decode(cfg, fam):
+    params = jnp_tree(fam["params"])
+    prompt = fam["prompt"]["tokens"]
+    caches = T.init_caches(cfg, prompt.shape[0], d["max_len"])
+    tok = jnp.asarray(prompt[:, :1])
+    tsh = NamedSharding(mesh, rules.batch_spec(tok.shape, mesh))
+    csh = rules.cache_shardings(caches, mesh)
     serve = jax.jit(steps.make_serve_step(cfg), in_shardings=(
-        psh, NamedSharding(mesh, rules.batch_spec(tok.shape, mesh)),
-        rules.cache_shardings(caches, mesh), NamedSharding(mesh, P())))
+        rules.param_shardings(params, mesh), tsh, csh, NamedSharding(mesh, P())))
     toks = []
-    for i in range(d["decode_steps"]):
+    for i in range(fam["decode_steps"]):
+        # as in train: the returned caches back on the rules' shardings (the
+        # local ring's replicated slot positions come back over model)
+        tok, caches = jax.device_put((tok, caches), (tsh, csh))
         tok, caches = serve(params, tok, caches, jnp.asarray(i, jnp.int32))
         toks.append(np.asarray(tok))
-    out["decode"] = np.stack(toks)
-    out["families"] = {}
+    return np.stack(toks)
+
+
+out = {"families": {}}
+with mesh:
+    if "llama" in d:
+        fam = d["llama"]
+        base = config("llama32_1b", fam)
+        out["train"] = {name: train(config("llama32_1b", fam, **over), fam)
+                        for name, over in fam["train"].items()}
+        out["prefill"] = prefill(base, fam)
+        out["decode"] = decode(base, fam)
     for arch, fam in d["families"].items():
-        got = out["families"][arch] = {"train": {}}
-        base = dataclasses.replace(registry.get_config(arch, smoke=True), dtype="float32")
-        for name, over in fam["train"].items():
-            cfg = dataclasses.replace(base, **over)
-            ocfg = adamw.AdamWConfig(**fam["opt"])
-            params = jax.tree.map(jnp.asarray, fam["params"])
-            state = adamw.init_state(params, ocfg)
-            psh = rules.param_shardings(params, mesh)
-            osh = adamw.AdamWState(step=NamedSharding(mesh, P()), m=psh, v=psh)
-            data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=d["seq"],
-                                          global_batch=d["batch"]))
-            bsh = rules.batch_shardings({k: jnp.asarray(v) for k, v in data.batch(0).items()},
-                                        mesh)
-            step = jax.jit(steps.make_train_step(cfg, ocfg), in_shardings=(psh, osh, bsh))
-            metrics = []
-            for i in range(d["steps"]):
-                b = {k: jnp.asarray(v) for k, v in data.batch(i).items()}
-                params, state, m = step(params, state, b)
-                metrics.append({k: float(m[k])
-                                for k in ("loss", "grad_norm", "lr", "expert_load_max")})
-            got["train"][name] = {"metrics": metrics, "params": tree(params)}
-        params = jax.tree.map(jnp.asarray, fam["params"])
-        psh = rules.param_shardings(params, mesh)
-        pre = jax.jit(steps.make_prefill_step(base),
-                      in_shardings=(psh, rules.batch_shardings(batch, mesh)))
-        got["prefill"] = np.asarray(pre(params, batch))
-        caches = T.init_caches(base, d["prompt"].shape[0], d["max_len"])
-        tok = jnp.asarray(d["prompt"][:, :1])
-        serve = jax.jit(steps.make_serve_step(base), in_shardings=(
-            psh, NamedSharding(mesh, rules.batch_spec(tok.shape, mesh)),
-            rules.cache_shardings(caches, mesh), NamedSharding(mesh, P())))
-        toks = []
-        for i in range(d["decode_steps"]):
-            tok, caches = serve(params, tok, caches, jnp.asarray(i, jnp.int32))
-            toks.append(np.asarray(tok))
-        got["decode"] = np.stack(toks)
-specs = []
-for names, sizes, shape, spec in d["shard_cases"]:
-    m = Mesh(np.array(jax.devices()[:int(np.prod(sizes))]).reshape(sizes), names)
-    with m:
-        y = jax.jit(lambda x: shard(x, *spec))(jnp.zeros(shape, jnp.float32))
-    specs.append([list(e) if isinstance(e, tuple) else e for e in y.sharding.spec])
-out["shard_specs"] = specs
-specs = []
-for shape in d["moe_shapes"]:
-    y = jax.jit(lambda x: shard(x, ("pod", "data"), "model", None, None))
-    with mesh:
-        specs.append([list(e) if isinstance(e, tuple) else e
-                      for e in y(jnp.zeros(shape, jnp.float32)).sharding.spec])
-out["moe_specs"] = specs
+        got = out["families"][arch] = {}
+        got["train"] = {name: train(config(arch, fam, **over), fam)
+                        for name, over in fam["train"].items()}
+        got["prefill"] = prefill(config(arch, fam), fam)
+        got["decode"] = decode(config(arch, fam), fam)
+if "shard_cases" in d:
+    specs = []
+    for names, sizes, shape, spec in d["shard_cases"]:
+        m = Mesh(np.array(jax.devices()[:int(np.prod(sizes))]).reshape(sizes), names)
+        with m:
+            y = jax.jit(lambda x: shard(x, *spec))(jnp.zeros(shape, jnp.float32))
+        specs.append([list(e) if isinstance(e, tuple) else e for e in y.sharding.spec])
+    out["shard_specs"] = specs
+    specs = []
+    for shape in d["moe_shapes"]:
+        y = jax.jit(lambda x: shard(x, ("pod", "data"), "model", None, None))
+        with mesh:
+            specs.append([list(e) if isinstance(e, tuple) else e
+                          for e in y(jnp.zeros(shape, jnp.float32)).sharding.spec])
+    out["moe_specs"] = specs
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -237,7 +253,6 @@ import torch, torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch import convert
 from repro_torch.configs import registry
-from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import tree_leaves
@@ -246,97 +261,37 @@ from repro_torch.sharding import rules
 rank = int(sys.argv[3])
 dist.init_process_group("gloo", init_method=f"file://{sys.argv[4]}", rank=rank, world_size=4)
 mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-d = pickle.load(open(sys.argv[1], "rb"))
-base = dataclasses.replace(registry.get_config("llama32_1b", smoke=True), dtype="float32")
-full = lambda t: t.full_tensor().detach().numpy()
-out = {"train": {}}
-for name, over in d["remats"].items():
-    cfg = dataclasses.replace(base, **over)
-    params = convert.params_from_numpy(d["params"], cfg, device="cpu")
-    state = convert.opt_state_from_numpy(d["opt_state"], cfg, device="cpu")
-    state = steps.place_opt_state(state, params, mesh)
-    params = steps.place(params, rules.param_shardings(params, mesh), mesh)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=d["seq"],
-                                  global_batch=d["batch"]))
-    step = steps.make_train_step(cfg, AdamWConfig(**d["opt"]))
-    metrics = []
-    for i in range(d["steps"]):
-        b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
-        params, state, m = step(params, state, steps.place(b, rules.batch_shardings(b, mesh), mesh))
-        metrics.append({k: float(m[k].full_tensor()) for k in ("loss", "grad_norm", "lr")})
-    out["train"][name] = {"metrics": metrics, "params": [full(p) for p in tree_leaves(params)],
-                          "types": sorted({type(p).__name__ for p in tree_leaves(params)})}
-cfg = base
-params = convert.params_from_numpy(d["params"], cfg, device="cpu")
-params = steps.place(params, rules.param_shardings(params, mesh), mesh)
-batch = {"tokens": torch.from_numpy(d["prompt"])}
-with torch.inference_mode():
-    logits = steps.make_prefill_step(cfg)(params, steps.place(
-        batch, rules.batch_shardings(batch, mesh), mesh))
-out["prefill"] = full(logits)
-caches = T.init_caches(cfg, d["prompt"].shape[0], d["max_len"], device="cpu")
-caches = steps.place(caches, rules.cache_shardings(caches, mesh), mesh)
-out["cache_placements"] = sorted({str(c.placements) for c in tree_leaves(caches)})
-tok = {"t": torch.from_numpy(d["prompt"][:, :1])}
-tok = steps.place(tok, rules.batch_shardings(tok, mesh), mesh)["t"]
-serve = steps.make_serve_step(cfg)
-toks = []
-with torch.inference_mode():
-    for i in range(d["decode_steps"]):
-        tok, caches = serve(params, tok, caches, torch.tensor(i, dtype=torch.int32))
-        toks.append(full(tok))
-out["decode"] = np.stack(toks)
-out["cache_types"] = sorted({type(c).__name__ for c in tree_leaves(caches)})
-# a (1, 4) mesh: one query head a rank and the two kv heads replicated
-# (GQA by global head index), the decode caches' sequence over model
-# (the flash-decoding combine)
+# a (1, 4) mesh: one query head a rank and the two kv heads replicated (GQA by
+# global head index), the decode caches' sequence over model (flash-decoding)
 mesh4 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
-cfg = base
-params = convert.params_from_numpy(d["params"], cfg, device="cpu")
-state = steps.place_opt_state(convert.opt_state_from_numpy(d["opt_state"], cfg, device="cpu"),
-                              params, mesh4)
-params = steps.place(params, rules.param_shardings(params, mesh4), mesh4)
-data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=d["seq"],
-                              global_batch=d["batch"]))
-step = steps.make_train_step(cfg, AdamWConfig(**d["opt"]))
-metrics = []
-for i in range(d["steps"]):
-    b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
-    params, state, m = step(params, state, steps.place(b, rules.batch_shardings(b, mesh4), mesh4))
-    metrics.append({k: float(m[k].full_tensor()) for k in ("loss", "grad_norm", "lr")})
-out["train_1x4"] = {"metrics": metrics, "params": [full(p) for p in tree_leaves(params)]}
-params = convert.params_from_numpy(d["params"], cfg, device="cpu")
-params = steps.place(params, rules.param_shardings(params, mesh4), mesh4)
-caches = T.init_caches(cfg, d["prompt"].shape[0], d["max_len"], device="cpu")
-caches = steps.place(caches, rules.cache_shardings(caches, mesh4), mesh4)
-out["cache_placements_1x4"] = sorted({str(c.placements) for c in tree_leaves(caches)})
-tok = {"t": torch.from_numpy(d["prompt"][:, :1])}
-tok = steps.place(tok, rules.batch_shardings(tok, mesh4), mesh4)["t"]
-toks = []
-with torch.inference_mode():
-    for i in range(d["decode_steps"]):
-        tok, caches = serve(params, tok, caches, torch.tensor(i, dtype=torch.int32))
-        toks.append(full(tok))
-out["decode_1x4"] = np.stack(toks)
+d = pickle.load(open(sys.argv[1], "rb"))
+full = lambda t: t.full_tensor().detach().numpy()
+torch_tree = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def config(arch, fam, **over):
+    base = registry.get_config(arch, smoke=True)
+    return dataclasses.replace(base, dtype="float32", **fam["cfg"], **over)
+
+
+def on(tree, m, shardings):
+    return steps.place(tree, shardings(tree, m), m)
 
 
 def placed(cfg, fam, m):
-    params = convert.params_from_numpy(fam["params"], cfg, device="cpu")
-    return steps.place(params, rules.param_shardings(params, m), m)
+    return on(convert.params_from_numpy(fam["params"], cfg, device="cpu"), m,
+              rules.param_shardings)
 
 
 def train_run(cfg, fam, m):
     params = convert.params_from_numpy(fam["params"], cfg, device="cpu")
     state = steps.place_opt_state(convert.opt_state_from_numpy(fam["opt_state"], cfg,
                                                                device="cpu"), params, m)
-    params = steps.place(params, rules.param_shardings(params, m), m)
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=d["seq"],
-                                  global_batch=d["batch"]))
+    params = on(params, m, rules.param_shardings)
     step = steps.make_train_step(cfg, AdamWConfig(**fam["opt"]))
     metrics = []
-    for i in range(d["steps"]):
-        b = {k: torch.from_numpy(v) for k, v in data.batch(i).items()}
-        params, state, met = step(params, state, steps.place(b, rules.batch_shardings(b, m), m))
+    for b in fam["batches"]:
+        params, state, met = step(params, state, on(torch_tree(b), m, rules.batch_shardings))
         metrics.append({k: float(met[k].full_tensor())
                         for k in ("loss", "grad_norm", "lr", "expert_load_max")})
     return {"metrics": metrics, "params": [full(p) for p in tree_leaves(params)],
@@ -344,20 +299,30 @@ def train_run(cfg, fam, m):
                 met["expert_load_max"]]})}
 
 
+def prefill_run(cfg, fam, m):
+    with torch.inference_mode():
+        return full(steps.make_prefill_step(cfg)(placed(cfg, fam, m), on(
+            torch_tree(fam["prompt"]), m, rules.batch_shardings)))
+
+
 def decode_run(cfg, fam, m):
     params = placed(cfg, fam, m)
-    caches = T.init_caches(cfg, d["prompt"].shape[0], d["max_len"], device="cpu")
-    caches = steps.place(caches, rules.cache_shardings(caches, m), m)
-    tok = {"t": torch.from_numpy(d["prompt"][:, :1])}
-    tok = steps.place(tok, rules.batch_shardings(tok, m), m)["t"]
+    prompt = fam["prompt"]["tokens"]
+    caches = on(T.init_caches(cfg, prompt.shape[0], d["max_len"], device="cpu"), m,
+                rules.cache_shardings)
+    tok = on({"t": torch.from_numpy(prompt[:, :1])}, m, rules.batch_shardings)["t"]
     serve = steps.make_serve_step(cfg)
     toks = []
     with torch.inference_mode():
-        for i in range(d["decode_steps"]):
+        for i in range(fam["decode_steps"]):
             tok, caches = serve(params, tok, caches, torch.tensor(i, dtype=torch.int32))
             toks.append(full(tok))
-    return np.stack(toks), sorted({(path.split("/")[-1], str(c.placements))
-                                   for path, c in rules.leaves_with_path(caches)})
+    return np.stack(toks), caches
+
+
+def placements(tree):
+    return sorted({(path.split("/")[-1], str(c.placements))
+                   for path, c in rules.leaves_with_path(tree)})
 
 
 def expert_placements(params):
@@ -366,46 +331,59 @@ def expert_placements(params):
                    if path.split("/")[-1] in ("w_in", "w_gate", "w_out") and p.dim() == 3})
 
 
-out["families"] = {}
+out = {"families": {}}
+if "llama" in d:
+    fam = d["llama"]
+    base = config("llama32_1b", fam)
+    out["train"] = {name: train_run(config("llama32_1b", fam, **over), fam, mesh)
+                    for name, over in fam["train"].items()}
+    out["prefill"] = prefill_run(base, fam, mesh)
+    out["decode"], caches = decode_run(base, fam, mesh)
+    out["cache_placements"] = sorted({str(c.placements) for c in tree_leaves(caches)})
+    out["cache_types"] = sorted({type(c).__name__ for c in tree_leaves(caches)})
+    out["train_1x4"] = train_run(base, fam, mesh4)
+    out["decode_1x4"], caches = decode_run(base, fam, mesh4)
+    out["cache_placements_1x4"] = sorted({str(c.placements) for c in tree_leaves(caches)})
 for arch, fam in d["families"].items():
-    got = out["families"][arch] = {"train": {}}
-    base = dataclasses.replace(registry.get_config(arch, smoke=True), dtype="float32")
-    for name, over in fam["train"].items():
-        got["train"][name] = train_run(dataclasses.replace(base, **over), fam, mesh)
-    params = placed(base, fam, mesh)
-    got["experts"] = expert_placements(params)
-    with torch.inference_mode():
-        got["prefill"] = full(steps.make_prefill_step(base)(params, steps.place(
-            batch, rules.batch_shardings(batch, mesh), mesh)))
-    got["decode"], got["cache_placements"] = decode_run(base, fam, mesh)
+    got = out["families"][arch] = {}
+    base = config(arch, fam)
+    got["train"] = {name: train_run(config(arch, fam, **over), fam, mesh)
+                    for name, over in fam["train"].items()}
+    got["experts"] = expert_placements(placed(base, fam, mesh))
+    got["prefill"] = prefill_run(base, fam, mesh)
+    got["decode"], caches = decode_run(base, fam, mesh)
+    got["cache_placements"] = placements(caches)
+    got["ring"] = [full(c) for path, c in rules.leaves_with_path(caches) if path.endswith("/pos")]
     if fam["mesh_1x4"]:
         over = next(iter(fam["train"].values()))
-        got["train_1x4"] = train_run(dataclasses.replace(base, **over), fam, mesh4)
+        got["train_1x4"] = train_run(config(arch, fam, **over), fam, mesh4)
         got["experts_1x4"] = expert_placements(placed(base, fam, mesh4))
-        got["decode_1x4"], got["cache_placements_1x4"] = decode_run(base, fam, mesh4)
-# #8 (through causal_attention) and #10 on DTensors: a sequence-sharded
-# q / a sharded last dim is redistributed before the call; forward and
-# backward against the plain tensors
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
-from repro_torch.kernels import ops
-from repro_torch.models.attention import causal_attention
-g = torch.Generator().manual_seed(11)
-leaf = lambda t, pl: distribute_tensor(t, mesh, pl).detach().requires_grad_()
-err = lambda a, b: float((a.full_tensor() - b).abs().max())
-for name, fn, args, pls in (
-        ("flash", causal_attention, [torch.randn(2, 16, h, 8, generator=g) for h in (4, 1, 1)],
-         [(Shard(0), Shard(1))] * 3),
-        ("rmsnorm", lambda x, s: ops.RMSNorm.call(x, s, 1e-6),
-         [torch.randn(4, 6, 32, generator=g), torch.rand(32, generator=g) + 0.5],
-         [(Shard(2), Shard(1)), (Replicate(), Replicate())])):
-    plain = [a.clone().requires_grad_() for a in args]
-    want = fn(*plain)
-    want.sum().backward()
-    dist_args = [leaf(a, pl) for a, pl in zip(args, pls)]
-    got = fn(*dist_args)
-    got.sum().backward()
-    out[name] = {"placements": str(got.placements), "out_err": err(got, want),
-                 "grad_err": max(err(d.grad, p.grad) for d, p in zip(dist_args, plain))}
+        got["decode_1x4"], caches = decode_run(base, fam, mesh4)
+        got["cache_placements_1x4"] = placements(caches)
+if "llama" in d:
+    # #8 (through causal_attention) and #10 on DTensors: a sequence-sharded
+    # q / a sharded last dim is redistributed before the call; forward and
+    # backward against the plain tensors
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import causal_attention
+    g = torch.Generator().manual_seed(11)
+    leaf = lambda t, pl: distribute_tensor(t, mesh, pl).detach().requires_grad_()
+    err = lambda a, b: float((a.full_tensor() - b).abs().max())
+    for name, fn, args, pls in (
+            ("flash", causal_attention, [torch.randn(2, 16, h, 8, generator=g) for h in (4, 1, 1)],
+             [(Shard(0), Shard(1))] * 3),
+            ("rmsnorm", lambda x, s: ops.RMSNorm.call(x, s, 1e-6),
+             [torch.randn(4, 6, 32, generator=g), torch.rand(32, generator=g) + 0.5],
+             [(Shard(2), Shard(1)), (Replicate(), Replicate())])):
+        plain = [a.clone().requires_grad_() for a in args]
+        want = fn(*plain)
+        want.sum().backward()
+        dist_args = [leaf(a, pl) for a, pl in zip(args, pls)]
+        got = fn(*dist_args)
+        got.sum().backward()
+        out[name] = {"placements": str(got.placements), "out_err": err(got, want),
+                     "grad_err": max(err(d.grad, p.grad) for d, p in zip(dist_args, plain))}
 if rank == 0:
     pickle.dump(out, open(sys.argv[2], "wb"))
 dist.destroy_process_group()
@@ -429,32 +407,71 @@ def _ref_state(ref_cfg) -> tuple:
     return tree(params), tuple(tree(s) for s in state)
 
 
-def _inputs() -> dict:
-    """The reference's smoke parameters and AdamW state (numpy) of llama
-    and of each of ``FAMILIES``, the prompt and the run's sizes: what both
-    subprocesses start from."""
-    ref_cfg, _ = cfg_pair()
+def _batches(cfg, seed: int) -> list:
+    """``STEPS`` training batches of (``TRAIN_BATCH``, ``SEQ``) positions:
+    ``SyntheticLM``'s for token models (the reference's pipeline, which the
+    port's equals bit for bit); for the frontends drawn from ``seed``,
+    codebook ids (B, S, K) with their next ids as labels, or a vision
+    model's patch embeddings with the text tokens that fill S."""
+    if cfg.frontend == "none":
+        data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                      global_batch=TRAIN_BATCH))
+        return [data.batch(i) for i in range(STEPS)]
+    return [_frontend_batch(cfg, TRAIN_BATCH, seed + i) for i in range(STEPS)]
+
+
+def _frontend_batch(cfg, b: int, seed: int, labels: bool = True) -> dict:
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_codebooks":
+        toks = rng.integers(0, cfg.vocab_size, (b, SEQ + 1, cfg.n_codebooks), dtype=np.int32)
+    else:
+        toks = rng.integers(0, cfg.vocab_size, (b, SEQ - cfg.n_patches + 1), dtype=np.int32)
+    out = {"tokens": toks[:, :-1]}
+    if labels:
+        out["labels"] = toks[:, 1:]
+    if cfg.frontend == "vision_patches":
+        out["vision_embeds"] = rng.standard_normal((b, cfg.n_patches, cfg.d_model),
+                                                   dtype=np.float32)
+    return out
+
+
+def _family_inputs(arch, spec, opt) -> dict:
+    """What both subprocesses start from for ``arch``: the reference's smoke
+    parameters and AdamW state (numpy), the training batches, the prompt
+    (B ``BATCH`` x S ``SEQ``) and the run's settings."""
+    spec = dict(spec, cfg=spec.get("cfg", {}), decode_steps=spec.get("decode_steps",
+                                                                     DECODE_STEPS))
+    ref_cfg = family_cfgs(arch, **spec["cfg"])[0]
     params, state = _ref_state(ref_cfg)
-    families = {}
-    for arch, spec in FAMILIES.items():
-        fam_params, fam_state = _ref_state(family_cfgs(arch)[0])
-        families[arch] = dict(spec, params=fam_params, opt_state=fam_state, opt=FAMILY_OPT)
-    prompt = np.random.default_rng(5).integers(0, ref_cfg.vocab_size, (BATCH, SEQ),
-                                               dtype=np.int32)
-    return {"params": params, "opt_state": state,
-            "remats": REMATS, "opt": OPT, "steps": STEPS, "seq": SEQ, "batch": 2,
-            "prompt": prompt, "max_len": MAX_LEN, "decode_steps": DECODE_STEPS,
-            "shard_cases": SHARD_CASES, "families": families, "moe_shapes": MOE_SHAPES}
+    if ref_cfg.frontend == "none":
+        prompt = {"tokens": np.random.default_rng(5).integers(
+            0, ref_cfg.vocab_size, (BATCH, SEQ), dtype=np.int32)}
+    else:
+        prompt = _frontend_batch(ref_cfg, BATCH, 5, labels=False)
+    return dict(spec, params=params, opt_state=state, opt=opt,
+                batches=_batches(ref_cfg, 7), prompt=prompt)
 
 
-def _run_both(root: pathlib.Path) -> dict:
-    """The reference's run and the port's four ranks, started together; the
+def _inputs(archs, llama: bool) -> dict:
+    """The inputs of one pair of runs: the families ``archs`` (and llama,
+    with the ``shard`` and MoE spec cases, where ``llama``)."""
+    out = {"max_len": MAX_LEN,
+           "families": {a: _family_inputs(a, FAMILIES[a], FAMILY_OPT) for a in archs}}
+    if llama:
+        out["llama"] = _family_inputs("llama32_1b", dict(train=REMATS), OPT)
+        out.update(shard_cases=SHARD_CASES, moe_shapes=MOE_SHAPES)
+    return out
+
+
+def _run_both(root: pathlib.Path, inputs_of) -> dict:
+    """The reference's run and the port's four ranks, started together on
+    ``inputs_of()``; the
     ranks meet through a file store (no port to race for).  Each process
     writes its output to a file of its own; when one fails, or the run
     outlasts ``RUN_TIMEOUT``, the others are killed and every process's
     stderr is shown."""
     inputs, ref_out, port_out = root / "in.pkl", root / "ref.pkl", root / "port.pkl"
-    inputs.write_bytes(pickle.dumps(_inputs()))
+    inputs.write_bytes(pickle.dumps(inputs_of()))
     store = root / "pg_store"
     store.unlink(missing_ok=True)
     cmds = [("ref", [REF, inputs, ref_out])]
@@ -485,14 +502,14 @@ def _run_both(root: pathlib.Path) -> dict:
     return {"ref": pickle.loads(ref_out.read_bytes()), "port": pickle.loads(port_out.read_bytes())}
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both sharded runs, made once a session: under xdist every worker's
-    temporary root shares a parent, and a lock there lets one worker run
-    them while the others wait and read its results, or its failure."""
+def _shared_runs(tmp_path_factory, name: str, inputs_of) -> dict:
+    """A pair of sharded runs, made once a session: under xdist every
+    worker's temporary root shares a parent, and a lock there (one a pair,
+    in the folder ``name``) lets one worker make them while the others wait
+    and read its results, or its failure."""
     base = tmp_path_factory.getbasetemp()
     root = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
-    root = root / "torch_sharded"
+    root = root / name
     root.mkdir(exist_ok=True)
     done, failed = root / "runs.pkl", root / "failed.txt"
     with open(root / "lock", "w") as lock:
@@ -501,11 +518,31 @@ def runs(tmp_path_factory):
             pytest.fail(f"the sharded runs failed in another worker:\n{failed.read_text()}")
         if not done.exists():
             try:
-                done.write_bytes(pickle.dumps(_run_both(root)))
+                done.write_bytes(pickle.dumps(_run_both(root, inputs_of)))
             except BaseException as e:
                 failed.write_text(f"{type(e).__name__}: {e}")
                 raise
     return pickle.loads(done.read_bytes())
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """llama and the families before ``LAST_FOUR``, sharded on both sides."""
+    first = [a for a in FAMILIES if a not in LAST_FOUR]
+    return _shared_runs(tmp_path_factory, "torch_sharded", lambda: _inputs(first, llama=True))
+
+
+@pytest.fixture(scope="module")
+def last_runs(tmp_path_factory):
+    """The families of ``LAST_FOUR``, sharded on both sides: a pair of runs
+    of its own, which another xdist worker can make beside the first."""
+    return _shared_runs(tmp_path_factory, "torch_sharded_last",
+                        lambda: _inputs(LAST_FOUR, llama=False))
+
+
+def family_runs(request, arch) -> dict:
+    """The pair of runs that holds ``arch``."""
+    return request.getfixturevalue("last_runs" if arch in LAST_FOUR else "runs")
 
 
 def ref_leaves(tree, cfg):
@@ -592,41 +629,71 @@ def _check_family_train(ref, port, arch, over):
         for key in ("loss", "grad_norm", "lr"):
             np.testing.assert_allclose(got[key], want[key], rtol=TOL, err_msg=key)
         assert got["expert_load_max"] == want["expert_load_max"]
-    _, cfg = family_cfgs(arch, **over)
+    _, cfg = family_cfgs(arch, **FAMILIES[arch].get("cfg", {}), **over)
     for got, want in zip(port["params"], ref_leaves(ref["params"], cfg), strict=True):
         np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("arch,name", FAMILY_TRAINS)
-def test_sharded_family_train_step_matches_the_reference(runs, arch, name):
+def test_sharded_family_train_step_matches_the_reference(request, arch, name):
     """Three ``make_train_step`` steps (remat "full") of the smoke MoE and
     MLA families (granite-moe in both dispatches; DeepSeek with its dense
-    stack and MTP) and of the dense-path gemma-2b, granite-8b and
-    command-r-35b on the (2, 2) mesh equal the reference's sharded steps
-    (AdamW with ``FAMILY_OPT``): loss, grad_norm and lr within 1e-4,
-    ``expert_load_max`` equal (the ranks' whole-number counts summed
-    before the mean), every final parameter within 1e-4."""
-    ref = runs["ref"]["families"][arch]["train"][name]
-    port = runs["port"]["families"][arch]["train"][name]
+    stack and MTP), of the dense-path gemma-2b, granite-8b and
+    command-r-35b, of Mamba-2 (two SSD chunks), recurrentgemma (its local
+    window of 8 two bands of the 16 tokens) and of the two frontends on the
+    (2, 2) mesh equal the reference's sharded steps (AdamW with
+    ``FAMILY_OPT``): loss, grad_norm and lr within 1e-4, ``expert_load_max``
+    equal (the ranks' whole-number counts summed before the mean), every
+    final parameter within 1e-4."""
+    got = family_runs(request, arch)
+    ref = got["ref"]["families"][arch]["train"][name]
+    port = got["port"]["families"][arch]["train"][name]
     _check_family_train(ref, port, arch, FAMILIES[arch]["train"][name])
 
 
+def logits_shape(arch) -> tuple:
+    """The prefill's last logits (B, 1, V), (B, 1, K, V) for audio."""
+    cfg = registry.get_config(arch, smoke=True)
+    k = (cfg.n_codebooks,) if cfg.frontend == "audio_codebooks" else ()
+    return (BATCH, 1, *k, cfg.padded_vocab)
+
+
 @pytest.mark.parametrize("arch", list(FAMILIES))
-def test_sharded_family_prefill_matches_the_reference(runs, arch):
-    got, want = runs["port"]["families"][arch]["prefill"], runs["ref"]["families"][arch]["prefill"]
-    assert got.shape == want.shape == (BATCH, 1, 256)
+def test_sharded_family_prefill_matches_the_reference(request, arch):
+    """The last logits of a prompt of ``SEQ`` positions (internvl2's
+    patches and text, musicgen's two codebooks a position) within 1e-4."""
+    got = family_runs(request, arch)
+    got, want = got["port"]["families"][arch]["prefill"], got["ref"]["families"][arch]["prefill"]
+    assert got.shape == want.shape == logits_shape(arch)
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("arch", list(FAMILIES))
-def test_sharded_family_decode_tokens_equal_the_reference(runs, arch):
-    """Six greedy steps on the (2, 2) mesh, the caches placed by
-    ``cache_shardings`` and written on each rank's shard (DeepSeek's latent
-    sequence over ``model``: the flash-decoding combine)."""
-    port = runs["port"]["families"][arch]
-    np.testing.assert_array_equal(port["decode"], runs["ref"]["families"][arch]["decode"])
-    if arch == "deepseek_v3_671b":
-        assert ("c_kv", "(Shard(dim=0), Shard(dim=1))") in port["cache_placements"]
+def test_sharded_family_decode_tokens_equal_the_reference(request, arch):
+    """Six greedy steps on the (2, 2) mesh (twelve for recurrentgemma, whose
+    ring of 8 slots wraps), the caches placed by ``cache_shardings`` and
+    written on each rank's shard: DeepSeek's latent and recurrentgemma's
+    ring with their sequence over ``model`` (the flash-decoding combine),
+    Mamba-2's conv window on channel and its state on head shards,
+    the RG-LRU's window and state on width shards; musicgen's tokens (B,
+    1, K)."""
+    got = family_runs(request, arch)
+    port, ref = got["port"]["families"][arch], got["ref"]["families"][arch]
+    np.testing.assert_array_equal(port["decode"], ref["decode"])
+    steps_run = FAMILIES[arch].get("decode_steps", DECODE_STEPS)
+    k = logits_shape(arch)[2:-1]
+    assert port["decode"].shape == (steps_run, BATCH, 1, *k)
+    want = {"deepseek_v3_671b": [("c_kv", "(Shard(dim=0), Shard(dim=1))")],
+            "mamba2_2p7b": [("conv", "(Shard(dim=0), Shard(dim=2))"),
+                            ("ssm", "(Shard(dim=0), Shard(dim=1))")],
+            "recurrentgemma_9b": [("k", "(Shard(dim=0), Shard(dim=2))"),
+                                  ("conv", "(Shard(dim=0), Shard(dim=2))"),
+                                  ("h", "(Shard(dim=0), Shard(dim=1))")]}.get(arch, [])
+    assert set(want) <= set(port["cache_placements"]), port["cache_placements"]
+    if arch == "recurrentgemma_9b":
+        window = FAMILIES[arch]["cfg"]["local_window"]
+        for ring in port["ring"]:  # each local layer's slots hold the last 8 positions
+            assert sorted(ring.tolist()) == list(range(steps_run - window, steps_run))
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
@@ -644,6 +711,25 @@ def test_sharded_family_step_on_a_1x4_mesh_matches_the_reference(runs, arch):
                                                  "(Shard(dim=2), Shard(dim=0))"}
     if arch == "deepseek_v3_671b":
         assert ("c_kv", "(Shard(dim=0), Shard(dim=1))") in port["cache_placements_1x4"]
+    np.testing.assert_array_equal(port["decode_1x4"], ref["decode"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_sharded_recurrent_family_step_on_a_1x4_mesh_matches_the_reference(last_runs, arch):
+    """The four ranks as a (1, 4) mesh: Mamba-2's 8 heads two a rank (its
+    projection's 296 columns 74 a rank, the edges of z, x, B, C and dt
+    inside them), recurrentgemma's width of 64 16 a rank and its ring of 8
+    slots two a rank, its one kv head replicated under one query head a
+    rank; three train steps within 1e-4 of the reference's (2, 2) run and
+    the decode tokens equal."""
+    ref, port = last_runs["ref"]["families"][arch], last_runs["port"]["families"][arch]
+    name = next(iter(FAMILIES[arch]["train"]))
+    _check_family_train(ref["train"][name], port["train_1x4"], arch, FAMILIES[arch]["train"][name])
+    want = {"mamba2_2p7b": [("conv", "(Shard(dim=0), Shard(dim=2))"),
+                            ("ssm", "(Shard(dim=0), Shard(dim=1))")],
+            "recurrentgemma_9b": [("k", "(Shard(dim=0), Shard(dim=2))"),
+                                  ("h", "(Shard(dim=0), Shard(dim=1))")]}[arch]
+    assert set(want) <= set(port["cache_placements_1x4"]), port["cache_placements_1x4"]
     np.testing.assert_array_equal(port["decode_1x4"], ref["decode"])
 
 
@@ -793,6 +879,10 @@ FAMILY_CELLS = [(mesh, arch, shape, batch, seq) for mesh in ("single", "multi")
                 for arch in MOE_ARCHS
                 for shape, batch, seq in (("train_4k", 32, 256), ("prefill_32k", 16, 256),
                                           ("decode_32k", 64, 512))]
+# the last four smoke families (head dim 64) at the same cut shapes, on 16x16
+LAST_FAMILY_CELLS = [("single", arch, shape, batch, seq) for arch in LAST_FOUR
+                     for shape, batch, seq in (("train_4k", 32, 256), ("prefill_32k", 16, 256),
+                                               ("decode_32k", 64, 512))]
 
 
 @pytest.mark.parametrize("mesh_name,arch,shape,batch,seq", CELLS)
@@ -814,6 +904,18 @@ def test_dry_run_of_the_moe_and_mla_families_on_the_production_meshes(
     """As llama's cells, for the smoke granite-moe (experts over ``model``)
     and the smoke DeepSeek (MLA, its dense stack and the MoE): the step
     runs sharded, with every invariant of llama's cells."""
+    monkeypatch.setattr(registry, "get_config", smoke_llama)
+    _check_cell(tmp_path, arch, mesh_name, shape, batch, seq)
+
+
+@pytest.mark.parametrize("mesh_name,arch,shape,batch,seq", LAST_FAMILY_CELLS)
+def test_dry_run_of_the_last_four_families_on_the_production_mesh(
+        monkeypatch, tmp_path, mesh_name, arch, shape, batch, seq):
+    """As llama's cells, for the smoke mamba2 (heads over ``model`` where
+    they divide), recurrentgemma (the width over ``model``, the ring's
+    slots), internvl2 (patch embeddings) and musicgen (codebooks on vocab
+    shards) on the 16x16 mesh: the step runs sharded, with every invariant
+    of llama's cells."""
     monkeypatch.setattr(registry, "get_config", smoke_llama)
     _check_cell(tmp_path, arch, mesh_name, shape, batch, seq)
 
@@ -840,30 +942,26 @@ def _check_cell(tmp_path, arch, mesh_name, shape, batch, seq):
 @pytest.mark.parametrize("arch", registry.ARCHS)
 def test_paths_that_do_not_run_sharded_refuse_dtensors(arch):
     """Each arch's smoke prefill on DTensors over a fake (2, 2) group on
-    ``meta``: the paths of ``transformer.runs_sharded`` (every mixer
-    ``attn`` or ``mla``, any FFN, no frontend: the dense path, granite-moe
-    and DeepSeek) run and give the (B, 1, V) logits; any other mixer or a
-    frontend raises ``NotImplementedError`` naming ROADMAP A4d."""
+    ``meta``: every arch is of ``transformer.runs_sharded`` (every mixer,
+    FFN and frontend) and its prefill runs, giving the (B, 1, V) logits,
+    (B, 1, K, V) for audio; the one path that still refuses DTensors, the
+    mqr-KV sparse decode, is held by
+    :func:`test_the_mqr_sparse_decode_refuses_dtensors`."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
 
     from repro_torch.models import transformer as T
 
     cfg = dataclasses.replace(registry.get_config(arch, smoke=True), head_dim=64)
-    dense = (set(cfg.block_pattern + cfg.tail_pattern) <= {"attn", "mla"}
-             and cfg.frontend == "none")
-    assert T.runs_sharded(cfg) == dense
+    assert T.runs_sharded(cfg)
+    k = (cfg.n_codebooks,) if cfg.frontend == "audio_codebooks" else ()
     with fake_group(4):
         mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
         args = dryrun.place_args(dryrun.cell_args(cfg, "prefill_32k", 4, 128), "prefill", mesh)
         step = dryrun.step_fn(cfg, "prefill_32k")
         with torch.inference_mode():
-            if dense:
-                out = step(*args)
-                assert isinstance(out, DTensor) and out.shape == (4, 1, cfg.padded_vocab)
-            else:
-                with pytest.raises(NotImplementedError, match="A4d"):
-                    step(*args)
+            out = step(*args)
+        assert isinstance(out, DTensor) and out.shape == (4, 1, *k, cfg.padded_vocab)
 
 
 @pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
@@ -924,9 +1022,10 @@ def test_the_mqr_sparse_decode_refuses_dtensors(arch):
 
 
 def test_dry_run_keeps_argument_bytes_where_the_step_does_not_run_sharded(tmp_path):
-    """The mqr-KV sparse decode and the other families keep the rules'
-    argument bytes, with a note naming ROADMAP A4d and nothing counted."""
+    """The mqr-KV sparse decode, of the attention and the MLA mixer, keeps
+    the rules' argument bytes, with a note naming ROADMAP A4d and nothing
+    counted."""
     rec = dryrun.run_cell("llama32_1b", "long_500k", "single", tmp_path, force=True)
     assert rec["cost"] is None and rec["collectives"] is None and "A4d" in rec["note"]
-    rec = dryrun.run_cell("mamba2_2p7b", "train_4k", "multi", tmp_path, force=True)
+    rec = dryrun.run_cell("deepseek_v3_671b", "long_500k", "multi", tmp_path, force=True)
     assert rec["cost"] is None and rec["memory"]["argument_bytes_per_device"] > 0
